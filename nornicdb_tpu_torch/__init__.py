@@ -1,0 +1,27 @@
+"""NornicDB's vector-search tier in PyTorch, with hand-written CUDA kernels
+for the NVIDIA H100 (sm_90a).
+
+A port of ``nornicdb_tpu`` (JAX on a TPU), kept beside it: the module names
+mirror the JAX package's so each module's counterpart is easy to find, and
+the tests hold every ported function against the JAX one on the same
+inputs. The port imports ``torch`` and never ``jax`` or ``nornicdb_tpu``.
+
+Every entry point takes ``device=None``, which means CUDA: without a card
+it raises DeviceUnavailable. The CPU runs only when the caller passes
+``device="cpu"`` (the tests do), and then each kernel's plain PyTorch
+version runs in its place.
+"""
+
+from nornicdb_tpu_torch._device import resolve_device
+from nornicdb_tpu_torch.errors import (
+    DeviceUnavailable,
+    NornicError,
+    ResourceExhausted,
+)
+
+__all__ = [
+    "DeviceUnavailable",
+    "NornicError",
+    "ResourceExhausted",
+    "resolve_device",
+]

@@ -1,0 +1,22 @@
+"""Error types of the port: copies of the ones the search slice raises
+(``nornicdb_tpu/errors.py``), kept here so the port imports nothing of the
+JAX package."""
+
+
+class NornicError(Exception):
+    """Base class for all framework errors."""
+
+
+class ResourceExhausted(NornicError):
+    """Serving admission control shed this request (queue full or deadline
+    passed). Clients should back off and retry. Raised by the bounded
+    QueryBatcher."""
+
+    def __init__(self, message: str, reason: str = "queue_full"):
+        super().__init__(message)
+        self.reason = reason  # queue_full | deadline
+
+
+class DeviceUnavailable(NornicError):
+    """The accelerator is not available. The port never falls back to the
+    CPU on its own: a caller that wants the CPU passes ``device="cpu"``."""

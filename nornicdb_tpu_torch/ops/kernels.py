@@ -1,0 +1,319 @@
+"""Hand-written Hopper kernels of the search path, and their wrappers.
+
+Counterpart of ``nornicdb_tpu/ops/pallas_kernels.py`` for the three kernels
+on the serving path:
+
+============================  ==============================  =======================
+TPU kernel (pallas_kernels)   CUDA kernel (ops/csrc)          wrapper here
+============================  ==============================  =======================
+_streaming_topk_kernel        streaming_topk_bf16_kernel      streaming_cosine_topk
+_streaming_topk_int8_kernel   streaming_topk_i8_kernel        streaming_cosine_topk_int8
+_extract_topk_kernel          extract_topk_kernel             _topk_bins("pallas")
+============================  ==============================  =======================
+
+Each wrapper checks device, dtype, shape and contiguity. For a CUDA tensor
+it launches its kernel (built from ``ops/csrc`` on first use) or raises; for
+a CPU tensor it runs the kernel's plain version (``ops/kernels_ref.py``).
+Every launch adds one to the kernel's count in ``launch_counts()``.
+
+The bin geometry ``(rows, tile_n, tile_bits)`` is part of the result (it sets
+recall and decode) and stays exactly the TPU kernels'; only the CUDA tiling
+differs. The epilogues (``_topk_bins`` "sort", ``_decode_packed``) are plain
+torch ops, as they were XLA ops in the JAX package. ``epilogue="approx"``
+runs the exact sort: there is no approximate top-k in PyTorch, and exact
+keeps at least the recall the approximate one promised.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from nornicdb_tpu_torch.ops import _build, kernels_ref
+
+LANE = 128
+INT32_MIN = kernels_ref.INT32_MIN
+# CTA tile of the streaming kernels (streaming_topk.cu BM/BN): tile_n must
+# be a multiple of it on the card (pick_tile_n always gives one)
+CUDA_TILE_COLS = 128
+# corpus types of the bf16 streaming kernel -> its c_dtype code
+_CORPUS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+EPILOGUES = ("sort", "approx", "pallas")
+# shared memory the extract kernel may take for one row of bins (H100)
+_EXTRACT_MAX_BINS = 232_448 // 4
+
+_count_lock = threading.Lock()
+_LAUNCHES = {
+    "streaming_topk_bf16": 0,
+    "streaming_topk_int8": 0,
+    "extract_topk": 0,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset (CUDA launches only)."""
+    with _count_lock:
+        return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        _LAUNCHES[name] += 1
+
+
+def _check(t: torch.Tensor, name: str, dtype, ndim: int,
+           device: torch.device) -> None:
+    """``dtype``: one torch dtype, or a collection of the accepted ones."""
+    ok = t.dtype in dtype if isinstance(dtype, (tuple, dict)) else t.dtype == dtype
+    if not ok:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(name: str, fn, *args, device: torch.device) -> None:
+    """Call a C entry point on the current stream of ``device``; raise on a
+    refused launch (a refused launch never runs, and a later synchronize
+    would not report it)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(*args, stream)
+    if err != 0:
+        torch.cuda.check_error(err)
+    _count(name)
+
+
+# --------------------------------------------------------- host helpers
+def pick_tile_n(n: int, preferred: int = 1024) -> int:
+    """Largest power-of-two tile (>=128) that divides n, capped at
+    `preferred`. Corpus capacities are LANE (128) multiples, so 128 always
+    divides; bigger tiles amortize per-tile overhead."""
+    t = preferred
+    while t > LANE and n % t != 0:
+        t //= 2
+    return t
+
+
+def streaming_rows_for(k: int, tile_n: int, target_bins_per_k: int = 20) -> int:
+    """Bin rows so B = rows*tile_n >= target_bins_per_k * k (recall knob)."""
+    need = max(2 * tile_n, target_bins_per_k * k)
+    return -(-need // tile_n)  # ceil div
+
+
+def streaming_geometry(n: int, tile_n: int, rows: int) -> tuple[int, int, int]:
+    """(n_tiles, rows, tile_bits) of the packed bins, as the TPU kernels
+    derive them."""
+    if n % tile_n != 0:
+        raise ValueError(f"N ({n}) must be a multiple of tile_n ({tile_n})")
+    n_tiles = n // tile_n
+    rows = min(rows, n_tiles)
+    tile_bits = max(1, (n_tiles - 1).bit_length())
+    return n_tiles, rows, tile_bits
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization: returns (int8 rows, scales) with
+    x ~= int8 / scale. Same codes as quantize_rows_np (round half to even)."""
+    xf = x.to(torch.float32)
+    m = torch.clamp(xf.abs().amax(dim=1), min=1e-9)
+    # a true division (``127.0 / m`` would run as reciprocal-then-multiply)
+    s = torch.full_like(m, 127.0) / m
+    return torch.round(xf * s[:, None]).to(torch.int8), s
+
+
+# ------------------------------------------------------- streaming bins
+def streaming_bins(
+    queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor,
+    tile_n: int, rows: int,
+) -> torch.Tensor:
+    """(rows', Q, tile_n) int32 packed bins of the bf16 streaming top-k
+    (rows' = min(rows, n_tiles)). queries (Q, D) and corpus (N, D) are
+    L2-normalized float32, bfloat16 or float16 rows (both are rounded to
+    bf16 for the product, as the TPU kernel casts them); valid (N,) bool."""
+    dev = queries.device
+    _check(queries, "queries", _CORPUS_DTYPES, 2, dev)
+    _check(corpus, "corpus", _CORPUS_DTYPES, 2, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    (q, d), n = queries.shape, corpus.shape[0]
+    if corpus.shape[1] != d or valid.shape[0] != n:
+        raise ValueError("queries/corpus/valid shapes disagree")
+    n_tiles, rows, tile_bits = streaming_geometry(n, tile_n, rows)
+    if dev.type != "cuda":
+        return kernels_ref.streaming_bins_bf16(
+            queries, corpus, valid, tile_n, rows, tile_bits)
+    # the kernel reads float32 queries: a (Q, D) copy, rounded to bf16 the same
+    return _launch_streaming(
+        "streaming_topk_bf16", (queries.float(), corpus, valid), q, d, tile_n,
+        n_tiles, rows, tile_bits, _CORPUS_DTYPES[corpus.dtype])
+
+
+def streaming_bins_int8(
+    q_i8: torch.Tensor, c_i8: torch.Tensor, c_scale: torch.Tensor,
+    valid: torch.Tensor, tile_n: int, rows: int,
+) -> torch.Tensor:
+    """Packed bins of the int8 streaming top-k (quantize_rows codes of
+    normalized queries / corpus; c_scale (N,) float32)."""
+    dev = q_i8.device
+    _check(q_i8, "q_i8", torch.int8, 2, dev)
+    _check(c_i8, "c_i8", torch.int8, 2, dev)
+    _check(c_scale, "c_scale", torch.float32, 1, dev)
+    _check(valid, "valid", torch.bool, 1, dev)
+    (q, d), n = q_i8.shape, c_i8.shape[0]
+    if c_i8.shape[1] != d or valid.shape[0] != n or c_scale.shape[0] != n:
+        raise ValueError("q_i8/c_i8/c_scale/valid shapes disagree")
+    n_tiles, rows, tile_bits = streaming_geometry(n, tile_n, rows)
+    if dev.type != "cuda":
+        return kernels_ref.streaming_bins_int8(
+            q_i8, c_i8, c_scale, valid, tile_n, rows, tile_bits)
+    return _launch_streaming(
+        "streaming_topk_int8", (q_i8, c_i8, c_scale, valid), q, d, tile_n,
+        n_tiles, rows, tile_bits)
+
+
+def _launch_streaming(name: str, inputs: tuple, q: int, d: int, tile_n: int,
+                      n_tiles: int, rows: int, tile_bits: int,
+                      c_dtype: int | None = None) -> torch.Tensor:
+    """Launch a streaming kernel of ``streaming_topk.cu`` into fresh
+    INT32_MIN-filled (rows, Q, tile_n) bins. CTAs own (bin row, 128
+    queries, 128 columns); each bin row's tile loop is split over enough
+    CTAs to put about two on every SM (small Q gives a small grid)."""
+    if tile_n % CUDA_TILE_COLS != 0:
+        raise ValueError(f"{name}: the CUDA kernel needs tile_n % "
+                         f"{CUDA_TILE_COLS} == 0 (got {tile_n})")
+    dev = inputs[0].device
+    ctas = -(-q // 128) * rows * (tile_n // CUDA_TILE_COLS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(-(-n_tiles // rows), -(-2 * sms // ctas)))
+    bins = torch.full((rows, q, tile_n), INT32_MIN, dtype=torch.int32,
+                      device=dev)
+    lib = _build.library("streaming_topk")
+    args = [*(t.data_ptr() for t in inputs), bins.data_ptr(), q, d, tile_n,
+            n_tiles, rows, tile_bits, splits]
+    if c_dtype is None:
+        _launch(name, lib.nornic_streaming_topk_i8, *args, device=dev)
+    else:
+        _launch(name, lib.nornic_streaming_topk_bf16, *args, c_dtype,
+                device=dev)
+    return bins
+
+
+# -------------------------------------------------------------- epilogue
+def topk_lowest_index(x: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis of a float32 or int32 (Q, N) tensor, ties
+    broken by the lowest index (lax.top_k's rule; torch.topk promises no
+    tie order). Ranks the unique int64 keys (order-preserving int32 view
+    << 32) | (2**32 - 1 - index)."""
+    if x.dtype == torch.float32:
+        bits = x.view(torch.int32)
+        ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # monotone int view
+    elif x.dtype == torch.int32:
+        ordered = x
+    else:
+        raise TypeError(f"topk_lowest_index: unsupported dtype {x.dtype}")
+    n = x.shape[-1]
+    rev = (2**32 - 1) - torch.arange(n, dtype=torch.int64, device=x.device)
+    key = ordered.to(torch.int64) * (2**32) + rev
+    pos = torch.topk(key, k, dim=-1).indices
+    return torch.gather(x, -1, pos), pos
+
+
+def _extract_topk(flat: torch.Tensor, k: int, kpad: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact iterative top-k over (Q, B) packed bins (extract_topk.cu)."""
+    dev = flat.device
+    _check(flat, "bins", torch.int32, 2, dev)
+    q, b = flat.shape
+    if not 1 <= k <= min(b, kpad):
+        raise ValueError(f"extract_topk: need 1 <= k <= min(B, kpad), k={k}")
+    if dev.type != "cuda":
+        return kernels_ref.extract_topk(flat, k, kpad)
+    if b > _EXTRACT_MAX_BINS:
+        raise ValueError(
+            f"extract_topk: B={b} bins exceed one CTA's shared memory")
+    out_v = torch.empty((q, kpad), dtype=torch.int32, device=dev)
+    out_i = torch.empty((q, kpad), dtype=torch.int32, device=dev)
+    lib = _build.library("extract_topk")
+    _launch("extract_topk", lib.nornic_extract_topk,
+            flat.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), q, b, k,
+            kpad, device=dev)
+    return out_v, out_i
+
+
+def _topk_bins(flat: torch.Tensor, k: int, *, epilogue: str
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the (Q, B) packed-bin matrix: "sort" (and "approx", which
+    runs the same exact sort here) ranks with lowest-index ties; "pallas"
+    runs the extract kernel. Both give identical values and bin ids."""
+    b = flat.shape[1]
+    k = min(k, b)
+    if epilogue in ("sort", "approx"):
+        return topk_lowest_index(flat, k)
+    if epilogue == "pallas":
+        kpad = -(-k // LANE) * LANE  # padded as the TPU kernel pads lanes
+        out_v, out_i = _extract_topk(flat, k, kpad)
+        return out_v[:, :k], out_i[:, :k].to(torch.int64)
+    raise ValueError(f"unknown epilogue {epilogue!r}")
+
+
+def _decode_packed(bins: torch.Tensor, *, k: int, n: int, rows: int,
+                   tile_n: int, tile_bits: int, epilogue: str = "sort"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over packed bins + decode (score, global row)."""
+    q = bins.shape[1]
+    flat = bins.permute(1, 0, 2).reshape(q, rows * tile_n)
+    top_packed, top_bin = _topk_bins(flat, k, epilogue=epilogue)
+    low_mask = (1 << tile_bits) - 1
+    tile_idx = (top_packed & low_mask).to(torch.int64)
+    idx = tile_idx * tile_n + top_bin % tile_n
+    # midpoint-reconstruct the truncated mantissa bits, then un-bias
+    score_bits = (top_packed & ~low_mask) | (1 << (tile_bits - 1))
+    vals = score_bits.view(torch.float32) - 3.0
+    vals = torch.where(top_packed > 0, vals, float("-inf"))
+    return vals, idx.clamp(0, n - 1)
+
+
+# ----------------------------------------------------------- entry points
+def streaming_cosine_topk(
+    queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor,
+    k: int, tile_n: int = 512, rows: int = 4, epilogue: str = "sort",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-pass cosine top-k that never materializes (Q, N).
+
+    queries: (Q, D) L2-normalized float32; corpus: (N, D) L2-normalized
+    float32 rows (rows masked by `valid` may hold anything); valid: (N,)
+    bool. N must be a multiple of tile_n. Returns (values (Q, k) float32,
+    indices (Q, k) int64); values carry bf16-GEMM accuracy truncated to the
+    packed bins' resolution; masked rows never appear."""
+    n = corpus.shape[0]
+    bins = streaming_bins(queries, corpus, valid, tile_n, rows)
+    _, rows, tile_bits = streaming_geometry(n, tile_n, rows)
+    return _decode_packed(bins, k=k, n=n, rows=rows, tile_n=tile_n,
+                          tile_bits=tile_bits, epilogue=epilogue)
+
+
+def streaming_cosine_topk_int8(
+    q_i8: torch.Tensor, q_scale: torch.Tensor, c_i8: torch.Tensor,
+    c_scale: torch.Tensor, valid: torch.Tensor, k: int, tile_n: int = 512,
+    rows: int = 4, epilogue: str = "sort",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 single-pass cosine top-k. Inputs are quantize_rows() outputs of
+    L2-normalized queries/corpus; valid: (N,) bool. Returns (values (Q, k)
+    ~cosine scores, indices (Q, k))."""
+    n = c_i8.shape[0]
+    bins = streaming_bins_int8(q_i8, c_i8, c_scale, valid, tile_n, rows)
+    _, rows, tile_bits = streaming_geometry(n, tile_n, rows)
+    vals, idx = _decode_packed(bins, k=k, n=n, rows=rows, tile_n=tile_n,
+                               tile_bits=tile_bits, epilogue=epilogue)
+    return vals / q_scale[:, None], idx

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU with the CUDA toolkit (the kernels are built
+from ``nornicdb_tpu_torch/ops/csrc`` on first use); without one they skip.
+Run them on a machine with a card:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which a GPU machine
+need not have; these tests use only torch and the port.)
+
+Tolerances: the int8 bins and the extract kernel are integer work and must
+be bit-identical; the bf16 kernel sums its products in another order than
+the plain version, so decoded values may differ by one packed-bin step
+(2**(tile_bits - 21)) and ids only where two scores are that close.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nornicdb_tpu_torch.ops import kernels as K
+from nornicdb_tpu_torch.ops import kernels_ref as R
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _inputs(card, q=40, n=4096, d=128, seed=0):
+    rng = np.random.default_rng(seed)
+    qs = torch.from_numpy(_unit(rng, q, d)).to(card)
+    c = torch.from_numpy(_unit(rng, n, d)).to(card)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(card)
+    return qs, c, valid
+
+
+@pytest.mark.parametrize("tile_n,rows", [(128, 8), (256, 4), (512, 16)])
+def test_int8_bins_bit_identical(card, tile_n, rows):
+    qs, c, valid = _inputs(card)
+    q_i8, _ = K.quantize_rows(qs)
+    c_i8, c_scale = K.quantize_rows(c)
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], tile_n, rows)
+    before = K.launch_counts()["streaming_topk_int8"]
+    got = K.streaming_bins_int8(q_i8, c_i8, c_scale, valid, tile_n, rows)
+    want = R.streaming_bins_int8(q_i8, c_i8, c_scale, valid, tile_n, rows,
+                                 tile_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert K.launch_counts()["streaming_topk_int8"] == before + 1
+
+
+@pytest.mark.parametrize("q", [1, 40, 300])
+def test_bf16_bins_within_one_step(card, q):
+    qs, c, valid = _inputs(card, q=q)
+    tile_n, k = 128, 50
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], tile_n, 8)
+    got = K.streaming_bins(qs, c, valid, tile_n, rows)
+    want = R.streaming_bins_bf16(qs, c, valid, tile_n, rows, tile_bits)
+    dec = dict(k=k, n=c.shape[0], rows=rows, tile_n=tile_n, tile_bits=tile_bits)
+    vg, ig = K._decode_packed(got, **dec)
+    vw, iw = K._decode_packed(want, **dec)
+    tol = 2.0 ** (tile_bits - 21) + 1e-5
+    assert float((vg - vw).abs().max()) <= tol
+    assert bool(valid[ig].all())
+    overlap = np.mean([len(set(a) & set(b)) / k for a, b in
+                       zip(ig.cpu().tolist(), iw.cpu().tolist())])
+    assert overlap >= 0.95
+
+
+@pytest.mark.parametrize("k", [1, 100, 200])
+def test_extract_equals_plain_and_sort(card, k):
+    rng = np.random.default_rng(1)
+    # few distinct values: many ties, which must break to the lowest bin
+    flat = torch.from_numpy(
+        rng.integers(0, 50, size=(37, 2048)).astype(np.int32)).to(card)
+    kpad = -(-k // K.LANE) * K.LANE
+    ev, ei = K._extract_topk(flat, k, kpad)
+    pv, pi = R.extract_topk(flat, k, kpad)
+    sv, si = K._topk_bins(flat, k, epilogue="sort")
+    torch.cuda.synchronize()
+    assert torch.equal(ev, pv) and torch.equal(ei, pi)
+    assert torch.equal(ev[:, :k], sv) and torch.equal(ei[:, :k].long(), si)
+
+
+@pytest.mark.parametrize("d", [130, 100, 1])
+def test_int8_bins_bit_identical_any_width(card, d):
+    """Widths that are no multiple of 16 take the value-by-value loads."""
+    qs, c, valid = _inputs(card, d=d)
+    q_i8, _ = K.quantize_rows(qs)
+    c_i8, c_scale = K.quantize_rows(c)
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], 128, 8)
+    got = K.streaming_bins_int8(q_i8, c_i8, c_scale, valid, 128, rows)
+    want = R.streaming_bins_int8(q_i8, c_i8, c_scale, valid, 128, rows,
+                                 tile_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 128), (torch.float16, 128), (torch.float32, 130),
+    (torch.bfloat16, 130), (torch.float32, 1)])
+def test_bf16_bins_any_corpus_type_and_width(card, dtype, d):
+    """A 16-bit corpus, and widths that are no multiple of 4, go through the
+    same kernel, within one packed-bin step of the plain version."""
+    qs, c, valid = _inputs(card, d=d)
+    c = c.to(dtype)
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], 128, 8)
+    before = K.launch_counts()["streaming_topk_bf16"]
+    got = K.streaming_bins(qs, c, valid, 128, rows)
+    want = R.streaming_bins_bf16(qs, c, valid, 128, rows, tile_bits)
+    dec = dict(k=20, n=c.shape[0], rows=rows, tile_n=128, tile_bits=tile_bits)
+    vg, _ = K._decode_packed(got, **dec)
+    vw, _ = K._decode_packed(want, **dec)
+    assert float((vg - vw).abs().max()) <= 2.0 ** (tile_bits - 21) + 1e-5
+    assert K.launch_counts()["streaming_topk_bf16"] == before + 1
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    qs, c, valid = _inputs(card)
+    with pytest.raises(ValueError):
+        K.streaming_bins(qs, c, valid, 64, 4)  # tile_n % 128 != 0
+    with pytest.raises(ValueError):
+        K.streaming_bins(qs, c.t(), valid, 128, 4)  # not contiguous
+    with pytest.raises(TypeError):
+        K.streaming_bins(qs.double(), c, valid, 128, 4)
