@@ -15,7 +15,17 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    against exact float32 ground truth, removed ids never served, the
    streaming kernel's launch count and the fused-dispatch count;
 3. the same over an int8-mirrored ``DeviceCorpus(quantize=True)``;
-4. the extract-kernel epilogue, identical to the sort epilogue.
+4. the extract-kernel epilogue, identical to the sort epilogue;
+5. generation serving at full width: Qwen2.5-0.5B (``QWEN25_05B``, bf16,
+   weights from ``--seed``) behind ``GenerationEngine`` with the default
+   ``GenServeConfig``. The ragged paged attention kernel is held against
+   its plain version on the inputs of a real fused step (decode block
+   L = 10, Tq = 1 and chunk block L = 1, Tq = 64) and timed; then 32
+   requests of the qc/chat/rag mix of ``scripts/bench_generate.py`` from 8
+   client threads: every request completes, the prefix cache hits, the
+   kernel ran 24 x (steps + chunk steps) times, and every greedy token is
+   the dense plain reference's (``prefill`` + ``decode_step``) or within
+   GEN_MARGIN_TOL of it in the reference's logits.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -24,12 +34,14 @@ separable from the rest. Queries are noisy copies of rows.
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON (times, bounds, launches). Any failed check raises
 and the script exits non-zero without that line. Without CUDA it exits 2.
-Matmul precision is pinned to full float32 (no TF32) for every reference.
+Matmul precision is pinned to full float32 (no TF32) for every reference,
+and bf16 GEMMs to float32 reductions.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -48,6 +60,29 @@ H100_BYTES = 3.35e12     # HBM3 bytes per second
 # the main path's size: bench.py's headline search (1M x 1024, top-100)
 N, DIMS, K_TOP = 1_000_000, 1024, 100
 REPS = 6  # timed calls of each kernel (a third of that for the slow ones)
+
+# phase 5: the generation mix of scripts/bench_generate.py (kind,
+# prompt_len, max_new, weight, shared_prefix_len), 32 requests, 8 clients
+GEN_MIX = (
+    ("qc", 12, 16, 0.25, 0),
+    ("chat", 24, 32, 0.30, 16),
+    ("rag", 80, 48, 0.45, 48),
+)
+GEN_REQUESTS, GEN_CLIENTS = 32, 8
+# every greedy token of the engine must have a dense-reference logit within
+# this of the reference's largest. The engine (ragged kernel, fused F-row
+# GEMMs) and the reference (plain attention, 1-row GEMMs) round bf16 at the
+# same points but sum in other orders; phase 5a asserts over GEN_PROBES
+# prompt sets that a real fused step's logits lie within GEN_MARGIN_TOL / 2
+# of the dense path's (0.0261-0.0286 for seeds 0-3 on an H100 80GB HBM3),
+# so only a token within GEN_MARGIN_TOL of the best can be chosen in its
+# place
+GEN_MARGIN_TOL = 0.06
+GEN_PROBES = 4
+# ragged kernel vs plain version: float32 1e-5, bfloat16 2**-7 relative and
+# absolute (probabilities are rounded to bf16 before P.V, so a one-ulp
+# float32 difference moves one probability by a bf16 ulp)
+ATTN_TOL_BF16 = 2.0 ** -7
 
 
 def log(*a) -> None:
@@ -317,12 +352,388 @@ def profile_search(corpus, queries: np.ndarray, k: int, batch: int,
                     for e in top))
 
 
+def build_gen_requests(n: int, seed: int, vocab: int) -> list:
+    """scripts/bench_generate.py's request set: the first two are rag (one
+    registers the shared prefix, the next hits it); one fixed shared prefix
+    per kind."""
+    rng = np.random.default_rng(seed)
+    weights = np.array([m[3] for m in GEN_MIX])
+    kinds = rng.choice(len(GEN_MIX), size=n, p=weights / weights.sum())
+    kinds[: min(2, n)] = len(GEN_MIX) - 1
+    prefixes = {ki: [int(x) for x in rng.integers(4, vocab, m[4])]
+                for ki, m in enumerate(GEN_MIX)}
+    out = []
+    for i in range(n):
+        _, plen, max_new, _, pfx = GEN_MIX[kinds[i]]
+        suffix = [int(x) for x in rng.integers(4, vocab, plen - pfx)]
+        out.append((prefixes[kinds[i]] + suffix, max_new))
+    return out
+
+
+def probe_attention_inputs(Q, K, params, cfg, gcfg, rng):
+    """The ragged kernel's inputs in layer 0 of one real fused step: eight
+    decode lanes at mixed lengths (prefilled through ``paged_prefill_chunk``),
+    a 50-token chunk (Tq = 64, 14 padding rows) behind a page it shares with
+    the last decode lane, and 6 padding rows in the flat batch. Also the
+    largest difference between the step's decode-row logits and the dense
+    path's (``prefill`` + ``decode_step``) for the same tokens
+    (``logit_diff``)."""
+    import torch
+
+    dev = params["tok_emb"].device
+    ps = gcfg.page_size
+    w = Q.pages_for(gcfg.max_seq_tokens, ps)
+    lmax = gcfg.max_seqs + 2
+    pool = Q.init_kv_pages(cfg, gcfg.pool_pages, ps, dev)
+    tables = np.zeros((lmax, w), np.int32)
+    free = list(range(gcfg.pool_pages - 1, 0, -1))
+    lengths = [12, 27, 40, 63, 80, 110, 150, 200]
+    prompts, nxt = [], []
+    for i, n in enumerate(lengths):
+        prompt = [int(x) for x in rng.integers(4, cfg.vocab_size, n)]
+        tables[i, :Q.pages_for(n + 1, ps)] = [
+            free.pop() for _ in range(Q.pages_for(n + 1, ps))]
+        table = torch.from_numpy(tables[i]).to(dev)
+        for a in range(0, n, 64):
+            piece = prompt[a:a + 64]
+            ids = torch.tensor(piece + [0] * (64 - len(piece)), device=dev)
+            logits, pool = Q.paged_prefill_chunk(params, cfg, ids, pool, table,
+                                                 a, len(piece))
+        prompts.append(prompt)
+        nxt.append(int(torch.argmax(logits)))
+    chunk_lane, n_valid, tq = lmax - 2, 50, 64
+    # the chunk sequence shares the last decode lane's first (full) page
+    chunk_prompt = prompts[-1][:ps] + [
+        int(x) for x in rng.integers(4, cfg.vocab_size, n_valid)]
+    tables[chunk_lane, 0] = tables[len(lengths) - 1, 0]
+    own = Q.pages_for(len(chunk_prompt) + 1, ps) - 1
+    tables[chunk_lane, 1:1 + own] = [free.pop() for _ in range(own)]
+    ndec = len(lengths)
+    f = Q.round_up_pow2(ndec + n_valid, 8)
+    meta, (tokens, lane_id, lane_pos, positions, logit_rows,
+           lane_tables) = Q.pack_ragged_meta(lmax, w, f)
+    tokens[:], lane_id[:], lane_pos[:], positions[:] = 0, lmax - 1, 0, -1
+    logit_rows[:] = 0
+    lane_tables[:] = tables
+    for i in range(ndec):
+        tokens[i], lane_id[i], positions[i], logit_rows[i] = (
+            nxt[i], i, lengths[i], i)
+    for j in range(n_valid):
+        fi = ndec + j
+        tokens[fi], lane_id[fi] = chunk_prompt[ps + j], chunk_lane
+        lane_pos[fi], positions[fi] = j, ps + j
+    logit_rows[ndec] = ndec + n_valid - 1
+    captured = {}
+    real = K.ragged_paged_attention
+
+    def record(*a):
+        key = "decode" if a[0].shape[1] == 1 else "chunk"
+        if key not in captured:
+            captured[key] = tuple(t.clone() for t in a)
+        return real(*a)
+
+    K.ragged_paged_attention = record
+    try:
+        _, logits, _ = Q.ragged_fused_step(
+            params, cfg, torch.from_numpy(meta).to(dev), pool, lmax=lmax,
+            w=w, tq=tq, attn_impl="cuda")
+    finally:
+        K.ragged_paged_attention = real
+    # the decode rows' logits beside what the dense path gives each lane
+    width = w * ps
+    diffs = []
+    for i, prompt in enumerate(prompts):
+        _, caches = Q.prefill(params, cfg, torch.tensor([prompt], device=dev),
+                              width)
+        ref, _ = Q.decode_step(params, cfg, torch.tensor([nxt[i]], device=dev),
+                               caches, len(prompt))
+        diffs.append(float((ref[0] - logits[i]).abs().max()))
+    captured["logit_diff"] = max(diffs)
+    return captured
+
+
+def attention_library(q, k_pages, v_pages, tables, positions):
+    """One gather of each lane's pages plus PyTorch's fused attention: the
+    yardstick of the ragged kernel (timed only)."""
+    import torch
+    import torch.nn.functional as F
+
+    l, tq, h, dh = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    s = tables.shape[1] * ps
+    idx = tables.long()
+    k = k_pages[idx].reshape(l, s, hkv, dh).transpose(1, 2)
+    v = v_pages[idx].reshape(l, s, hkv, dh).transpose(1, 2)
+    visible = torch.arange(s, device=q.device) <= positions[..., None]
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k, v, attn_mask=visible[:, None], enable_gqa=True)
+
+
+def phase_attention(K, R, captured, logit_diffs, reps):
+    """The ragged kernel against its plain version on a real step's inputs,
+    its time, the plain and library times, and its bound: the bytes of the
+    valid q rows, the output, the tables and positions, and the K/V pages
+    each lane needs (slots up to its largest position), at 3.35 TB/s."""
+    import torch
+
+    entries = []
+    log(f"[phase5] fused step vs dense path, decode rows, {len(logit_diffs)} "
+        f"probes: max|dlogit|=" + " ".join(f"{d:.4g}" for d in logit_diffs)
+        + f" (at most {GEN_MARGIN_TOL / 2})")
+    assert max(logit_diffs) <= GEN_MARGIN_TOL / 2, (
+        "fused step logits vs dense path", logit_diffs)
+    for key in ("decode", "chunk"):
+        a = captured[key]
+        q, k_pages, v_pages, tables, positions = a
+        l, tq, h, dh = q.shape
+        ps, hkv = k_pages.shape[1], k_pages.shape[2]
+        got = K.ragged_paged_attention(*a)
+        want = R.ragged_paged_attention(*a)
+        sync()
+        err = float((got.float() - want.float()).abs().max())
+        tol_ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), rtol=ATTN_TOL_BF16, atol=ATTN_TOL_BF16)
+        pos = positions.cpu().numpy()
+        lane_max = pos.max(axis=1)
+        pages = int(sum(-(-(m + 1) // ps) for m in lane_max if m >= 0))
+        esize = q.element_size()
+        # q of the valid rows only (a padding row's query is never needed),
+        # the whole output, tables, positions and the pages the lanes need;
+        # both products take operands of q's type, summed in float32
+        rows = int((pos >= 0).sum())
+        nbytes = ((rows * h * dh + q.numel()) * esize + tables.numel() * 4
+                  + pos.size * 4 + 2 * pages * ps * hkv * dh * esize)
+        ops = 4 * h * dh * int((pos[pos >= 0] + 1).sum())
+        bound = bound_ms(nbytes, ops, H100_BF16_OPS
+                         if q.dtype == torch.bfloat16 else H100_FP32_OPS)
+        t = {"ms": cuda_ms(lambda: K.ragged_paged_attention(*a), reps * 20),
+             "plain": cuda_ms(lambda: R.ragged_paged_attention(*a), reps * 20),
+             "lib": cuda_ms(lambda: attention_library(*a), reps * 20)}
+        log(f"[phase5] ragged {key}: L={l} Tq={tq} H={h} Hkv={hkv} Dh={dh} "
+            f"P={tables.shape[1]} valid rows={rows} "
+            f"pages read={pages} max|d|={err:.3g} (tol {ATTN_TOL_BF16:.3g}) "
+            f"ms={t['ms']:.4f} plain={t['plain']:.4f} lib={t['lib']:.4f} "
+            f"bound={bound[0]:.5f} ({bound[1]})")
+        assert tol_ok, ("ragged kernel vs plain", key, err)
+        entries.append(dict(
+            name=f"ragged_paged_attention[{key} L={l} Tq={tq}]", route="cuda",
+            source="nornicdb_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+            replaces="nornicdb_tpu/ops/pallas_kernels.py:446",
+            counter="ragged_paged_attention", max_abs_err=err, ms=t["ms"],
+            plain_ms=t["plain"], bound_ms=bound[0], bound_by=bound[1],
+            library_ms=t["lib"]))
+    return entries
+
+
+def drive_engine(eng, requests: list, n_threads: int) -> dict:
+    """n_threads closed-loop clients, request i on thread i % n_threads:
+    submit, stream every token (time to first token, gaps between
+    tokens), next request."""
+    n = len(requests)
+    outs: list = [None] * n
+    ttft = np.zeros(n)
+    gaps: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(t: int) -> None:
+        try:
+            for i in range(t, n, n_threads):
+                prompt, max_new = requests[i]
+                t0 = time.perf_counter()
+                h = eng.submit(prompt, max_new_tokens=max_new)
+                last, mine = None, []
+                for _ in h.stream_tokens():
+                    now = time.perf_counter()
+                    if last is None:
+                        ttft[i] = now - t0
+                    else:
+                        mine.append(now - last)
+                    last = now
+                outs[i] = h.result()
+                with lock:
+                    gaps.extend(mine)
+        except Exception as e:  # reported and re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads), "client thread hung"
+    return dict(outs=outs, ttft=ttft, gaps=np.asarray(gaps), wall=wall)
+
+
+def dense_agreement(Q, params, cfg, prompt, gen, max_new, eos, max_len):
+    """Check every greedy token of ``gen`` against the dense plain
+    reference (prefill + decode_step at the engine's cache width, fed the
+    engine's own tokens): the token's reference logit must lie within
+    GEN_MARGIN_TOL of the reference's largest, so only a near-tie may pick
+    another token. Returns (tokens equal to the reference's argmax, the
+    largest shortfall of a chosen token's logit)."""
+    import torch
+
+    dev = params["tok_emb"].device
+    logits, caches = Q.prefill(
+        params, cfg, torch.tensor([prompt], device=dev), max_len)
+    pos = len(prompt)
+    equal, worst = 0, 0.0
+    for j, tok in enumerate(gen):
+        row = logits[0]
+        ref = int(torch.argmax(row))
+        short = float(row[ref] - row[tok])
+        assert short <= GEN_MARGIN_TOL, (
+            "engine's token is no near-tie of the dense reference's",
+            j, tok, ref, short)
+        equal += tok == ref
+        worst = max(worst, short)
+        if j + 1 < len(gen):
+            logits, caches = Q.decode_step(
+                params, cfg, torch.tensor([tok], device=dev), caches, pos)
+            pos += 1
+    assert gen[-1] == eos or len(gen) == max_new, ("stopped early", len(gen))
+    return equal, worst
+
+
+def profile_generation(eng, requests: list, out_dir: str) -> None:
+    """Device busy share of the engine serving ``requests`` (all submitted
+    at once), from torch.profiler: the device time of every kernel over the
+    host wall time of the window, and kernels launched per fused step. The
+    per-op table goes to ``chiprun_out/profile_generate.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps0 = eng.stats.fused_steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+        for h in handles:
+            h.result()
+        wall = time.perf_counter() - t0
+    steps = eng.stats.fused_steps - steps0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    launched = sum(e.count for e in kernels)
+    with open(os.path.join(out_dir, "profile_generate.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=30))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[profile] generation: {len(requests)} requests, {steps} fused steps "
+        f"in {wall * 1e3:.2f}ms ({wall * 1e3 / max(1, steps):.3f}ms a step); "
+        f"device {dev_us / 1e3:.2f}ms busy share {dev_us / 1e6 / wall:.4f}; "
+        f"{launched / max(1, steps):.1f} device ops a step; top device ops: "
+        + "; ".join(f"{e.key[:50]}={e.self_device_time_total / 1e3:.3f}ms"
+                    f"/{e.count}" for e in top))
+
+
+def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict]:
+    """Phase 5: the ragged kernel on a real step, then the engine serving
+    32 requests at full width, checked against the dense reference. With
+    ``profile_dir``, then a torch.profiler window over 8 more requests."""
+    import torch
+
+    from nornicdb_tpu_torch.config import GenServeConfig
+    from nornicdb_tpu_torch.genserve import GenerationEngine
+    from nornicdb_tpu_torch.models import qwen2 as Q
+    from nornicdb_tpu_torch.models.tokenizer import HashTokenizer
+
+    cfg = Q.QWEN25_05B
+    gcfg = GenServeConfig()
+    t0 = time.perf_counter()
+    params = Q.with_f32_logit_weights(Q.init_params(cfg, seed, "cuda"))
+    n_params = sum(t.numel() for t in [params["tok_emb"]] + [
+        x for blk in params["blocks"] for p in blk.values() for x in p.values()])
+    sync()
+    log(f"[phase5] QWEN25_05B bf16: {n_params} parameters in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # -- 5a: the kernel on a real step's inputs; the fused step's logits
+    # against the dense path's over GEN_PROBES prompt sets
+    t0 = time.perf_counter()
+    probes = [probe_attention_inputs(Q, K, params, cfg, gcfg,
+                                     np.random.default_rng(seed + i))
+              for i in range(GEN_PROBES)]
+    sync()
+    entries = phase_attention(K, R, probes[0],
+                              [p["logit_diff"] for p in probes], REPS)
+    del probes
+    log(f"[phase5] kernel vs plain: {time.perf_counter() - t0:.1f}s")
+
+    # -- 5b: the engine
+    tok = HashTokenizer(cfg.vocab_size)
+    eng = GenerationEngine(params, cfg, tokenizer=tok, config=gcfg)
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    eng.warmup()
+    sync()
+    warm = K.launch_counts()["ragged_paged_attention"]
+    classes = eng._ragged_classes()
+    log(f"[phase5] warmup {len(classes)} classes in "
+        f"{time.perf_counter() - t0:.1f}s, {warm} kernel launches")
+    assert warm == cfg.layers * sum(1 + (tq > 1) for _, tq in classes)
+    requests = build_gen_requests(GEN_REQUESTS, seed, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    run = drive_engine(eng, requests, GEN_CLIENTS)
+    launches = K.launch_counts()["ragged_paged_attention"]
+    st = dataclasses.replace(eng.stats)
+    peak = torch.cuda.max_memory_allocated()
+    if profile_dir:
+        profile_generation(eng, requests[:GEN_CLIENTS], profile_dir)
+    eng.stop()
+    tokens = sum(len(o) for o in run["outs"])
+    log(f"[phase5] {GEN_REQUESTS} requests from {GEN_CLIENTS} clients: "
+        f"{tokens} tokens in {run['wall']:.3f}s tok/s={tokens / run['wall']:.1f} "
+        f"ttft p50={np.median(run['ttft']) * 1e3:.2f}ms "
+        f"p99={np.percentile(run['ttft'], 99) * 1e3:.2f}ms "
+        f"per-token p50={np.median(run['gaps']) * 1e3:.2f}ms "
+        f"fused steps={st.fused_steps} chunk steps={st.prefill_chunks} "
+        f"mean decode lanes={st.decode_lane_tokens / max(1, st.decode_steps):.2f} "
+        f"prefix hits={st.prefix_hits} reused tokens={st.prefix_reused_tokens} "
+        f"launches={launches} max_memory_allocated={peak / 2**30:.3f}GiB "
+        f"({held / 2**30:.3f}GiB held before the run) stats={st.as_dict()}")
+    assert st.completed == GEN_REQUESTS and all(
+        o for o in run["outs"]), ("requests not completed", st.as_dict())
+    assert st.prefix_hits > 0, "the prefix cache never hit"
+    assert launches > 0 and launches == cfg.layers * (
+        st.fused_steps + st.prefill_chunks), (
+        "ragged launches", launches, st.fused_steps, st.prefill_chunks)
+
+    # -- 5c: greedy tokens against the dense plain reference
+    t0 = time.perf_counter()
+    width = Q.pages_for(gcfg.max_seq_tokens, gcfg.page_size) * gcfg.page_size
+    equal = full = 0
+    worst = 0.0
+    for (prompt, max_new), gen in zip(requests, run["outs"]):
+        same, short = dense_agreement(Q, params, cfg, prompt, gen, max_new,
+                                      tok.eos_id, width)
+        equal += same
+        full += same == len(gen)
+        worst = max(worst, short)
+    log(f"[phase5] dense reference: all {tokens} tokens checked, {equal} "
+        f"equal to its argmax, {full}/{GEN_REQUESTS} requests equal in full, "
+        f"largest shortfall of a chosen token {worst:.4g} (at most "
+        f"{GEN_MARGIN_TOL}) in {time.perf_counter() - t0:.1f}s")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entries, {"ragged_paged_attention": launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 2, trace 16 batches of 16 queries with "
-                    "torch.profiler (device busy share, per-op table)")
+                    help="after phase 2, trace 16 batches of 16 queries, and "
+                    "after phase 5 eight generation requests, with "
+                    "torch.profiler (device busy share, per-op tables)")
     args = ap.parse_args()
 
     import torch
@@ -352,6 +763,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
     device = "cuda"
     smi = subprocess.run(
@@ -515,11 +927,21 @@ def main() -> int:
     assert counts4["extract_topk"] > 0, (
         "extract epilogue never launched")
     assert got4 == ref4, "extract epilogue differs from sort"
+    del qc, dev, valid
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 5: generation serving
+    t0 = time.perf_counter()
+    entries5, counts5 = phase_generation(
+        K, R, args.seed, out_dir if args.profile else "")
+    entries += entries5
+    log(f"[phase5] {time.perf_counter() - t0:.1f}s")
 
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],
                 "streaming_topk_int8": counts3["streaming_topk_int8"],
-                "extract_topk": counts4["extract_topk"]}
+                "extract_topk": counts4["extract_topk"], **counts5}
     for e in entries:
         e["launches"] = launches[e.pop("counter")]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

@@ -1,5 +1,7 @@
-"""NornicDB's vector-search tier in PyTorch, with hand-written CUDA kernels
-for the NVIDIA H100 (sm_90a).
+"""NornicDB's vector-search tier and paged-KV generation serving in PyTorch,
+with hand-written CUDA kernels for the NVIDIA H100 (sm_90a): ``search``
+(``SearchService``) and ``genserve`` (``GenerationEngine`` over the Qwen2
+decoder of ``models``).
 
 A port of ``nornicdb_tpu`` (JAX on a TPU), kept beside it: the module names
 mirror the JAX package's so each module's counterpart is easy to find, and
@@ -14,12 +16,14 @@ version runs in its place.
 
 from nornicdb_tpu_torch._device import resolve_device
 from nornicdb_tpu_torch.errors import (
+    ClosedError,
     DeviceUnavailable,
     NornicError,
     ResourceExhausted,
 )
 
 __all__ = [
+    "ClosedError",
     "DeviceUnavailable",
     "NornicError",
     "ResourceExhausted",

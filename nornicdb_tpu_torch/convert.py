@@ -1,6 +1,7 @@
-"""Carry corpus state from the JAX package into the port.
+"""Carry state from the JAX package into the port: corpus state (search) and
+Qwen2 parameters (generation).
 
-For this system the state takes the place of a model's weights: the rows,
+For the search tier the state takes the place of a model's weights: the rows,
 their validity and the id -> slot layout. Indices must mean the same thing
 on both sides, so the slot layout is carried over as it is (no compaction).
 Checkpoints written by the JAX ``HostCorpus.save`` load with the port's
@@ -11,8 +12,9 @@ layout).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from nornicdb_tpu_torch._device import DeviceLike
+from nornicdb_tpu_torch._device import DeviceLike, resolve_device
 from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
 
 
@@ -42,3 +44,30 @@ def corpus_from_jax_state(state: dict, device: DeviceLike = None,
         out._mark_all_dirty()
         out._epoch += 1
     return out
+
+
+def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
+    arr = np.array(a, copy=True, order="C")  # writable, owned by the tensor
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy refuses: carry the
+        # bits over as int16 and reinterpret them (bit-exact)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(arr).to(device)
+
+
+def qwen2_params_from_jax(params, device: DeviceLike = None) -> dict:
+    """The port's Qwen2 parameters from the JAX parameter pytree given as
+    numpy arrays (``jax.tree.map(np.asarray, params)``): the same nested
+    dict/list layout, each leaf a tensor of the same dtype and bits (dense
+    weights stay ``(in, out)``) on ``device``."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return _leaf_to_torch(node, dev)
+
+    return walk(params)

@@ -1,6 +1,6 @@
-"""Error types of the port: copies of the ones the search slice raises
-(``nornicdb_tpu/errors.py``), kept here so the port imports nothing of the
-JAX package."""
+"""Error types of the port: copies of the ones the search and generation
+slices raise (``nornicdb_tpu/errors.py``), kept here so the port imports
+nothing of the JAX package."""
 
 
 class NornicError(Exception):
@@ -15,6 +15,11 @@ class ResourceExhausted(NornicError):
     def __init__(self, message: str, reason: str = "queue_full"):
         super().__init__(message)
         self.reason = reason  # queue_full | deadline
+
+
+class ClosedError(NornicError):
+    """Operation on a closed engine (the generation engine raises it on
+    stop)."""
 
 
 class DeviceUnavailable(NornicError):

@@ -30,9 +30,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of each source: name -> (argtypes); every one returns the
-# launch's cudaError_t as an int
+_F = ctypes.c_float
+# C entry points of each source: name -> (argtypes); every one returns an
+# int: a launcher the launch's cudaError_t, a size query its size
 SIGNATURES: dict[str, dict[str, tuple]] = {
+    "ragged_paged_attention": {
+        "nornic_ragged_paged_attention": (
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+            _I, _P),
+        "nornic_ragged_attn_smem_bytes": (_I, _I, _I, _I, _I),
+    },
     "streaming_topk": {
         "nornic_streaming_topk_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "nornic_streaming_topk_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels of the search path, and their wrappers.
+"""Hand-written Hopper kernels of the search and generation paths, and their
+wrappers.
 
-Counterpart of ``nornicdb_tpu/ops/pallas_kernels.py`` for the three kernels
-on the serving path:
+Counterpart of ``nornicdb_tpu/ops/pallas_kernels.py`` for the four kernels
+on the serving paths:
 
 ============================  ==============================  =======================
 TPU kernel (pallas_kernels)   CUDA kernel (ops/csrc)          wrapper here
@@ -9,6 +10,7 @@ TPU kernel (pallas_kernels)   CUDA kernel (ops/csrc)          wrapper here
 _streaming_topk_kernel        streaming_topk_bf16_kernel      streaming_cosine_topk
 _streaming_topk_int8_kernel   streaming_topk_i8_kernel        streaming_cosine_topk_int8
 _extract_topk_kernel          extract_topk_kernel             _topk_bins("pallas")
+_ragged_attn_kernel           ragged_attn_kernel              ragged_paged_attention
 ============================  ==============================  =======================
 
 Each wrapper checks device, dtype, shape and contiguity. For a CUDA tensor
@@ -48,6 +50,7 @@ _LAUNCHES = {
     "streaming_topk_bf16": 0,
     "streaming_topk_int8": 0,
     "extract_topk": 0,
+    "ragged_paged_attention": 0,
 }
 
 
@@ -317,3 +320,71 @@ def streaming_cosine_topk_int8(
     vals, idx = _decode_packed(bins, k=k, n=n, rows=rows, tile_n=tile_n,
                                tile_bits=tile_bits, epilogue=epilogue)
     return vals / q_scale[:, None], idx
+
+
+# ------------------------------------------------- ragged paged attention
+# value types of the ragged kernel -> its dtype code
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ATTN_MAX_QB = 4        # query rows per CTA, at most
+# shared memory one CTA may take (H100: 227 KB of the SM's 256 KB)
+_SMEM_LIMIT = 232_448
+
+
+def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           positions: torch.Tensor) -> torch.Tensor:
+    """Mixed prefill+decode GQA attention over one layer of the paged KV
+    pool (``ragged_paged_attention.cu``; the TPU kernel's signature without
+    ``interpret``).
+
+    q (L, Tq, H, Dh) float32 or bfloat16, rope'd; k_pages, v_pages
+    (num_pages, ps, Hkv, Dh) of q's type, one layer's pool view
+    (``pages[li, 0]``, which is contiguous); tables (L, P) int32 page ids;
+    positions (L, Tq) int32 cache slots, -1 for padding rows. Returns
+    (L, Tq, H, Dh) in q.dtype; padding rows are zeros. On the card Dh must
+    be a multiple of 8 up to 128 and one row's S = P * ps scores must fit a
+    CTA's shared memory; anything else raises."""
+    dev = q.device
+    _check(q, "q", _ATTN_DTYPES, 4, dev)
+    _check(k_pages, "k_pages", q.dtype, 4, dev)
+    _check(v_pages, "v_pages", q.dtype, 4, dev)
+    _check(tables, "tables", torch.int32, 2, dev)
+    _check(positions, "positions", torch.int32, 2, dev)
+    l, tq, h, dh = q.shape
+    num_pages, ps, hkv = k_pages.shape[:3]
+    p = tables.shape[1]
+    if (k_pages.shape != v_pages.shape or k_pages.shape[3] != dh
+            or tables.shape[0] != l or positions.shape != (l, tq)):
+        raise ValueError("ragged_paged_attention: q/pages/tables/positions "
+                         "shapes disagree")
+    if h % hkv != 0:
+        raise ValueError(f"ragged_paged_attention: H={h} is no multiple of "
+                         f"Hkv={hkv}")
+    if dev.type != "cuda":
+        return kernels_ref.ragged_paged_attention(q, k_pages, v_pages, tables,
+                                                  positions)
+    if dh % 8 != 0 or dh > 128:
+        raise ValueError(f"ragged_paged_attention: the CUDA kernel takes a "
+                         f"head dim that is a multiple of 8 up to 128, got {dh}")
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16 != 0:
+            raise ValueError("ragged_paged_attention: q and the pools must "
+                             "be 16-byte aligned")
+    lib = _build.library("ragged_paged_attention")
+    code = _ATTN_DTYPES[q.dtype]
+
+    def smem(qb: int) -> int:  # the kernel's own layout (smem_bytes)
+        return lib.nornic_ragged_attn_smem_bytes(qb, h // hkv, dh, p * ps, code)
+
+    qb = min(tq, _ATTN_MAX_QB)
+    while qb > 1 and smem(qb) > _SMEM_LIMIT // 2:
+        qb //= 2
+    if smem(qb) > _SMEM_LIMIT:
+        raise ValueError(f"ragged_paged_attention: S={p * ps} slots exceed "
+                         "one CTA's shared memory")
+    out = torch.empty_like(q)
+    _launch("ragged_paged_attention", lib.nornic_ragged_paged_attention,
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), positions.data_ptr(), out.data_ptr(), l, tq, h,
+            hkv, dh, num_pages, ps, p, qb, float(dh ** -0.5), code, device=dev)
+    return out

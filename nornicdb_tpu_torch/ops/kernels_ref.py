@@ -6,8 +6,8 @@ on the CPU (the tests), and ``chip_smoke.py`` holds each kernel against its
 plain version on the card. Nothing on the serving path calls them for a CUDA
 tensor.
 
-Packed-bin scheme (see ``streaming_topk.cu``): corpus tile t, column j
-folds into bin (t % rows, q, j); a score is biased by +3 (valid row) or -3
+Packed-bin scheme of the search kernels (``streaming_topk.cu``): corpus
+tile t, column j folds into bin (t % rows, q, j); a score is biased by +3 (valid row) or -3
 (masked row), bitcast to int32, its low ``tile_bits`` bits replaced by t,
 and merged with an integer max.
 """
@@ -17,6 +17,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from nornicdb_tpu_torch.models.layers import attention, repeat_kv
 
 INT32_MIN = -(2**31)
 # |s8 x s8 dot| <= 127 * 127 * D: below 2**24 every partial sum of the f32
@@ -87,6 +89,34 @@ def streaming_bins_int8(
 
     return _fold_bins(biased_cols, q_i8.shape[0], n // tile_n, tile_n,
                       rows, tile_bits, q_i8.device)
+
+
+def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           positions: torch.Tensor) -> torch.Tensor:
+    """``ragged_attn_kernel``: for each lane, gather its P pages of one
+    layer's pool and run ``layers.attention`` over the S = P * ps slots, key
+    slot s visible to a query row iff s <= that row's position (what the
+    reference's ``_paged_attention`` and its kernel test do). Padding rows
+    (position -1) come out as zeros, as the kernel writes them; the
+    reference leaves a finite average over masked slots there, which no
+    caller reads.
+
+    q (L, Tq, H, Dh); k_pages, v_pages (num_pages, ps, Hkv, Dh); tables
+    (L, P) int32; positions (L, Tq) int32. Returns (L, Tq, H, Dh) in
+    q.dtype."""
+    l, tq, h, dh = q.shape
+    ps, hkv = k_pages.shape[1], k_pages.shape[2]
+    s_len = tables.shape[1] * ps
+    idx = tables.long()
+    k = k_pages[idx].reshape(l, s_len, hkv, dh)
+    v = v_pages[idx].reshape(l, s_len, hkv, dh)
+    slot = torch.arange(s_len, device=q.device)
+    mask = torch.where(slot <= positions[..., None], 0.0, -1e30)  # (L, Tq, S)
+    out = attention(q, repeat_kv(k, h // hkv), repeat_kv(v, h // hkv),
+                    mask[:, None])
+    return torch.where((positions >= 0)[..., None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def extract_topk(flat: torch.Tensor, k: int, kpad: int

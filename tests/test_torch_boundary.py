@@ -60,7 +60,14 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.ops.host_search",
                      "nornicdb_tpu_torch.search.batcher",
                      "nornicdb_tpu_torch.search.service",
-                     "nornicdb_tpu_torch.convert"):
+                     "nornicdb_tpu_torch.convert",
+                     "nornicdb_tpu_torch.config",
+                     "nornicdb_tpu_torch.models",
+                     "nornicdb_tpu_torch.models.layers",
+                     "nornicdb_tpu_torch.models.qwen2",
+                     "nornicdb_tpu_torch.models.tokenizer",
+                     "nornicdb_tpu_torch.genserve",
+                     "nornicdb_tpu_torch.genserve.engine"):
             assert name in imported
 
 
@@ -88,3 +95,5 @@ class TestDevicePolicy:
         assert issubclass(nornicdb_tpu_torch.ResourceExhausted,
                           nornicdb_tpu_torch.NornicError)
         assert nornicdb_tpu_torch.ResourceExhausted("x").reason == "queue_full"
+        assert issubclass(nornicdb_tpu_torch.ClosedError,
+                          nornicdb_tpu_torch.NornicError)

@@ -135,3 +135,80 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         K.streaming_bins(qs, c.t(), valid, 128, 4)  # not contiguous
     with pytest.raises(TypeError):
         K.streaming_bins(qs.double(), c, valid, 128, 4)
+
+
+# ------------------------------------------------- ragged paged attention
+# Tolerances, kernel against its plain version on the card: float32 within
+# 1e-5 (both sum in float32, in other orders; expf and torch.exp differ by
+# an ulp); bfloat16 within 2**-7 relative and absolute (the probabilities
+# are rounded to bf16 before P.V, so a one-ulp float32 difference can move
+# one probability by a bf16 ulp, and the output is rounded to bf16).
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def _ragged_inputs(card, dtype, h, hkv, dh, tq, lanes, seed=0, ps=16, p=16):
+    """Lanes of every kind the engine makes: decode rows at mixed lengths,
+    a prefill chunk behind a page it shares with lane 0, a half-filled
+    chunk, an all-padding lane; tables padded with the null page 0."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + lanes * p
+    k_pages = rng.standard_normal((num_pages, ps, hkv, dh))
+    v_pages = rng.standard_normal((num_pages, ps, hkv, dh))
+    q = rng.standard_normal((lanes, tq, h, dh))
+    tables = np.zeros((lanes, p), np.int32)
+    positions = np.full((lanes, tq), -1, np.int32)
+    free = list(range(1, num_pages))
+    for lane in range(lanes):
+        kind = (lane + (tq > 1)) % 5  # a lone chunk-block lane is a chunk
+        if kind == 4:
+            continue  # all padding, null table
+        last = int(rng.integers(0, p * ps))
+        if kind == 0:      # decode row at a mixed length
+            positions[lane, 0] = last
+        elif kind == 1:    # full chunk ending at `last`
+            positions[lane] = np.clip(np.arange(last - tq + 1, last + 1), 0, None)
+        elif kind == 2:    # chunk, first half valid
+            n = max(1, tq // 2)
+            positions[lane, :n] = np.arange(last, last + n) % (p * ps)
+        else:              # one row at the very last slot
+            positions[lane, tq - 1] = p * ps - 1
+        used = int(positions[lane].max()) // ps + 1
+        tables[lane, :used] = [free.pop() for _ in range(used)]
+    if lanes > 1:
+        tables[1, 0] = tables[0, 0]  # a page shared by two lanes
+    t = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a)).to(card, dt)
+    return (t(q), t(k_pages), t(v_pages), t(tables, torch.int32),
+            t(positions, torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,hkv,dh", [(14, 2, 64), (4, 2, 16)])
+@pytest.mark.parametrize("tq,lanes", [(1, 10), (64, 1), (8, 6)])
+def test_ragged_attention_matches_plain(card, dtype, h, hkv, dh, tq, lanes):
+    args = _ragged_inputs(card, dtype, h, hkv, dh, tq, lanes,
+                          seed=h + dh + tq)
+    before = K.launch_counts()["ragged_paged_attention"]
+    got = K.ragged_paged_attention(*args)
+    want = R.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ragged_paged_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    pad = args[4] < 0
+    assert bool((got[pad] == 0).all()), "padding rows must be zeros"
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_ragged_attention_refuses_what_the_kernel_does_not_take(card):
+    q, kp, vp, tables, pos = _ragged_inputs(card, torch.bfloat16, 4, 2, 16, 1, 4)
+    with pytest.raises(ValueError):  # head dim no multiple of 8
+        K.ragged_paged_attention(q[..., :12].contiguous(), kp[..., :12].contiguous(),
+                                 vp[..., :12].contiguous(), tables, pos)
+    with pytest.raises(ValueError):  # one row's scores exceed shared memory
+        wide = tables.repeat(1, 4096)
+        K.ragged_paged_attention(q, kp, vp, wide.contiguous(), pos)
+    with pytest.raises(TypeError):
+        K.ragged_paged_attention(q.half(), kp.half(), vp.half(), tables, pos)
+    with pytest.raises(ValueError):
+        K.ragged_paged_attention(q, kp, vp, tables.t(), pos)
