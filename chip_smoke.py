@@ -25,7 +25,19 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    client threads: every request completes, the prefix cache hits, the
    kernel ran 24 x (steps + chunk steps) times, and every greedy token is
    the dense plain reference's (``prefill`` + ``decode_step``) or within
-   GEN_MARGIN_TOL of it in the reference's logits.
+   GEN_MARGIN_TOL of it in the reference's logits;
+6. the fused cosine kernel through ``ops.fused_cosine_topk`` at Q = 1024
+   and Q = 16 on the 1,000,064 x 1024 float32 corpus buffer (tile_n 128,
+   k = 100): held against its plain version (max |d| <= COSINE_TOL, top-100
+   ids equal but for swaps within it) and timed beside its bound and the
+   float32 ``torch.matmul`` yardstick;
+7. IVF serving at full width: a ``SearchService`` over the same vectors,
+   batcher on, ``SearchConfig`` defaults. ``recluster()`` fits k-means
+   (K = 707, 10 iterations, a 262,144-row sample), builds the layout and
+   tunes ``n_probe`` against recall@100 >= 0.95; then 32 threads x 8
+   queries through ``vector_candidates`` with the tuned plan: recall@100
+   against exact float32 ground truth, client p50/p99 and qps beside phase
+   2's full scan, fused dispatches, peak device memory, peak host RSS.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -45,6 +57,7 @@ import dataclasses
 import gc
 import json
 import os
+import resource
 import subprocess
 import sys
 import threading
@@ -79,6 +92,10 @@ GEN_REQUESTS, GEN_CLIENTS = 32, 8
 # place
 GEN_MARGIN_TOL = 0.06
 GEN_PROBES = 4
+# fused cosine kernel vs plain version: both float32 (no TF32); the kernel
+# scales the dot product by the row's inverse norm where the plain version
+# scales the row first, and sums in another order
+COSINE_TOL = 1e-5
 # ragged kernel vs plain version: float32 1e-5, bfloat16 2**-7 relative and
 # absolute (probabilities are rounded to bf16 before P.V, so a one-ulp
 # float32 difference moves one probability by a bf16 ulp)
@@ -727,6 +744,202 @@ def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict
     return entries, {"ragged_paged_attention": launches}
 
 
+def phase_fused_cosine(K, R, dev, valid, qs_all, k, reps):
+    """Phase 6: kernel #1 on the main path (``ops.fused_cosine_topk`` at
+    Q = 1024 and Q = 16, tile_n 128: 1,000,064 rows are no multiple of 512),
+    then against its plain version and timed. Returns (entries, launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nornicdb_tpu_torch import ops
+
+    n, d = dev.shape
+    qts = {q: torch.from_numpy(qs_all[:q]).to(dev.device) for q in (1024, 16)}
+    K.reset_launch_counts()
+    served = {q: ops.fused_cosine_topk(qt, dev, valid, k, tile_n=128)
+              for q, qt in qts.items()}
+    sync()
+    launches = K.launch_counts()["fused_cosine_scores"]
+    assert launches == len(qts), ("fused cosine launches", launches)
+    entries = []
+    for q, qt in qts.items():
+        got = K.fused_cosine_scores(qt, dev, tile_n=128)
+        want = R.fused_cosine_scores(qt, dev)
+        sync()
+        err = float((got - want).abs().max())
+        del got
+        masked = torch.where(valid[None, :], want, float("-inf"))
+        del want
+        _, pi = K.topk_lowest_index(masked, k)
+        vk, ik = served[q]
+        same = float((ik == pi).float().mean())
+        # an id may differ only where two scores lie within the tolerance
+        rr, jj = torch.nonzero(ik != pi, as_tuple=True)
+        gap = float((masked[rr, ik[rr, jj]] - masked[rr, pi[rr, jj]]).abs().max()
+                    ) if rr.numel() else 0.0
+        del masked
+        t = {"ms": cuda_ms(lambda: K.fused_cosine_scores(qt, dev, tile_n=128),
+                           reps),
+             "plain": cuda_ms(lambda: R.fused_cosine_scores(qt, dev),
+                              max(1, reps // 3)),
+             "lib": cuda_ms(lambda: torch.matmul(
+                 qt, F.normalize(dev, dim=1).T), max(1, reps // 3))}
+        ops_n = 2 * q * n * d + 3 * n * d
+        b = bound_ms(n * d * 4 + q * d * 4 + q * n * 4, ops_n, H100_FP32_OPS)
+        log(f"[phase6] fused cosine Q={q} N={n} D={d}: max|d|={err:.3g} (tol "
+            f"{COSINE_TOL}) top-{k} ids equal to plain {same:.6f}, largest "
+            f"score gap of a swapped id {gap:.3g}; ms={t['ms']:.4f} "
+            f"plain={t['plain']:.4f} lib={t['lib']:.4f} bound={b[0]:.4f} "
+            f"({b[1]}) achieved {ops_n / t['ms'] / 1e9:.2f} TFLOP/s")
+        assert err <= COSINE_TOL, ("fused cosine kernel vs plain", q, err)
+        assert gap <= COSINE_TOL, ("fused cosine top-k swap", q, gap)
+        entries.append(dict(
+            name=f"fused_cosine_scores[Q={q}]", route="cuda",
+            source="nornicdb_tpu_torch/ops/csrc/fused_cosine.cu",
+            replaces="nornicdb_tpu/ops/pallas_kernels.py:36",
+            counter="fused_cosine_scores", max_abs_err=err, ms=t["ms"],
+            plain_ms=t["plain"], bound_ms=b[0], bound_by=b[1],
+            library_ms=t["lib"]))
+        torch.cuda.empty_cache()
+    del served
+    torch.cuda.empty_cache()
+    return entries, {"fused_cosine_scores": launches}
+
+
+def _rss_gib() -> float:
+    """This process's resident host memory now, GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    raise RuntimeError("VmRSS not in /proc/self/status")
+
+
+def phase_ivf(svc, corpus, qs_serve, k, phase2: dict):
+    """Phase 7: recluster (fit, layout, tune) and IVF serving through the
+    batcher with the tuned plan."""
+    import torch
+
+    from nornicdb_tpu_torch.ops import ivf as IV
+    from nornicdb_tpu_torch.ops import kernels as K
+    from nornicdb_tpu_torch.ops.kmeans import optimal_k
+    from nornicdb_tpu_torch.search import service as SV
+
+    # -- 7.1 recluster, its steps timed
+    secs: dict = {"upload": 0.0}
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                sync()
+                secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+        return wrapped
+
+    real = (SV.kmeans_fit, IV.build_ivf_layout, IV._scatter_rows)
+    SV.kmeans_fit = timed("fit", SV.kmeans_fit)
+    IV.build_ivf_layout = timed("layout", IV.build_ivf_layout)
+    IV._scatter_rows = timed("upload", IV._scatter_rows)
+    peak_rss = [_rss_gib()]
+    rss0 = peak_rss[0]
+    stop = threading.Event()
+
+    def sample_rss() -> None:
+        while not stop.wait(0.05):
+            peak_rss[0] = max(peak_rss[0], _rss_gib())
+
+    sampler = threading.Thread(target=sample_rss)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        svc.recluster()
+    finally:
+        stop.set()
+        sampler.join()
+        SV.kmeans_fit, IV.build_ivf_layout, IV._scatter_rows = real
+    t_recluster = time.perf_counter() - t0
+    layout = corpus._ivf
+    state = svc._tune_state
+    spilled = int((layout.residual_slots >= 0).sum())
+    log(f"[phase7] recluster {t_recluster:.1f}s: fit {secs['fit']:.2f}s "
+        f"(K={layout.k}, sample {svc.config.cluster_fit_sample}), layout build "
+        f"{secs['layout']:.2f}s of which row upload {secs['upload']:.2f}s, "
+        f"tune {state.tune_seconds:.2f}s; Cmax={layout.cmax} spilled rows="
+        f"{spilled} layout device bytes={layout.device_bytes} "
+        f"({layout.device_bytes / 2**30:.3f}GiB); host RSS {rss0:.2f}GiB before, "
+        f"peak {peak_rss[0]:.2f}GiB during recluster, process peak "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f}GiB")
+    log(f"[phase7] tune: {json.dumps(state.as_dict())}")
+    assert layout.k == optimal_k(len(corpus)), ("clusters", layout.k)
+    assert state.outcome == "ok", ("tune outcome", state.as_dict())
+    assert 0 < state.n_probe < layout.k, ("n_probe", state.n_probe)
+
+    # -- 7.2 fused batches of 16 back to back: IVF beside the full scan, and
+    # ivf_search alone (the search less its id resolution and filtering)
+    batches = [qs_serve[i:i + 16] for i in range(0, 256, 16)]
+    side = {}
+    runs = (("full", lambda b: corpus.search(b, k=k)),
+            ("ivf", lambda b: corpus.search(b, k=k, n_probe=state.n_probe)),
+            ("ivf_search", lambda b: IV.ivf_search(layout, b, k,
+                                                   state.n_probe)),
+            ("ivf2", lambda b: corpus.search(b, k=k, n_probe=state.n_probe)),
+            ("full2", lambda b: corpus.search(b, k=k)))
+    for name, fn in runs:
+        fn(batches[0])
+        t0 = time.perf_counter()
+        for b in batches:
+            fn(b)
+        side[name] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    log("[phase7] sequential batches of 16, ms a batch: "
+        + " ".join(f"{a}={v:.3f}" for a, v in side.items()))
+
+    # -- 7.3 the service with the tuned plan
+    batch_log: list = []
+    inner = svc._batched_corpus_search
+
+    def timed_batch(queries, kk, min_sim):
+        t = time.perf_counter()
+        try:
+            return inner(queries, kk, min_sim)
+        finally:
+            batch_log.append((t, time.perf_counter(), len(queries)))
+
+    svc._batched_corpus_search = timed_batch
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    d0 = corpus.sync_stats.device_dispatches
+    run = drive_service(svc, qs_serve, k, lambda: None)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    dispatches = corpus.sync_stats.device_dispatches - d0
+    with corpus._borrow_device() as (dev, valid, _, slot_ids, _):
+        gt = ground_truth(qs_serve, dev, valid, k)
+        gt_ids = [{slot_ids[s] for s in g} for g in gt]
+    rec = recall(run["results"], gt_ids)
+    batch_ms = [(b - a) * 1e3 for a, b, _ in batch_log]
+    sizes = [n for _, _, n in batch_log]
+    log(f"[phase7] IVF n_probe={state.n_probe}: {len(qs_serve)} queries in "
+        f"{run['wall']:.3f}s qps={len(qs_serve) / run['wall']:.1f} "
+        f"(phase 2 full scan {phase2['qps']:.1f}) client "
+        f"p50={np.median(run['lat']) * 1e3:.2f}ms "
+        f"p99={np.percentile(run['lat'], 99) * 1e3:.2f}ms (phase 2 "
+        f"{phase2['p50']:.2f} / {phase2['p99']:.2f}) batch "
+        f"p50={np.median(batch_ms):.2f}ms, {len(batch_log)} batches of mean "
+        f"{np.mean(sizes):.1f} (max {max(sizes)}), dispatches={dispatches} "
+        f"recall@{k}={rec:.4f} launches={counts} peak device memory "
+        f"{peak / 2**30:.3f}GiB ({held / 2**30:.3f}GiB held before, a served "
+        f"batch at most {(peak - held) / 2**30:.3f}GiB)")
+    assert rec >= 0.95, ("IVF serving recall", rec)
+    assert dispatches < len(qs_serve), ("no fusion", dispatches)
+    # the pruned path served every batch: a full-scan fallback would have
+    # launched the streaming kernel
+    assert counts["streaming_topk_bf16"] == 0, ("full-scan fallback", counts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -867,6 +1080,9 @@ def main() -> int:
         gt_ids = [{slot_ids[s] for s in g} for g in gt]
     rec2 = recall([served[i] for i in sample], gt_ids)
     batch_ms = [(b - a) * 1e3 for a, b, _ in batch_log]
+    phase2 = {"qps": len(qs_serve) / run["wall"],
+              "p50": np.median(run["lat"]) * 1e3,
+              "p99": np.percentile(run["lat"], 99) * 1e3}
     log(f"[phase2] {len(qs_serve)} queries in {run['wall']:.3f}s "
         f"qps={len(qs_serve) / run['wall']:.1f} "
         f"client p50={np.median(run['lat']) * 1e3:.2f}ms "
@@ -892,8 +1108,6 @@ def main() -> int:
     t0 = time.perf_counter()
     qc = S.DeviceCorpus(dims=DIMS, quantize=True, device=device)
     qc.add_batch(ids, data)
-    del data
-    gc.collect()
     qc.search(qs_serve[:1], k=k)  # first sync: upload + quantize
     log(f"[phase3] int8 corpus load {time.perf_counter() - t0:.1f}s")
     K.reset_launch_counts()
@@ -938,10 +1152,36 @@ def main() -> int:
     entries += entries5
     log(f"[phase5] {time.perf_counter() - t0:.1f}s")
 
+    # -- phases 6 and 7 over a second service on the same vectors
+    t0 = time.perf_counter()
+    svc = SearchService(config=SearchConfig(batching_enabled=True), device=device)
+    svc.index_vectors(ids, data)
+    del data
+    gc.collect()
+    corpus = svc.corpus()
+    with corpus._borrow_device() as (dev, valid, _, _, _):
+        sync()
+    log(f"[phase7] load + upload {time.perf_counter() - t0:.1f}s, capacity "
+        f"{corpus.capacity}")
+    t0 = time.perf_counter()
+    with corpus._borrow_device() as (dev, valid, _, _, _):
+        entries6, counts6 = phase_fused_cosine(K, R, dev, valid, qs_kern, k,
+                                               REPS)
+    del dev, valid
+    entries = entries6 + entries
+    log(f"[phase6] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_ivf(svc, corpus, qs_serve, k, phase2)
+    svc.close()
+    del svc, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase7] {time.perf_counter() - t0:.1f}s")
+
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],
                 "streaming_topk_int8": counts3["streaming_topk_int8"],
-                "extract_topk": counts4["extract_topk"], **counts5}
+                "extract_topk": counts4["extract_topk"], **counts5, **counts6}
     for e in entries:
         e["launches"] = launches[e.pop("counter")]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

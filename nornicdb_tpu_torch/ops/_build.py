@@ -47,6 +47,9 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
     "extract_topk": {
         "nornic_extract_topk": (_P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "fused_cosine": {
+        "nornic_fused_cosine_scores": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,13 @@
 """Hand-written Hopper kernels of the search and generation paths, and their
 wrappers.
 
-Counterpart of ``nornicdb_tpu/ops/pallas_kernels.py`` for the four kernels
-on the serving paths:
+Counterpart of ``nornicdb_tpu/ops/pallas_kernels.py``, one CUDA kernel for
+each of its five TPU kernels:
 
 ============================  ==============================  =======================
 TPU kernel (pallas_kernels)   CUDA kernel (ops/csrc)          wrapper here
 ============================  ==============================  =======================
+_cosine_tile_kernel           fused_cosine_kernel             fused_cosine_scores
 _streaming_topk_kernel        streaming_topk_bf16_kernel      streaming_cosine_topk
 _streaming_topk_int8_kernel   streaming_topk_i8_kernel        streaming_cosine_topk_int8
 _extract_topk_kernel          extract_topk_kernel             _topk_bins("pallas")
@@ -47,6 +48,7 @@ _EXTRACT_MAX_BINS = 232_448 // 4
 
 _count_lock = threading.Lock()
 _LAUNCHES = {
+    "fused_cosine_scores": 0,
     "streaming_topk_bf16": 0,
     "streaming_topk_int8": 0,
     "extract_topk": 0,
@@ -133,6 +135,52 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     # a true division (``127.0 / m`` would run as reciprocal-then-multiply)
     s = torch.full_like(m, 127.0) / m
     return torch.round(xf * s[:, None]).to(torch.int8), s
+
+
+# ----------------------------------------------------------- fused cosine
+def fused_cosine_scores(queries: torch.Tensor, corpus: torch.Tensor,
+                        tile_n: int = 512) -> torch.Tensor:
+    """(Q, D) x (N, D) -> (Q, N) float32 cosine scores, each corpus row
+    L2-normalized inside the kernel (``fused_cosine.cu``; the TPU kernel's
+    signature without ``interpret``). queries: L2-normalized float32;
+    corpus: float32, bfloat16 or float16 rows, any norm. ``tile_n`` is the
+    TPU kernel's divisibility rule only (``min(tile_n, N)`` must divide N);
+    the CUDA tile is its own and any Q and D work. Full float32, no TF32."""
+    dev = queries.device
+    _check(queries, "queries", torch.float32, 2, dev)
+    _check(corpus, "corpus", _CORPUS_DTYPES, 2, dev)
+    (q, d), n = queries.shape, corpus.shape[0]
+    if corpus.shape[1] != d:
+        raise ValueError(f"fused_cosine_scores: queries have D={d}, corpus "
+                         f"rows {corpus.shape[1]}")
+    tile_n = min(tile_n, n)
+    if n % tile_n != 0:
+        raise ValueError(
+            f"corpus rows ({n}) must be a multiple of tile_n ({tile_n}); "
+            "pad with ops.similarity.pad_to_multiple and mask upstream")
+    if dev.type != "cuda":
+        return kernels_ref.fused_cosine_scores(queries, corpus)
+    out = torch.empty((q, n), dtype=torch.float32, device=dev)
+    if q == 0:
+        return out
+    # query rows per CTA (16 * tm): a small batch computes no padding rows
+    tm = next(t for t in (1, 2, 4, 8) if 16 * t >= min(q, 128))
+    lib = _build.library("fused_cosine")
+    _launch("fused_cosine_scores", lib.nornic_fused_cosine_scores,
+            queries.data_ptr(), corpus.data_ptr(), out.data_ptr(), q, n, d,
+            _CORPUS_DTYPES[corpus.dtype], tm, device=dev)
+    return out
+
+
+def fused_cosine_topk(queries: torch.Tensor, corpus: torch.Tensor,
+                      valid: torch.Tensor, k: int, tile_n: int = 512
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel-scored cosine top-k: ``fused_cosine_scores``, rows with
+    ``valid`` False masked to -inf, then the top k with lax.top_k's
+    lowest-index ties. Returns (values (Q, k), indices (Q, k) int64)."""
+    scores = fused_cosine_scores(queries, corpus, tile_n=tile_n)
+    scores = torch.where(valid[None, :], scores, float("-inf"))
+    return topk_lowest_index(scores, k)
 
 
 # ------------------------------------------------------- streaming bins

@@ -49,6 +49,16 @@ def _fold_bins(
     return bins
 
 
+def fused_cosine_scores(queries: torch.Tensor, corpus: torch.Tensor
+                        ) -> torch.Tensor:
+    """``fused_cosine_kernel``, step by step as the TPU kernel: the corpus in
+    float32, each row scaled by rsqrt(max(sum of squares, 1e-24)), then one
+    float32 product with the (pre-normalized) queries."""
+    c = corpus.float()
+    inv = torch.rsqrt(torch.clamp((c * c).sum(dim=1, keepdim=True), min=1e-24))
+    return queries.float() @ (c * inv).T
+
+
 def streaming_bins_bf16(
     queries: torch.Tensor, corpus: torch.Tensor, valid: torch.Tensor,
     tile_n: int, rows: int, tile_bits: int,

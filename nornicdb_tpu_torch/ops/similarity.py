@@ -12,10 +12,16 @@ Tie order: every top-k here breaks value ties by the lowest index, as
 ``lax.top_k`` does (``kernels.topk_lowest_index``), so exact mode returns
 the same ids in the same order as the JAX package.
 
-Deferred to later slices: the IVF cluster pruning (``cluster``,
-``_pruned_search``, ``set_clusters``), the BackendManager lifecycle gate and
-the DEGRADED_CPU host serving. Here the device gate is a plain device check:
-the port never falls back to the CPU on its own.
+IVF cluster pruning: ``DeviceCorpus.cluster`` / ``set_clusters`` build a
+cluster-contiguous layout (``ops/ivf.py``) and ``search(n_probe=...)``
+scores only the probed clusters, while the layout epoch says the layout
+still describes the rows.
+
+Deferred to later slices: the BackendManager lifecycle gate and the
+DEGRADED_CPU host serving (with it the stash of a cluster fit delivered
+while degraded), the write-behind uploader, and the device-memory
+accounting of the telemetry plane. Here the device gate is a plain device
+check: the port never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
 from nornicdb_tpu_torch.errors import DeviceUnavailable
 from nornicdb_tpu_torch.ops.host_search import format_topk_results
+from nornicdb_tpu_torch.ops.kmeans import kmeans_fit, nearest_clusters
 from nornicdb_tpu_torch.ops.kernels import (
     pick_tile_n,
     quantize_rows,
@@ -352,6 +359,13 @@ class HostCorpus:
         self._donation_ok = True
         self.sync_stats = SyncStats()
         self._epoch = 0  # bumps on every write
+        # layout epoch: bumps ONLY when a mutation invalidates derived
+        # layouts (the IVF blocks hold row copies): an in-place overwrite of
+        # a covered slot, or any slot-space remap (grow/compact/clear). New
+        # ids and removals leave a fitted layout valid: fresh slots are in no
+        # block, and removed slots filter out at result time.
+        self._layout_epoch = 0
+        self._layout_slots: Optional[np.ndarray] = None  # bool per slot
 
     def __len__(self) -> int:
         return len(self._slot_of)
@@ -370,6 +384,14 @@ class HostCorpus:
         self._full_dirty = True
         self._dirty_blocks.clear()
 
+    def _note_overwrite(self, slot: int) -> None:
+        """In-place update of a slot covered by a derived layout: the IVF
+        blocks hold a COPY of the row, so the layout would serve the stale
+        vector; it must rebuild (layout epoch bump)."""
+        ls = self._layout_slots
+        if ls is not None and slot < ls.size and ls[slot]:
+            self._layout_epoch += 1
+
     def add(self, id_: str, vector: np.ndarray) -> None:
         v = np.asarray(vector, np.float32)
         norm = float(np.linalg.norm(v))
@@ -387,6 +409,8 @@ class HostCorpus:
                     self._grow()
                 self._ids.append(id_)
                 self._slot_of[id_] = slot
+            else:
+                self._note_overwrite(slot)
             self._host[slot] = v
             self._valid[slot] = True
             self._mark_rows_dirty(slot, slot + 1)
@@ -435,6 +459,8 @@ class HostCorpus:
                             self._grow(min_capacity=slot + len(ids) - i)
                         self._ids.append(id_)
                         self._slot_of[id_] = slot
+                    else:
+                        self._note_overwrite(slot)
                     self._host[slot] = vectors[i]
                     self._valid[slot] = True
                     self._mark_rows_dirty(slot, slot + 1)
@@ -484,6 +510,7 @@ class HostCorpus:
             self._compact_pending = False
             self._mark_all_dirty()
             self._epoch += 1
+            self._layout_epoch += 1
 
     def stats(self) -> dict:
         return {
@@ -492,6 +519,7 @@ class HostCorpus:
             "dims": self.dims,
             "tombstones": self._tombstones,
             "epoch": self._epoch,
+            "layout_epoch": self._layout_epoch,
             "dirty_blocks": len(self._dirty_blocks),
             "memory_bytes": self.memory_usage(),
             "sync": self.sync_stats.as_dict(),
@@ -551,6 +579,7 @@ class HostCorpus:
         self._host, self._valid = host, valid
         # shape change: the resident device buffer cannot be patched
         self._mark_all_dirty()
+        self._layout_epoch += 1
 
     def _compact(self) -> None:
         live = [(i, id_) for i, id_ in enumerate(self._ids) if id_ is not None]
@@ -569,6 +598,7 @@ class HostCorpus:
         self._compact_pending = False
         self._mark_all_dirty()
         self._epoch += 1
+        self._layout_epoch += 1
 
     # -- device sync engine ------------------------------------------------
     # Subclasses provide the device buffers through three hooks:
@@ -685,7 +715,12 @@ class DeviceCorpus(HostCorpus):
     incremental dirty-block host sync. ``device=None`` means CUDA and raises
     DeviceUnavailable without a card; pass ``device="cpu"`` for the CPU.
     ``quantize=True`` keeps an int8 mirror (codes + per-row scales) beside
-    the float32 rows and serves large corpora through the int8 kernel."""
+    the float32 rows and serves large corpora through the int8 kernel.
+
+    IVF cluster pruning: after ``cluster()`` (or ``set_clusters``) a search
+    with ``n_probe > 0`` scores only the rows of the n_probe nearest
+    clusters. Stale assignments cost recall, never correctness (scores stay
+    exact); the service reclusters and re-tunes on drift."""
 
     def __init__(
         self,
@@ -704,6 +739,12 @@ class DeviceCorpus(HostCorpus):
         self._dev: Optional[torch.Tensor] = None
         self._dev_valid: Optional[torch.Tensor] = None
         self._dev_i8: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+        # IVF state: (K, D) centroids + per-slot assignment (-1 = unassigned)
+        self._centroids: Optional[torch.Tensor] = None
+        self._assignments: Optional[np.ndarray] = None
+        # cluster-contiguous layout (ops/ivf.py); serves only while its
+        # epoch matches the corpus layout epoch
+        self._ivf = None
 
     def _device_gate(self) -> None:
         """Plain device check: the card must still be there. No fallback."""
@@ -761,6 +802,202 @@ class DeviceCorpus(HostCorpus):
             self._dev_i8 = None
             raise
 
+    # -- cluster pruning ---------------------------------------------------
+    def cluster(self, k: int = 0, iters: int = 10, seed: int = 0,
+                sample: int = 0) -> int:
+        """Fit k-means over the live rows on this corpus's device and build
+        the IVF layout. Returns the cluster count; 0 when nothing was
+        installed (too few rows, or the slot space moved under the fit).
+        ``sample`` caps the Lloyd fit (ops.kmeans.kmeans_fit).
+
+        The fit runs outside the lock; the install is optimistic: the row
+        snapshot pins the layout epoch, and the fit installs only if it is
+        unchanged (an overwrite of a snapshot row or a compaction would
+        otherwise stamp a layout built from stale slots as current)."""
+        self._device_gate()
+        with self._sync_lock:
+            live = [i for i, id_ in enumerate(self._ids) if id_ is not None]
+            if len(live) < 2:
+                return 0
+            data = self._host[live]  # fancy indexing copies: stable snapshot
+            epoch_at_read = self._layout_epoch
+            # widen the overwrite guard to the snapshot rows so an in-place
+            # update during the fit bumps the epoch and voids the install
+            mask = np.zeros(self.capacity, bool)
+            mask[live] = True
+            if (self._layout_slots is not None
+                    and self._layout_slots.size == self.capacity):
+                mask |= self._layout_slots
+            self._layout_slots = mask
+        res = kmeans_fit(data, k=k, iters=iters, seed=seed, sample=sample,
+                         device=self.device)
+        centroids_dev = torch.from_numpy(res.centroids).to(self.device,
+                                                           self.dtype)
+        with self._sync_lock:
+            if self._layout_epoch != epoch_at_read:
+                return 0  # slot space moved mid-fit: caller may recluster
+            assignments = np.full(self.capacity, -1, np.int32)
+            assignments[live] = res.assignments
+            self._centroids = centroids_dev
+            self._assignments = assignments
+        self._build_ivf_layout(np.asarray(live), res.assignments,
+                               res.centroids, expect_epoch=epoch_at_read)
+        return res.k
+
+    def _build_ivf_layout(self, live_slots: np.ndarray,
+                          live_assignments: np.ndarray,
+                          centroids: np.ndarray,
+                          expect_epoch: Optional[int] = None) -> None:
+        """Cluster-contiguous block layout (ops/ivf.py). The build and its
+        transfers run outside the lock; the layout installs only if the
+        layout epoch is unchanged (the ``_layout_slots`` mask makes an
+        overwrite of a covered row bump it, as in ``cluster()``)."""
+        from nornicdb_tpu_torch.ops.ivf import build_ivf_layout  # imports us
+
+        with self._sync_lock:
+            if expect_epoch is not None and self._layout_epoch != expect_epoch:
+                return  # slot space moved since the caller resolved slots
+            epoch_at_read = self._layout_epoch
+            rows = self._host[live_slots]  # fancy indexing copies: snapshot
+            # slots the layout copies rows from: an in-place overwrite of
+            # any of these bumps _layout_epoch (invalidates the layout)
+            mask = np.zeros(self.capacity, bool)
+            mask[live_slots] = True
+            self._layout_slots = mask
+        layout = build_ivf_layout(
+            rows, live_slots, live_assignments, centroids,
+            dtype=self.dtype, epoch=epoch_at_read, device=self.device,
+        )
+        with self._sync_lock:
+            if self._layout_epoch != epoch_at_read:
+                return  # mutated mid-build: discard the stale layout
+            self._ivf = layout
+
+    def clear_clusters(self) -> None:
+        self._centroids = None
+        self._assignments = None
+        self._ivf = None
+        self._layout_slots = None
+
+    def set_clusters(
+        self, centroids: np.ndarray, assignments_by_id: dict[str, int]
+    ) -> None:
+        """Install externally computed clusters (the search service's fit)
+        without running k-means again. The id -> slot resolution sees one
+        slot space under the lock; the transfer and the layout build run
+        outside it, installed only if the layout epoch did not move."""
+        self._device_gate()
+        centroids_dev = torch.tensor(np.asarray(centroids, np.float32),
+                                     dtype=self.dtype, device=self.device)
+        with self._sync_lock:
+            slot_assignments = np.full(self.capacity, -1, np.int32)
+            for id_, c in assignments_by_id.items():
+                slot = self._slot_of.get(id_)
+                if slot is not None:
+                    slot_assignments[slot] = c
+            self._centroids = centroids_dev
+            self._assignments = slot_assignments
+            # the old layout describes the replaced clustering: drop it even
+            # when no live row matches (else the epoch guard keeps serving it)
+            self._ivf = None
+            self._layout_slots = None
+            live = np.nonzero((slot_assignments >= 0) & self._valid)[0]
+            epoch_at_read = self._layout_epoch
+        if live.size:
+            self._build_ivf_layout(live, slot_assignments[live],
+                                   np.asarray(centroids, np.float32),
+                                   expect_epoch=epoch_at_read)
+
+    def _grow(self, min_capacity: int = 0) -> None:
+        super()._grow(min_capacity)
+        # the slot space changed shape: drop the cluster state until the
+        # next recluster
+        self.clear_clusters()
+
+    def clear(self) -> None:
+        with self._sync_lock:
+            super().clear()
+            # the slot space was remapped: the assignments index dead rows
+            self.clear_clusters()
+
+    def _compact(self) -> None:
+        super()._compact()
+        # compaction remaps slots: old assignments index the wrong rows
+        self.clear_clusters()
+
+    def _pruned_search(
+        self, q: np.ndarray, k: int, min_similarity: float, n_probe: int,
+    ) -> Optional[list[list[tuple[str, float]]]]:
+        """Score only the rows of the n_probe nearest clusters; None when
+        no cluster index is fitted (the caller full-scans).
+
+        Buffer, id map, cluster state and the layout-epoch check are
+        captured under ONE lock hold, after the sync (and any pending
+        compaction), so everything below resolves against that snapshot."""
+        with self._sync_lock:
+            self._sync()
+            self._readers += 1
+            corpus = self._dev
+            ids, valid_host = self._ids, self._valid
+            centroids, assignments = self._centroids, self._assignments
+            layout = self._ivf
+            layout_ok = (
+                layout is not None and layout.epoch == self._layout_epoch
+            )
+        try:
+            if corpus is None or centroids is None or assignments is None:
+                return None
+            # the layout serves while it matches the LAYOUT epoch: plain
+            # adds and removes keep it (new rows are invisible to pruned
+            # search until the next recluster; removed rows filter out
+            # through the captured id map)
+            if layout_ok:
+                from nornicdb_tpu_torch.ops.ivf import ivf_search
+
+                vals, slots = ivf_search(layout, q, k, n_probe)
+                return format_topk_results(vals, slots, q.shape[0], k,
+                                           min_similarity, ids)
+            n_probe = min(n_probe, int(centroids.shape[0]))
+            return self._pruned_scan(
+                q, k, min_similarity, n_probe, corpus, ids, valid_host,
+                centroids, assignments,
+            )
+        finally:
+            with self._sync_lock:
+                self._readers -= 1
+
+    def _pruned_scan(
+        self, q: np.ndarray, k: int, min_similarity: float, n_probe: int,
+        corpus: torch.Tensor, ids: list[Optional[str]],
+        valid_host: np.ndarray, centroids: torch.Tensor,
+        assignments: np.ndarray,
+    ) -> list[list[tuple[str, float]]]:
+        """Assignment-mask pruning over the synced device corpus, one query
+        at a time (the path while the layout is stale or not yet built).
+        All host state comes in as the snapshot taken with the buffer."""
+        out: list[list[tuple[str, float]]] = []
+        for qi in range(q.shape[0]):
+            qd = torch.from_numpy(q[qi]).to(self.device, self.dtype)
+            probes = nearest_clusters(qd, centroids, n_probe).cpu().numpy()
+            slots = np.nonzero(np.isin(assignments, probes) & valid_host)[0]
+            if slots.size == 0:
+                out.append([])
+                continue
+            scores = score_subset(
+                l2_normalize(qd), corpus,
+                torch.from_numpy(slots).to(self.device),
+            ).to(torch.float32).cpu().numpy()
+            row = []
+            for j in np.argsort(-scores)[:k]:
+                s = float(scores[j])
+                if s < min_similarity:
+                    continue
+                id_ = ids[slots[j]]
+                if id_ is not None:
+                    row.append((id_, s))
+            out.append(row)
+        return out
+
     def device_arrays(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Unguarded access to the resident buffers. Callers may hold the
         returned tensors indefinitely, so in-place patching is disabled for
@@ -777,16 +1014,24 @@ class DeviceCorpus(HostCorpus):
         k: int,
         min_similarity: float = -1.0,
         exact: bool = False,
+        n_probe: int = 0,
         streaming: Optional[bool] = None,
     ) -> list[list[tuple[str, float]]]:
-        """Brute-force cosine top-k. Returns per-query [(id, score)]
-        filtered by min_similarity. On the card at scale the candidates come
-        from the streaming kernel (packed-bin recall contract, ~0.975 at
-        k=100); exact=True gives recall 1.0 with lowest-index ties."""
+        """Cosine top-k. Returns per-query [(id, score)] filtered by
+        min_similarity. On the card at scale the candidates come from the
+        streaming kernel (packed-bin recall contract, ~0.975 at k=100);
+        exact=True gives recall 1.0 with lowest-index ties. With n_probe > 0
+        and a fitted cluster index only the n_probe nearest clusters are
+        scored (IVF pruning), in one pass for the batch."""
         q = np.array(queries, np.float32, ndmin=2)
         if len(self._slot_of) == 0:
             return [[] for _ in range(q.shape[0])]
         self._device_gate()
+        if n_probe > 0:
+            pruned = self._pruned_search(q, k, min_similarity, n_probe)
+            if pruned is not None:
+                self.sync_stats.device_dispatches += 1
+                return pruned
         with self._borrow_device() as (corpus, valid, dev_i8, ids, _):
             kk = min(k, self.capacity)
             qt = l2_normalize(torch.from_numpy(q).to(self.device, self.dtype))

@@ -6,11 +6,14 @@ from nornicdb_tpu_torch.search.service import (
     SearchService,
     SearchStats,
 )
+from nornicdb_tpu_torch.search.tuner import IVFTuner, TuneState
 
 __all__ = [
     "BatcherStats",
+    "IVFTuner",
     "QueryBatcher",
     "SearchConfig",
     "SearchService",
     "SearchStats",
+    "TuneState",
 ]

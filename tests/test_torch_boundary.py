@@ -58,8 +58,11 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.ops._build",
                      "nornicdb_tpu_torch.ops.similarity",
                      "nornicdb_tpu_torch.ops.host_search",
+                     "nornicdb_tpu_torch.ops.kmeans",
+                     "nornicdb_tpu_torch.ops.ivf",
                      "nornicdb_tpu_torch.search.batcher",
                      "nornicdb_tpu_torch.search.service",
+                     "nornicdb_tpu_torch.search.tuner",
                      "nornicdb_tpu_torch.convert",
                      "nornicdb_tpu_torch.config",
                      "nornicdb_tpu_torch.models",

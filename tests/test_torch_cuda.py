@@ -212,3 +212,107 @@ def test_ragged_attention_refuses_what_the_kernel_does_not_take(card):
         K.ragged_paged_attention(q.half(), kp.half(), vp.half(), tables, pos)
     with pytest.raises(ValueError):
         K.ragged_paged_attention(q, kp, vp, tables.t(), pos)
+
+
+# ------------------------------------------------------------ fused cosine
+# Kernel against its plain version on the card: within 1e-5 absolute. Both
+# compute in float32 (no TF32); the kernel scales each dot product by the
+# row's inverse norm after the product where the plain version scales the
+# row first, and sums in another order.
+COSINE_TOL = 1e-5
+
+
+def _cosine_inputs(card, q, n, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    qs = _unit(rng, q, d)
+    c = (rng.standard_normal((n, d)) * rng.uniform(0.1, 5.0, (n, 1))).astype(
+        np.float32)
+    c[3] = 0.0  # the 1e-24 clamp
+    return (torch.from_numpy(qs).to(card),
+            torch.from_numpy(c).to(card, dtype),
+            torch.from_numpy(rng.random(n) > 0.2).to(card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("q", [1, 16, 100, 1024])
+@pytest.mark.parametrize("d", [1024, 100, 7])
+def test_fused_cosine_matches_plain(card, dtype, q, d):
+    n = 1000  # no multiple of the kernel's 128-row tile: a ragged edge
+    qs, c, _ = _cosine_inputs(card, q, n, d, dtype, seed=q + d)
+    before = K.launch_counts()["fused_cosine_scores"]
+    got = K.fused_cosine_scores(qs, c, tile_n=n)
+    want = R.fused_cosine_scores(qs, c)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_cosine_scores"] == before + 1
+    assert got.shape == (q, n) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= COSINE_TOL
+    assert bool((got[:, 3] == 0).all())
+
+
+def test_fused_cosine_topk_matches_plain(card):
+    qs, c, valid = _cosine_inputs(card, 64, 8192, 256, torch.float32, seed=5)
+    vk, ik = K.fused_cosine_topk(qs, c, valid, 100, tile_n=128)
+    scores = torch.where(valid[None, :], R.fused_cosine_scores(qs, c),
+                         float("-inf"))
+    vp, ip = K.topk_lowest_index(scores, 100)
+    torch.cuda.synchronize()
+    assert float((vk - vp).abs().max()) <= COSINE_TOL
+    assert bool(valid[ik].all())
+    # an id may differ only where two scores lie within the tolerance
+    rr, jj = torch.nonzero(ik != ip, as_tuple=True)
+    gap = (scores[rr, ik[rr, jj]] - scores[rr, ip[rr, jj]]).abs()
+    assert bool((gap <= COSINE_TOL).all())
+
+
+def test_fused_cosine_refuses_what_the_kernel_does_not_take(card):
+    qs, c, _ = _cosine_inputs(card, 8, 512, 64, torch.float32)
+    with pytest.raises(ValueError):
+        K.fused_cosine_scores(qs, c[:500].contiguous(), tile_n=128)
+    with pytest.raises(TypeError):
+        K.fused_cosine_scores(qs.half(), c)
+    with pytest.raises(ValueError):
+        K.fused_cosine_scores(qs, c.cpu())
+
+
+# --------------------------------------------------------------------- IVF
+def test_ivf_search_on_the_card_gives_the_cpu_ids(card):
+    from nornicdb_tpu_torch.ops import ivf
+
+    rng = np.random.default_rng(7)
+    centers = _unit(rng, 16, 64)
+    assign = rng.integers(0, 16, 3000).astype(np.int32)
+    rows = centers[assign] + 0.2 * rng.standard_normal((3000, 64)).astype(
+        np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    assign[:1200] = 0  # one oversized cluster: the residual spill
+    qs = rows[rng.integers(0, 3000, 40)]
+    lay_cpu = ivf.build_ivf_layout(rows, np.arange(3000), assign, centers,
+                                   device="cpu")
+    lay_gpu = ivf.build_ivf_layout(rows, np.arange(3000), assign, centers,
+                                   device=card)
+    assert lay_gpu.residual is not None
+    assert torch.equal(lay_gpu.blocks.cpu(), lay_cpu.blocks)
+    for n_probe, k in ((1, 10), (4, 50)):
+        v_c, s_c = ivf.ivf_search(lay_cpu, qs, k=k, n_probe=n_probe)
+        v_g, s_g = ivf.ivf_search(lay_gpu, qs, k=k, n_probe=n_probe)
+        np.testing.assert_array_equal(s_g, s_c)
+        fin = np.isfinite(v_c)
+        assert np.max(np.abs(v_g[fin] - v_c[fin])) <= 1e-5
+        v_1, s_1 = ivf.ivf_search(lay_gpu, qs, k=k, n_probe=n_probe,
+                                  max_bytes=1)  # one cluster a chunk
+        np.testing.assert_array_equal(s_1, s_g)
+
+
+def test_clustered_corpus_on_the_card(card):
+    from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
+
+    rng = np.random.default_rng(8)
+    centers = _unit(rng, 8, 32)
+    rows = centers[rng.integers(0, 8, 2000)] + 0.15 * rng.standard_normal(
+        (2000, 32)).astype(np.float32)
+    corpus = DeviceCorpus(dims=32, device=card)
+    corpus.add_batch([f"n{i}" for i in range(2000)], rows)
+    assert corpus.cluster(k=8, iters=5) == 8
+    assert corpus._ivf.blocks.is_cuda
+    res = corpus.search(rows[:16], k=5, n_probe=3)
+    assert [r[0][0] for r in res] == [f"n{i}" for i in range(16)]
