@@ -44,8 +44,17 @@ centres with 100 rows each (shuffled), so each query's true top-100 is
 separable from the rest. Queries are noisy copies of rows.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
-it is the ``kernels`` JSON (times, bounds, launches). Any failed check raises
-and the script exits non-zero without that line. Without CUDA it exits 2.
+it is the ``kernels`` JSON (times, bounds, launches). Every ``ms`` there is
+the time of a call from Python between CUDA events (``cuda_ms``). The
+extract kernel and ``torch.topk`` over the bins take microseconds, so the
+host's launch work can set that time: their entries also carry the device
+time of a call from CUDA-graph replays (``graph_ms``) as ``device_ms`` and
+``library_device_ms``. Phases 1 and 6 also print the extract and fused
+cosine kernels' ptxas registers, shared memory and spills, their share of
+the bound, and their first versions' times copied from PERF.md (not
+measured here); phase 1 times the sort epilogue (``topk_lowest_index``)
+over the same bins. Any failed check raises and the script exits non-zero
+without that line. Without CUDA it exits 2.
 Matmul precision is pinned to full float32 (no TF32) for every reference,
 and bf16 GEMMs to float32 reductions.
 """
@@ -100,6 +109,12 @@ COSINE_TOL = 1e-5
 # absolute (probabilities are rounded to bf16 before P.V, so a one-ulp
 # float32 difference moves one probability by a bf16 ulp)
 ATTN_TOL_BF16 = 2.0 ** -7
+# the first versions of the two redesigned kernels: the time of a call at
+# Q = 1024 / 16 on an H100 80GB HBM3 at 700 W, copied from the "First
+# version ms" column of PERF.md's kernel table for the log lines only (not
+# measured by this run, so not in the kernels JSON)
+FIRST_VERSION_MS = {"extract_topk": {1024: 0.2008, 16: 0.0588},
+                    "fused_cosine_scores": {1024: 64.14, 16: 3.181}}
 
 
 def log(*a) -> None:
@@ -128,9 +143,81 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int, replays: int = 6) -> float:
+    """Mean device time of one call of ``fn`` in ms: ``calls`` calls
+    captured in a CUDA graph, replayed ``replays`` times between CUDA
+    events. For a kernel of a few microseconds, back-to-back calls from
+    Python (``cuda_ms``) time the host's launch work, not the device."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the default stream, as capture requires
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def host_us(fn, calls: int = 3000) -> float:
+    """Mean host time of one call of ``fn`` in microseconds."""
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def launch_host_costs(K, device) -> dict:
+    """Host microseconds of what ``kernels._launch`` does before each
+    launch, beside the public calls it avoids (a kernel of a few
+    microseconds waits for them)."""
+    import torch
+
+    def switch():
+        with torch.cuda.device(device):
+            pass
+
+    return {
+        "raw_stream": host_us(lambda: K._current_stream(device)),
+        "current_stream": host_us(lambda: torch.cuda.current_stream(device).cuda_stream),
+        "device_check": host_us(lambda: device.index == torch.cuda.current_device()),
+        "device_switch": host_us(switch),
+    }
+
+
 def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / H100_BYTES, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` report: its registers,
+    shared memory and spill bytes."""
+    if not report:
+        return ["no report: the library was built before this run"]
+    out, fn, spill = [], "", ""
+    for line in report.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line
+        elif line.startswith("ptxas info") and "Used" in line and fn:
+            out.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spill}")
+            fn = ""
+    return out
 
 
 def make_data(rng, n: int, d: int, per: int = 100) -> np.ndarray:
@@ -180,6 +267,8 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
     """Each kernel against its plain version at the serving shapes; times."""
     import torch
 
+    from nornicdb_tpu_torch.ops import _build
+
     n, d = dev.shape
     tile = K.pick_tile_n(n)
     rows = min(K.streaming_rows_for(k, tile), n // tile)
@@ -188,6 +277,13 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
     kpad = -(-k // K.LANE) * K.LANE
     log(f"[kernels] N={n} D={d} tile_n={tile} rows={rows} tile_bits={tile_bits} "
         f"bins={b} k={k}")
+    for line in ptxas_summary(_build.ptxas_reports.get("extract_topk", "")):
+        log(f"[kernels] extract_topk ptxas: {line}")
+    costs = launch_host_costs(K, dev.device)
+    log("[kernels] host us before a launch: " + " ".join(
+        f"{a}={v:.3f}" for a, v in costs.items()) + " (kernels._launch takes "
+        "raw_stream and device_check in place of current_stream and "
+        "device_switch)")
     entries = []
     for q in (min(1024, len(qs_all)), 16):
         qt = torch.from_numpy(qs_all[:q]).to(dev.device)
@@ -244,9 +340,19 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
             q_i8, c_i8, c_scale, valid, tile, rows, tile_bits), max(1, reps // 3))
         t["i8_lib"] = cuda_ms(lambda: torch.topk(
             q_i8.to(torch.bfloat16) @ c_i8.to(torch.bfloat16).T, k, dim=1), max(1, reps // 3))
-        t["ex"] = cuda_ms(lambda: K._extract_topk(flat, k, kpad), reps)
+        # #4 and its yardsticks take microseconds: the time of a call, and
+        # beside it the device's time from CUDA graphs
+        ex = (lambda: K._extract_topk(flat, k, kpad))
+        lib = (lambda: torch.topk(flat, k, dim=1))
+        # the sort epilogue every full-scan search runs, over the same bins
+        srt = (lambda: K.topk_lowest_index(flat, k))
+        t["ex"] = cuda_ms(ex, reps * 20)
+        t["ex_device"] = graph_ms(ex, reps * 4)
         t["ex_plain"] = cuda_ms(lambda: R.extract_topk(flat, k, kpad), max(1, reps // 3))
-        t["ex_lib"] = cuda_ms(lambda: torch.topk(flat, k, dim=1), reps)
+        t["ex_lib"] = cuda_ms(lib, reps * 20)
+        t["ex_lib_device"] = graph_ms(lib, reps * 4)
+        t["ex_sort"] = cuda_ms(srt, reps * 20)
+        t["ex_sort_device"] = graph_ms(srt, reps * 4)
         log(f"[kernels] Q={q} ms: " + " ".join(f"{a}={v:.4f}" for a, v in t.items()))
 
         out_bytes = rows * q * tile * 4
@@ -255,6 +361,14 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
         # #4 is a top-k of B values a row: one read of the bins, one write
         # of kpad values and ids, and B compares a row outside the tensor cores
         b4 = bound_ms(q * b * 4 + 2 * q * kpad * 4, q * b, H100_FP32_OPS)
+        log(f"[kernels] extract Q={q}: a call {t['ex']:.4f}ms, torch.topk's "
+            f"{t['ex_lib']:.4f}ms, the sort epilogue's (topk_lowest_index) "
+            f"{t['ex_sort']:.4f}ms; on the device {t['ex_device']:.4f}ms, "
+            f"{t['ex_lib_device']:.4f}ms, {t['ex_sort_device']:.4f}ms; bound "
+            f"{b4[0]:.6f}ms ({b4[1]}), {b4[0] / t['ex']:.4f} of it a call, "
+            f"{b4[0] / t['ex_device']:.4f} on the device; first version "
+            f"{FIRST_VERSION_MS['extract_topk'][q]}ms a call (copied from "
+            f"PERF.md, not measured here)")
         base = "nornicdb_tpu_torch/ops/csrc/"
         entries += [
             dict(name=f"streaming_topk_bf16[Q={q}]", route="cuda",
@@ -274,7 +388,8 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
                  replaces="nornicdb_tpu/ops/pallas_kernels.py:275",
                  counter="extract_topk", max_abs_err=0.0,
                  ms=t["ex"], plain_ms=t["ex_plain"], bound_ms=b4[0],
-                 bound_by=b4[1], library_ms=t["ex_lib"]),
+                 bound_by=b4[1], library_ms=t["ex_lib"],
+                 device_ms=t["ex_device"], library_device_ms=t["ex_lib_device"]),
         ]
         del bins_k, bins_p, bins8_k, bins8_p, flat
         torch.cuda.empty_cache()
@@ -752,8 +867,14 @@ def phase_fused_cosine(K, R, dev, valid, qs_all, k, reps):
     import torch.nn.functional as F
 
     from nornicdb_tpu_torch import ops
+    from nornicdb_tpu_torch.ops import _build
 
     n, d = dev.shape
+    log(f"[phase6] device memory allocated at the start "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f}GiB (this corpus buffer "
+        f"{dev.numel() * dev.element_size() / 2**30:.3f}GiB)")
+    for line in ptxas_summary(_build.ptxas_reports.get("fused_cosine", "")):
+        log(f"[phase6] fused_cosine ptxas: {line}")
     qts = {q: torch.from_numpy(qs_all[:q]).to(dev.device) for q in (1024, 16)}
     K.reset_launch_counts()
     served = {q: ops.fused_cosine_topk(qt, dev, valid, k, tile_n=128)
@@ -790,7 +911,10 @@ def phase_fused_cosine(K, R, dev, valid, qs_all, k, reps):
             f"{COSINE_TOL}) top-{k} ids equal to plain {same:.6f}, largest "
             f"score gap of a swapped id {gap:.3g}; ms={t['ms']:.4f} "
             f"plain={t['plain']:.4f} lib={t['lib']:.4f} bound={b[0]:.4f} "
-            f"({b[1]}) achieved {ops_n / t['ms'] / 1e9:.2f} TFLOP/s")
+            f"({b[1]}), {b[0] / t['ms']:.4f} of it; achieved "
+            f"{ops_n / t['ms'] / 1e9:.2f} TFLOP/s; first version "
+            f"{FIRST_VERSION_MS['fused_cosine_scores'][q]}ms (copied from "
+            f"PERF.md, not measured here)")
         assert err <= COSINE_TOL, ("fused cosine kernel vs plain", q, err)
         assert gap <= COSINE_TOL, ("fused cosine top-k swap", q, gap)
         entries.append(dict(
@@ -1100,7 +1224,9 @@ def main() -> int:
     if args.profile:
         profile_search(corpus, qs_serve, k, 16, out_dir)
     svc.close()
-    del svc, corpus, dev, valid
+    # `inner` is a bound method of the service: while it lives, so do the
+    # service and its 3.8 GiB corpus buffer
+    del svc, corpus, dev, valid, inner, timed_batch
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -45,7 +45,7 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "nornic_streaming_topk_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "extract_topk": {
-        "nornic_extract_topk": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "nornic_extract_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "fused_cosine": {
         "nornic_fused_cosine_scores": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -43,8 +43,17 @@ CUDA_TILE_COLS = 128
 # corpus types of the bf16 streaming kernel -> its c_dtype code
 _CORPUS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 EPILOGUES = ("sort", "approx", "pallas")
-# shared memory the extract kernel may take for one row of bins (H100)
-_EXTRACT_MAX_BINS = 232_448 // 4
+# shared memory one CTA may take (H100: 227 KB of the SM's 256 KB)
+_SMEM_LIMIT = 232_448
+# extract_topk.cu's shared memory: HEAD words (histogram, scan scratch,
+# control), then the row's B keys, then, where they fit, the k picks' keys
+# and bin ids
+_EXTRACT_HEAD_WORDS = 320
+_EXTRACT_MAX_BINS = _SMEM_LIMIT // 4 - _EXTRACT_HEAD_WORDS
+# fused_cosine.cu copies rows in 16-byte pieces: the width of a row, in
+# values, must be a multiple of this for each corpus type (float32 queries
+# need 4)
+_COSINE_WIDTH_STEP = {torch.float32: 4, torch.bfloat16: 8, torch.float16: 8}
 
 _count_lock = threading.Lock()
 _LAUNCHES = {
@@ -87,13 +96,31 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int,
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _current_stream(device: torch.device) -> int:
+    """The raw handle of the current CUDA stream of ``device``.
+
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    first, several microseconds of host time that a kernel of a few
+    microseconds waits for (``chip_smoke.py`` phase 1 prints both costs).
+    ``torch._C._cuda_getCurrentRawStream`` is private, checked against
+    PyTorch 2.11.0; a release without it takes the public call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(device.index)
+
+
 def _launch(name: str, fn, *args, device: torch.device) -> None:
     """Call a C entry point on the current stream of ``device``; raise on a
     refused launch (a refused launch never runs, and a later synchronize
-    would not report it)."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    would not report it). The device is switched only when it is not the
+    current one: a switch costs as much host time as the stream object."""
+    stream = _current_stream(device)
+    if device.index == torch.cuda.current_device():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         torch.cuda.check_error(err)
     _count(name)
@@ -163,12 +190,41 @@ def fused_cosine_scores(queries: torch.Tensor, corpus: torch.Tensor,
     out = torch.empty((q, n), dtype=torch.float32, device=dev)
     if q == 0:
         return out
-    # query rows per CTA (16 * tm): a small batch computes no padding rows
-    tm = next(t for t in (1, 2, 4, 8) if 16 * t >= min(q, 128))
+    tm, width, copy_q, copy_c = _cosine_plan(
+        q, d, corpus.dtype, queries.data_ptr(), corpus.data_ptr())
+    if copy_q:
+        queries = _zero_padded(queries, width)
+    if copy_c:
+        corpus = _zero_padded(corpus, width)
     lib = _build.library("fused_cosine")
     _launch("fused_cosine_scores", lib.nornic_fused_cosine_scores,
-            queries.data_ptr(), corpus.data_ptr(), out.data_ptr(), q, n, d,
+            queries.data_ptr(), corpus.data_ptr(), out.data_ptr(), q, n, width,
             _CORPUS_DTYPES[corpus.dtype], tm, device=dev)
+    return out
+
+
+def _cosine_plan(q: int, d: int, c_dtype: torch.dtype, q_ptr: int,
+                 c_ptr: int) -> tuple[int, int, bool, bool]:
+    """How ``fused_cosine.cu`` takes (Q, D) queries and a corpus of
+    ``c_dtype`` at these addresses: (tm, the width it reads, whether the
+    queries and whether the corpus go through a zero-padded copy first).
+    The kernel copies rows in 16-byte pieces, so a width that is no
+    multiple of ``_COSINE_WIDTH_STEP`` or a base off a 16-byte boundary (a
+    contiguous view such as ``c[1:]``) is copied, padded with zero columns
+    (which change no dot product and no norm). ``16 * tm`` query rows a
+    CTA: a small batch computes no padding rows."""
+    tm = next(t for t in (1, 2, 4, 8) if 16 * t >= min(q, 128))
+    step = _COSINE_WIDTH_STEP[c_dtype]
+    width = -(-d // step) * step
+    return (tm, width, width != d or q_ptr % 16 != 0,
+            width != d or c_ptr % 16 != 0)
+
+
+def _zero_padded(x: torch.Tensor, width: int) -> torch.Tensor:
+    """A fresh (aligned) copy of the rows of ``x``, zero columns to
+    ``width``."""
+    out = x.new_zeros((x.shape[0], width))
+    out[:, :x.shape[1]] = x
     return out
 
 
@@ -282,7 +338,8 @@ def topk_lowest_index(x: torch.Tensor, k: int
 
 def _extract_topk(flat: torch.Tensor, k: int, kpad: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact iterative top-k over (Q, B) packed bins (extract_topk.cu)."""
+    """Exact top-k over (Q, B) packed bins (extract_topk.cu, a radix
+    select), identical to the TPU kernel's k rounds of argmax."""
     dev = flat.device
     _check(flat, "bins", torch.int32, 2, dev)
     q, b = flat.shape
@@ -290,16 +347,27 @@ def _extract_topk(flat: torch.Tensor, k: int, kpad: int
         raise ValueError(f"extract_topk: need 1 <= k <= min(B, kpad), k={k}")
     if dev.type != "cuda":
         return kernels_ref.extract_topk(flat, k, kpad)
-    if b > _EXTRACT_MAX_BINS:
-        raise ValueError(
-            f"extract_topk: B={b} bins exceed one CTA's shared memory")
-    out_v = torch.empty((q, kpad), dtype=torch.int32, device=dev)
-    out_i = torch.empty((q, kpad), dtype=torch.int32, device=dev)
+    smem, with_picks = _extract_plan(b, k)
+    out_v, out_i = flat.new_empty((2, q, kpad)).unbind(0)
     lib = _build.library("extract_topk")
     _launch("extract_topk", lib.nornic_extract_topk,
             flat.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), q, b, k,
-            kpad, device=dev)
+            kpad, int(with_picks), smem, device=dev)
     return out_v, out_i
+
+
+def _extract_plan(b: int, k: int) -> tuple[int, bool]:
+    """(shared memory bytes, whether the k picks are ranked among
+    themselves) of ``extract_topk.cu`` for a row of ``b`` bins: the row's
+    keys always; the picks' keys and bin ids where they fit beside it,
+    else each pick is ranked against the whole row (slower, same result)."""
+    if b > _EXTRACT_MAX_BINS:
+        raise ValueError(
+            f"extract_topk: B={b} bins exceed one CTA's shared memory "
+            f"(at most {_EXTRACT_MAX_BINS})")
+    row = 4 * (_EXTRACT_HEAD_WORDS + b)
+    with_picks = row + 8 * k <= _SMEM_LIMIT
+    return row + 8 * k * with_picks, with_picks
 
 
 def _topk_bins(flat: torch.Tensor, k: int, *, epilogue: str
@@ -374,8 +442,6 @@ def streaming_cosine_topk_int8(
 # value types of the ragged kernel -> its dtype code
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ATTN_MAX_QB = 4        # query rows per CTA, at most
-# shared memory one CTA may take (H100: 227 KB of the SM's 256 KB)
-_SMEM_LIMIT = 232_448
 
 
 def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,

@@ -21,6 +21,7 @@ import torch
 
 from nornicdb_tpu_torch.ops import kernels as K
 from nornicdb_tpu_torch.ops import kernels_ref as R
+from test_torch_kernel_plans import CASES, adversarial_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +93,39 @@ def test_extract_equals_plain_and_sort(card, k):
     torch.cuda.synchronize()
     assert torch.equal(ev, pv) and torch.equal(ei, pi)
     assert torch.equal(ev[:, :k], sv) and torch.equal(ei[:, :k].long(), si)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("q,b,k", [
+    (16, 2048, 100), (1025, 2048, 100), (1, 2048, 1), (16, 1000, 1000),
+    (16, 777, 130), (5, 300, 257), (3, K._EXTRACT_MAX_BINS, 100),
+    (2, 40_000, 10_000)])
+def test_extract_radix_select_bit_identical(card, case, q, b, k):
+    """The radix select against the plain version, bit for bit, values, ids
+    and order: the serving shape at Q = 16 and 1025, k = 1, k = B, k no
+    multiple of 128, B no multiple of the 256 threads, the largest B (whose
+    picks are ranked against the row), and a k whose picks do not fit."""
+    rng = np.random.default_rng(q + b + k)
+    flat = torch.from_numpy(adversarial_rows(case, q, b, rng)).to(card)
+    kpad = -(-k // K.LANE) * K.LANE
+    before = K.launch_counts()["extract_topk"]
+    ev, ei = K._extract_topk(flat, k, kpad)
+    pv, pi = R.extract_topk(flat, k, kpad)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["extract_topk"] == before + 1
+    assert torch.equal(ev, pv) and torch.equal(ei, pi)
+
+
+def test_extract_radix_select_whole_row_at_the_largest_b(card):
+    """k = B = _EXTRACT_MAX_BINS: every bin a pick, ranked on the row."""
+    b = K._EXTRACT_MAX_BINS
+    flat = torch.from_numpy(adversarial_rows(
+        "threshold_duplicates", 1, b, np.random.default_rng(2))).to(card)
+    ev, ei = K._extract_topk(flat, b, b)
+    order = torch.from_numpy(np.lexsort((np.arange(b), -flat[0].cpu().numpy())))
+    torch.cuda.synchronize()
+    assert torch.equal(ei[0].cpu().long(), order)
+    assert torch.equal(ev[0].cpu(), flat[0].cpu()[order])
 
 
 @pytest.mark.parametrize("d", [130, 100, 1])
@@ -234,9 +268,11 @@ def _cosine_inputs(card, q, n, d, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("q", [1, 16, 100, 1024])
-@pytest.mark.parametrize("d", [1024, 100, 7])
+@pytest.mark.parametrize("q", [1, 15, 16, 17, 100, 129, 1024])
+@pytest.mark.parametrize("d", [1, 3, 7, 31, 33, 100, 1024, 1030])
 def test_fused_cosine_matches_plain(card, dtype, q, d):
+    """Every query tile (TM from Q), widths the 16-byte copies take as they
+    are and widths the wrapper pads, each corpus type."""
     n = 1000  # no multiple of the kernel's 128-row tile: a ragged edge
     qs, c, _ = _cosine_inputs(card, q, n, d, dtype, seed=q + d)
     before = K.launch_counts()["fused_cosine_scores"]
@@ -245,8 +281,42 @@ def test_fused_cosine_matches_plain(card, dtype, q, d):
     torch.cuda.synchronize()
     assert K.launch_counts()["fused_cosine_scores"] == before + 1
     assert got.shape == (q, n) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= COSINE_TOL
     assert bool((got[:, 3] == 0).all())
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4096 + 5])
+def test_fused_cosine_corpus_tails(card, n):
+    qs, c, _ = _cosine_inputs(card, 40, max(n, 4), 64, torch.float32, seed=n)
+    c = c[:n].contiguous()
+    got = K.fused_cosine_scores(qs, c, tile_n=n)
+    torch.cuda.synchronize()
+    assert float((got - R.fused_cosine_scores(qs, c)).abs().max()) <= COSINE_TOL
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 3), (torch.float32, 4),
+                                     (torch.bfloat16, 8), (torch.float16, 5)])
+def test_fused_cosine_unaligned_views(card, dtype, d):
+    """Contiguous views that start off a 16-byte boundary (``c[1:]``, and a
+    query block one value into its buffer) go through an aligned copy."""
+    def off_by_one(x):  # the same values, one value into a fresh buffer
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+        buf[1:] = x.reshape(-1)
+        return buf[1:].view(x.shape)
+
+    qs, c, _ = _cosine_inputs(card, 20, 301, d, dtype, seed=d)
+    c = c[1:]
+    if c.data_ptr() % 16 == 0:
+        c = off_by_one(c)
+    q_off = off_by_one(qs)
+    assert c.is_contiguous() and q_off.is_contiguous()
+    assert c.data_ptr() % 16 != 0 and q_off.data_ptr() % 16 != 0
+    before = K.launch_counts()["fused_cosine_scores"]
+    got = K.fused_cosine_scores(q_off, c, tile_n=300)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_cosine_scores"] == before + 1
+    assert float((got - R.fused_cosine_scores(qs, c)).abs().max()) <= COSINE_TOL
 
 
 def test_fused_cosine_topk_matches_plain(card):
