@@ -46,15 +46,16 @@ separable from the rest. Queries are noisy copies of rows.
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON (times, bounds, launches). Every ``ms`` there is
 the time of a call from Python between CUDA events (``cuda_ms``). The
-extract kernel and ``torch.topk`` over the bins take microseconds, so the
-host's launch work can set that time: their entries also carry the device
-time of a call from CUDA-graph replays (``graph_ms``) as ``device_ms`` and
-``library_device_ms``. Phases 1 and 6 also print the extract and fused
-cosine kernels' ptxas registers, shared memory and spills, their share of
-the bound, and their first versions' times copied from PERF.md (not
-measured here); phase 1 times the sort epilogue (``topk_lowest_index``)
-over the same bins. Any failed check raises and the script exits non-zero
-without that line. Without CUDA it exits 2.
+extract kernel, the ragged attention kernel and their yardsticks take
+microseconds, so the host's launch work can set that time: their entries
+also carry the device time of a call from CUDA-graph replays (``graph_ms``)
+as ``device_ms`` and ``library_device_ms``. Phases 1 and 6 also print the
+bf16 streaming, extract and fused cosine kernels' ptxas registers, shared
+memory and spills, and phases 1, 5 and 6 each redesigned kernel's share of
+its bound, its launch plan and its first version's time copied from
+PERF.md (not measured here); phase 1 times the sort epilogue
+(``topk_lowest_index``) over the same bins. Any failed check raises and
+the script exits non-zero without that line. Without CUDA it exits 2.
 Matmul precision is pinned to full float32 (no TF32) for every reference,
 and bf16 GEMMs to float32 reductions.
 """
@@ -109,12 +110,16 @@ COSINE_TOL = 1e-5
 # absolute (probabilities are rounded to bf16 before P.V, so a one-ulp
 # float32 difference moves one probability by a bf16 ulp)
 ATTN_TOL_BF16 = 2.0 ** -7
-# the first versions of the two redesigned kernels: the time of a call at
-# Q = 1024 / 16 on an H100 80GB HBM3 at 700 W, copied from the "First
-# version ms" column of PERF.md's kernel table for the log lines only (not
-# measured by this run, so not in the kernels JSON)
+# the first versions of the four redesigned kernels: the time of a call at
+# Q = 1024 / 16 (#5: at the decode / chunk block) on an H100 80GB HBM3 at
+# 700 W, copied from the "First version ms" column of PERF.md's kernel
+# table for the log lines only (not measured by this run, so not in the
+# kernels JSON)
 FIRST_VERSION_MS = {"extract_topk": {1024: 0.2008, 16: 0.0588},
-                    "fused_cosine_scores": {1024: 64.14, 16: 3.181}}
+                    "fused_cosine_scores": {1024: 64.14, 16: 3.181},
+                    "streaming_topk_bf16": {1024: 16.358, 16: 3.039},
+                    "ragged_paged_attention": {"decode": 0.03270,
+                                               "chunk": 0.03495}}
 
 
 def log(*a) -> None:
@@ -141,6 +146,13 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def call_ms(fn, calls: int, runs: int = 5) -> float:
+    """The median over ``runs`` of ``cuda_ms(fn, calls)``. A call of tens of
+    microseconds is set by host work, and one hiccup of the host can move
+    the mean of a short run by half."""
+    return float(np.median([cuda_ms(fn, calls) for _ in range(runs)]))
 
 
 def graph_ms(fn, calls: int, replays: int = 6) -> float:
@@ -277,8 +289,9 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
     kpad = -(-k // K.LANE) * K.LANE
     log(f"[kernels] N={n} D={d} tile_n={tile} rows={rows} tile_bits={tile_bits} "
         f"bins={b} k={k}")
-    for line in ptxas_summary(_build.ptxas_reports.get("extract_topk", "")):
-        log(f"[kernels] extract_topk ptxas: {line}")
+    for name in ("streaming_topk_bf16", "extract_topk"):
+        for line in ptxas_summary(_build.ptxas_reports.get(name, "")):
+            log(f"[kernels] {name} ptxas: {line}")
     costs = launch_host_costs(K, dev.device)
     log("[kernels] host us before a launch: " + " ".join(
         f"{a}={v:.3f}" for a, v in costs.items()) + " (kernels._launch takes "
@@ -361,6 +374,18 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
         # #4 is a top-k of B values a row: one read of the bins, one write
         # of kpad values and ids, and B compares a row outside the tensor cores
         b4 = bound_ms(q * b * 4 + 2 * q * kpad * 4, q * b, H100_FP32_OPS)
+        plan = K._streaming_plan(
+            q, d, dev.dtype, dev.data_ptr(), n_tiles, rows, tile,
+            torch.cuda.get_device_properties(dev.device).multi_processor_count)
+        log(f"[kernels] bf16 Q={q}: a call {t['bf16']:.4f}ms, "
+            f"torch.topk(bf16 matmul) {t['bf16_lib']:.4f}ms; bound "
+            f"{b2[0]:.4f}ms ({b2[1]}), {b2[0] / t['bf16']:.4f} of it; achieved "
+            f"{2 * q * n * d / t['bf16'] / 1e9:.2f} TFLOP/s; plan nq={plan.nq} "
+            f"query blocks={plan.qblocks} cluster={plan.cluster} "
+            f"splits={plan.splits} stages={plan.stages} smem={plan.smem}; "
+            f"first version "
+            f"{FIRST_VERSION_MS['streaming_topk_bf16'][q]}ms a call (copied "
+            f"from PERF.md, not measured here)")
         log(f"[kernels] extract Q={q}: a call {t['ex']:.4f}ms, torch.topk's "
             f"{t['ex_lib']:.4f}ms, the sort epilogue's (topk_lowest_index) "
             f"{t['ex_sort']:.4f}ms; on the device {t['ex_device']:.4f}ms, "
@@ -372,7 +397,7 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
         base = "nornicdb_tpu_torch/ops/csrc/"
         entries += [
             dict(name=f"streaming_topk_bf16[Q={q}]", route="cuda",
-                 source=base + "streaming_topk.cu",
+                 source=base + "streaming_topk_bf16.cu",
                  replaces="nornicdb_tpu/ops/pallas_kernels.py:140",
                  counter="streaming_topk_bf16", max_abs_err=err2,
                  ms=t["bf16"], plain_ms=t["bf16_plain"], bound_ms=b2[0],
@@ -638,14 +663,28 @@ def phase_attention(K, R, captured, logit_diffs, reps):
         ops = 4 * h * dh * int((pos[pos >= 0] + 1).sum())
         bound = bound_ms(nbytes, ops, H100_BF16_OPS
                          if q.dtype == torch.bfloat16 else H100_FP32_OPS)
-        t = {"ms": cuda_ms(lambda: K.ragged_paged_attention(*a), reps * 20),
-             "plain": cuda_ms(lambda: R.ragged_paged_attention(*a), reps * 20),
-             "lib": cuda_ms(lambda: attention_library(*a), reps * 20)}
+        # a call takes tens of microseconds: its time (the median of five
+        # runs), and beside it the device's time from CUDA graphs
+        kern = (lambda: K.ragged_paged_attention(*a))
+        lib = (lambda: attention_library(*a))
+        t = {"ms": call_ms(kern, reps * 20),
+             "device": graph_ms(kern, reps * 4),
+             "plain": call_ms(lambda: R.ragged_paged_attention(*a), reps * 20),
+             "lib": call_ms(lib, reps * 20),
+             "lib_device": graph_ms(lib, reps * 4)}
+        plan = K._ragged_plan(l, tq, h, hkv, dh, k_pages.shape[0], ps,
+                              tables.shape[1], q.dtype)
         log(f"[phase5] ragged {key}: L={l} Tq={tq} H={h} Hkv={hkv} Dh={dh} "
             f"P={tables.shape[1]} valid rows={rows} "
             f"pages read={pages} max|d|={err:.3g} (tol {ATTN_TOL_BF16:.3g}) "
-            f"ms={t['ms']:.4f} plain={t['plain']:.4f} lib={t['lib']:.4f} "
-            f"bound={bound[0]:.5f} ({bound[1]})")
+            f"ms={t['ms']:.4f} device={t['device']:.4f} plain={t['plain']:.4f} "
+            f"lib={t['lib']:.4f} lib device={t['lib_device']:.4f} "
+            f"bound={bound[0]:.5f} ({bound[1]}); plan qb={plan.qb} "
+            f"cluster={plan.cluster} smem={plan.smem}; CTAs a lane "
+            + str([K._ragged_split(int(m), tables.shape[1] * ps) for m in lane_max])
+            + f"; first version "
+            f"{FIRST_VERSION_MS['ragged_paged_attention'][key]}ms a call "
+            f"(copied from PERF.md, not measured here)")
         assert tol_ok, ("ragged kernel vs plain", key, err)
         entries.append(dict(
             name=f"ragged_paged_attention[{key} L={l} Tq={tq}]", route="cuda",
@@ -653,7 +692,8 @@ def phase_attention(K, R, captured, logit_diffs, reps):
             replaces="nornicdb_tpu/ops/pallas_kernels.py:446",
             counter="ragged_paged_attention", max_abs_err=err, ms=t["ms"],
             plain_ms=t["plain"], bound_ms=bound[0], bound_by=bound[1],
-            library_ms=t["lib"]))
+            library_ms=t["lib"], device_ms=t["device"],
+            library_device_ms=t["lib_device"]))
     return entries
 
 

@@ -35,14 +35,16 @@ _F = ctypes.c_float
 # int: a launcher the launch's cudaError_t, a size query its size
 SIGNATURES: dict[str, dict[str, tuple]] = {
     "ragged_paged_attention": {
-        "nornic_ragged_paged_attention": (
-            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-            _I, _P),
+        "nornic_ragged_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _F, _P),
         "nornic_ragged_attn_smem_bytes": (_I, _I, _I, _I, _I),
     },
     "streaming_topk": {
-        "nornic_streaming_topk_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "nornic_streaming_topk_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "streaming_topk_bf16": {
+        "nornic_streaming_topk_bf16": (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "nornic_streaming_bf16_smem_bytes": (_I, _I, _I),
     },
     "extract_topk": {
         "nornic_extract_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

@@ -29,6 +29,8 @@ keeps at least the recall the approximate one promised.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import threading
 
 import torch
@@ -37,11 +39,22 @@ from nornicdb_tpu_torch.ops import _build, kernels_ref
 
 LANE = 128
 INT32_MIN = kernels_ref.INT32_MIN
-# CTA tile of the streaming kernels (streaming_topk.cu BM/BN): tile_n must
-# be a multiple of it on the card (pick_tile_n always gives one)
+# corpus rows a CTA of the streaming kernels (streaming_topk.cu BN,
+# streaming_topk_bf16.cu BM): tile_n must be a multiple of it on the card
+# (pick_tile_n always gives one)
 CUDA_TILE_COLS = 128
-# corpus types of the bf16 streaming kernel -> its c_dtype code
+# corpus types of the bf16 streaming kernel -> its c_dtype code, and the
+# bytes of one value
 _CORPUS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_CORPUS_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+# streaming_topk_bf16.cu: the query block widths (wgmma N) it has instances
+# of, the K chunk, the ring's stages at most, the barriers after it and the
+# slack that aligns it to 1,024 bytes (its TMA boxes are swizzled)
+_BF16_NQ = (8, 16, 32, 64, 128)
+_BF16_BK = 64
+_BF16_MAX_STAGES = 8
+_BF16_BARRIER_BYTES = 2 * _BF16_MAX_STAGES * 8
+_BF16_ALIGN = 1024
 EPILOGUES = ("sort", "approx", "pallas")
 # shared memory one CTA may take (H100: 227 KB of the SM's 256 KB)
 _SMEM_LIMIT = 232_448
@@ -259,10 +272,81 @@ def streaming_bins(
     if dev.type != "cuda":
         return kernels_ref.streaming_bins_bf16(
             queries, corpus, valid, tile_n, rows, tile_bits)
-    # the kernel reads float32 queries: a (Q, D) copy, rounded to bf16 the same
-    return _launch_streaming(
-        "streaming_topk_bf16", (queries.float(), corpus, valid), q, d, tile_n,
-        n_tiles, rows, tile_bits, _CORPUS_DTYPES[corpus.dtype])
+    if tile_n % CUDA_TILE_COLS != 0:
+        raise ValueError(f"streaming_bins: the CUDA kernel needs tile_n % "
+                         f"{CUDA_TILE_COLS} == 0 (got {tile_n})")
+    bins = torch.full((rows, q, tile_n), INT32_MIN, dtype=torch.int32,
+                      device=dev)
+    if q == 0:
+        return bins
+    plan = _streaming_plan(
+        q, d, corpus.dtype, corpus.data_ptr(), n_tiles, rows, tile_n,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.copy_c:
+        corpus = _zero_padded(corpus, plan.width)
+    # the kernel's rounding pass reads float32 queries (a copy of others)
+    qf = queries.float()
+    qbuf = torch.empty(plan.qbuf_values, dtype=torch.bfloat16, device=dev)
+    _launch("streaming_topk_bf16",
+            _build.library("streaming_topk_bf16").nornic_streaming_topk_bf16,
+            qf.data_ptr(), corpus.data_ptr(), valid.data_ptr(),
+            qbuf.data_ptr(), bins.data_ptr(), q, d, plan.width, tile_n,
+            n_tiles, rows, tile_bits, plan.splits, plan.nq, plan.stages,
+            plan.cluster, _CORPUS_DTYPES[corpus.dtype], device=dev)
+    return bins
+
+
+@dataclasses.dataclass(frozen=True)
+class _StreamingPlan:
+    """How ``streaming_topk_bf16.cu`` takes a call: query blocks of ``nq``
+    (the wgmma's N) and their count, the split of each bin row's tile loop,
+    the query blocks a cluster, the ring's stages and the CTA's shared
+    memory, the corpus width it
+    reads and whether the corpus goes through a zero-padded copy first, the
+    bf16 values of the rounded-query buffer."""
+    nq: int
+    qblocks: int
+    splits: int
+    cluster: int
+    stages: int
+    smem: int
+    width: int
+    copy_c: bool
+    qbuf_values: int
+
+
+def _streaming_plan(q: int, d: int, c_dtype: torch.dtype, c_ptr: int,
+                    n_tiles: int, rows: int, tile_n: int, sms: int
+                    ) -> _StreamingPlan:
+    """The launch plan of the bf16 streaming kernel (a pure function of its
+    arguments). The query block is the smallest of the kernel's widths that
+    holds min(Q, 128) queries, so a small batch multiplies only its own
+    rows. The CTAs of one tile's query blocks sit side by side in the grid,
+    so the corpus is read from device memory once, and pairs of them share
+    each corpus chunk (a cluster of 2, TMA multicast) where their number is
+    even; each bin
+    row's tile loop is split over as many CTAs as fill the SMs once (one CTA
+    an SM: the ring takes most of its shared memory). The corpus's TMA
+    tensor map needs rows on 16-byte boundaries: a width that is no
+    multiple of 16 bytes or an unaligned base goes through a zero-padded
+    copy, as for ``fused_cosine.cu``."""
+    nq = next(w for w in _BF16_NQ if w >= min(q, _BF16_NQ[-1]))
+    qblocks = -(-q // nq)
+    cluster = 2 if qblocks % 2 == 0 else 1
+    ctas = qblocks * rows * (tile_n // CUDA_TILE_COLS)
+    splits = max(1, min(-(-n_tiles // rows), sms // ctas))
+    esize = _CORPUS_ESIZE[c_dtype]
+    step = 16 // esize
+    width = -(-d // step) * step
+    stage = CUDA_TILE_COLS * _BF16_BK * esize + nq * _BF16_BK * 2
+    fixed = _BF16_ALIGN + _BF16_BARRIER_BYTES
+    stages = min(_BF16_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
+    kchunks = -(-width // _BF16_BK)
+    return _StreamingPlan(
+        nq=nq, qblocks=qblocks, splits=splits, cluster=cluster, stages=stages,
+        smem=fixed + stages * stage, width=width,
+        copy_c=width != d or c_ptr % 16 != 0,
+        qbuf_values=qblocks * kchunks * nq * _BF16_BK)
 
 
 def streaming_bins_int8(
@@ -289,9 +373,8 @@ def streaming_bins_int8(
 
 
 def _launch_streaming(name: str, inputs: tuple, q: int, d: int, tile_n: int,
-                      n_tiles: int, rows: int, tile_bits: int,
-                      c_dtype: int | None = None) -> torch.Tensor:
-    """Launch a streaming kernel of ``streaming_topk.cu`` into fresh
+                      n_tiles: int, rows: int, tile_bits: int) -> torch.Tensor:
+    """Launch the int8 kernel of ``streaming_topk.cu`` into fresh
     INT32_MIN-filled (rows, Q, tile_n) bins. CTAs own (bin row, 128
     queries, 128 columns); each bin row's tile loop is split over enough
     CTAs to put about two on every SM (small Q gives a small grid)."""
@@ -305,13 +388,9 @@ def _launch_streaming(name: str, inputs: tuple, q: int, d: int, tile_n: int,
     bins = torch.full((rows, q, tile_n), INT32_MIN, dtype=torch.int32,
                       device=dev)
     lib = _build.library("streaming_topk")
-    args = [*(t.data_ptr() for t in inputs), bins.data_ptr(), q, d, tile_n,
-            n_tiles, rows, tile_bits, splits]
-    if c_dtype is None:
-        _launch(name, lib.nornic_streaming_topk_i8, *args, device=dev)
-    else:
-        _launch(name, lib.nornic_streaming_topk_bf16, *args, c_dtype,
-                device=dev)
+    _launch(name, lib.nornic_streaming_topk_i8,
+            *(t.data_ptr() for t in inputs), bins.data_ptr(), q, d, tile_n,
+            n_tiles, rows, tile_bits, splits, device=dev)
     return bins
 
 
@@ -441,7 +520,93 @@ def streaming_cosine_topk_int8(
 # ------------------------------------------------- ragged paged attention
 # value types of the ragged kernel -> its dtype code
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ATTN_MAX_QB = 4        # query rows per CTA, at most
+_ATTN_MAX_QB = 2        # query rows per cluster, at most
+# ragged_paged_attention.cu: slots a K/V tile, slots a CTA takes at least
+# before the split grows, the largest (portable) cluster
+_ATTN_TILE_SLOTS = 64
+_ATTN_MIN_SLOTS = 16
+_ATTN_MAX_CLUSTER = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class _RaggedPlan:
+    """How ``ragged_paged_attention.cu`` takes one shape: ``qb`` query rows
+    a cluster of ``cluster`` CTAs, ``smem`` bytes of dynamic shared memory
+    a CTA, and the host array of the launch's sizes (``params``, passed by
+    address, so a call is one ctypes call of nine arguments)."""
+    qb: int
+    cluster: int
+    smem: int
+    scale: float
+    params: ctypes.Array
+    params_ptr: int
+
+
+_RAGGED_PLANS: dict[tuple, _RaggedPlan] = {}
+
+
+def _ragged_cluster(s_len: int) -> int:
+    """CTAs a cluster for a table of ``s_len`` slots (``cluster_for``)."""
+    return min(_ATTN_MAX_CLUSTER, max(1, -(-s_len // _ATTN_MIN_SLOTS)))
+
+
+def _ragged_split(max_pos: int, s_len: int) -> int:
+    """CTAs of its cluster that take a share of a block's slots, from the
+    block's largest position (-1: every row is padding, no CTA): at least
+    ``_ATTN_MIN_SLOTS`` slots each, at most the whole cluster. The kernel
+    computes the same on the card from the positions it reads."""
+    n = min(max_pos + 1, s_len)
+    if n <= 0:
+        return 0
+    return min(_ragged_cluster(s_len), -(-n // _ATTN_MIN_SLOTS))
+
+
+def _ragged_smem(qb: int, n_rep: int, dh: int, s_len: int,
+                 dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA (``smem_bytes`` in the kernel): the
+    two-tile K/V ring (rows padded by 16 bytes), the query vectors and
+    partial sums in float32, the scores of at most ``span`` slots, the local
+    maxima and sums, the rows' positions."""
+    esize = 4 if dtype == torch.float32 else 2
+    rmax = qb * n_rep
+    span = max(_ATTN_MIN_SLOTS, -(-s_len // _ragged_cluster(s_len)))
+    return (esize * 2 * _ATTN_TILE_SLOTS * (dh + 16 // esize)
+            + 4 * (2 * rmax * dh + rmax * span + 2 * rmax) + 4 * qb)
+
+
+def _ragged_plan(l: int, tq: int, h: int, hkv: int, dh: int, num_pages: int,
+                 ps: int, p: int, dtype: torch.dtype) -> _RaggedPlan:
+    """The launch plan of a shape, made once and cached: the most query
+    rows a cluster (up to ``_ATTN_MAX_QB``) whose CTA takes at most half a
+    CTA's shared memory, or one row; raises where one row does not fit."""
+    key = (l, tq, h, hkv, dh, num_pages, ps, p, dtype)
+    plan = _RAGGED_PLANS.get(key)
+    if plan is not None:
+        return plan
+    s_len = p * ps
+
+    def smem(qb: int) -> int:
+        return _ragged_smem(qb, h // hkv, dh, s_len, dtype)
+
+    qb = min(tq, _ATTN_MAX_QB)
+    while qb > 1 and smem(qb) > _SMEM_LIMIT // 2:
+        qb //= 2
+    if smem(qb) > _SMEM_LIMIT:
+        raise ValueError(f"ragged_paged_attention: S={s_len} slots exceed "
+                         "one CTA's shared memory")
+    params = (ctypes.c_int * 10)(l, tq, h, hkv, dh, num_pages, ps, p, qb,
+                                 _ATTN_DTYPES[dtype])
+    plan = _RaggedPlan(qb, _ragged_cluster(s_len), smem(qb),
+                       float(dh ** -0.5), params, ctypes.addressof(params))
+    _RAGGED_PLANS[key] = plan
+    return plan
+
+
+# CUDA calls whose arguments passed every check -> (their plan, the C entry
+# point), keyed by what the checks read (shapes, dtypes, devices): a
+# repeated shape is then checked by one lookup (contiguity and alignment
+# are still checked a call)
+_RAGGED_CHECKED: dict[tuple, tuple] = {}
 
 
 def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -456,8 +621,43 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     (``pages[li, 0]``, which is contiguous); tables (L, P) int32 page ids;
     positions (L, Tq) int32 cache slots, -1 for padding rows. Returns
     (L, Tq, H, Dh) in q.dtype; padding rows are zeros. On the card Dh must
-    be a multiple of 8 up to 128 and one row's S = P * ps scores must fit a
-    CTA's shared memory; anything else raises."""
+    be a multiple of 8 up to 128 and a CTA's share of one row's scores must
+    fit its shared memory; anything else raises."""
+    sig = (q.shape, q.dtype, q.device, k_pages.shape, k_pages.dtype,
+           k_pages.device, v_pages.shape, v_pages.dtype, v_pages.device,
+           tables.shape, tables.dtype, tables.device, positions.shape,
+           positions.dtype, positions.device)
+    checked = _RAGGED_CHECKED.get(sig)
+    if checked is None:
+        plan = _ragged_checks(q, k_pages, v_pages, tables, positions)
+        if plan is None:  # CPU tensors
+            return kernels_ref.ragged_paged_attention(q, k_pages, v_pages,
+                                                      tables, positions)
+        checked = _RAGGED_CHECKED[sig] = (plan, _build.library(
+            "ragged_paged_attention").nornic_ragged_paged_attention)
+    plan, fn = checked
+    if not (q.is_contiguous() and k_pages.is_contiguous()
+            and v_pages.is_contiguous() and tables.is_contiguous()
+            and positions.is_contiguous()):
+        raise ValueError("ragged_paged_attention: every input must be "
+                         "contiguous")
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16 != 0:
+        raise ValueError("ragged_paged_attention: q and the pools must be "
+                         "16-byte aligned")
+    out = torch.empty_like(q)
+    _launch("ragged_paged_attention", fn, *ptrs, tables.data_ptr(),
+            positions.data_ptr(), out.data_ptr(), plan.params_ptr, plan.scale,
+            device=q.device)
+    return out
+
+
+def _ragged_checks(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, tables: torch.Tensor,
+                   positions: torch.Tensor) -> _RaggedPlan | None:
+    """Every check of a ragged attention call's types, shapes and devices;
+    raises on what neither the kernel nor its plain version takes. Returns
+    the launch plan, or None for CPU tensors (the plain version's)."""
     dev = q.device
     _check(q, "q", _ATTN_DTYPES, 4, dev)
     _check(k_pages, "k_pages", q.dtype, 4, dev)
@@ -475,30 +675,8 @@ def ragged_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"ragged_paged_attention: H={h} is no multiple of "
                          f"Hkv={hkv}")
     if dev.type != "cuda":
-        return kernels_ref.ragged_paged_attention(q, k_pages, v_pages, tables,
-                                                  positions)
+        return None
     if dh % 8 != 0 or dh > 128:
         raise ValueError(f"ragged_paged_attention: the CUDA kernel takes a "
                          f"head dim that is a multiple of 8 up to 128, got {dh}")
-    for t in (q, k_pages, v_pages):
-        if t.data_ptr() % 16 != 0:
-            raise ValueError("ragged_paged_attention: q and the pools must "
-                             "be 16-byte aligned")
-    lib = _build.library("ragged_paged_attention")
-    code = _ATTN_DTYPES[q.dtype]
-
-    def smem(qb: int) -> int:  # the kernel's own layout (smem_bytes)
-        return lib.nornic_ragged_attn_smem_bytes(qb, h // hkv, dh, p * ps, code)
-
-    qb = min(tq, _ATTN_MAX_QB)
-    while qb > 1 and smem(qb) > _SMEM_LIMIT // 2:
-        qb //= 2
-    if smem(qb) > _SMEM_LIMIT:
-        raise ValueError(f"ragged_paged_attention: S={p * ps} slots exceed "
-                         "one CTA's shared memory")
-    out = torch.empty_like(q)
-    _launch("ragged_paged_attention", lib.nornic_ragged_paged_attention,
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), positions.data_ptr(), out.data_ptr(), l, tq, h,
-            hkv, dh, num_pages, ps, p, qb, float(dh ** -0.5), code, device=dev)
-    return out
+    return _ragged_plan(l, tq, h, hkv, dh, num_pages, ps, p, q.dtype)

@@ -161,6 +161,94 @@ def test_bf16_bins_any_corpus_type_and_width(card, dtype, d):
     assert K.launch_counts()["streaming_topk_bf16"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("q", [1, 16, 100, 200, 1024])
+def test_bf16_bins_every_query_block(card, dtype, q):
+    """Every query block width the plan picks (8, 16, 128, then 2 and 8
+    blocks of 128 in clusters of 2, the second block of 200 partly empty),
+    each corpus type; values within one packed-bin step and ids equal to
+    the plain version's but for near-ties; one launch a call."""
+    qs, c, valid = _inputs(card, q=q, n=4096, d=256, seed=q)
+    c = c.to(dtype)
+    tile_n, k = 128, 50
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], tile_n, 8)
+    before = K.launch_counts()["streaming_topk_bf16"]
+    got = K.streaming_bins(qs, c, valid, tile_n, rows)
+    want = R.streaming_bins_bf16(qs, c, valid, tile_n, rows, tile_bits)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["streaming_topk_bf16"] == before + 1
+    dec = dict(k=k, n=c.shape[0], rows=rows, tile_n=tile_n, tile_bits=tile_bits)
+    vg, ig = K._decode_packed(got, **dec)
+    vw, iw = K._decode_packed(want, **dec)
+    assert float((vg - vw).abs().max()) <= 2.0 ** (tile_bits - 21) + 1e-5
+    overlap = np.mean([len(set(a) & set(b)) / k for a, b in
+                       zip(ig.cpu().tolist(), iw.cpu().tolist())])
+    assert overlap >= 0.99
+
+
+@pytest.mark.parametrize("dtype,d,offset", [
+    (torch.float32, 1030, 0), (torch.bfloat16, 100, 0), (torch.float16, 7, 0),
+    (torch.float32, 100, 0), (torch.float32, 64, 1), (torch.bfloat16, 128, 3)])
+def test_bf16_bins_padded_copy_and_partial_chunks(card, dtype, d, offset):
+    """Widths the bulk copies cannot take (no multiple of 16 bytes), a base
+    off a 16-byte boundary (the same values ``offset`` values into a fresh
+    buffer),
+    and widths whose last 64-deep chunk is partial, all through one launch
+    of the same kernel."""
+    qs, c, valid = _inputs(card, q=40, n=2048, d=d, seed=d + offset)
+    c = c.to(dtype)
+    if offset:
+        buf = torch.zeros(c.numel() + offset, dtype=dtype, device=card)
+        buf[offset:] = c.reshape(-1)
+        c = buf[offset:].view(c.shape)
+        assert c.data_ptr() % 16 != 0
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], 128, 8)
+    plan = K._streaming_plan(40, d, dtype, c.data_ptr(), n_tiles, rows, 128, 132)
+    assert plan.copy_c == (plan.width != d or offset != 0)
+    before = K.launch_counts()["streaming_topk_bf16"]
+    got = K.streaming_bins(qs, c, valid, 128, rows)
+    want = R.streaming_bins_bf16(qs, c, valid, 128, rows, tile_bits)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["streaming_topk_bf16"] == before + 1
+    dec = dict(k=20, n=c.shape[0], rows=rows, tile_n=128, tile_bits=tile_bits)
+    vg, _ = K._decode_packed(got, **dec)
+    vw, _ = K._decode_packed(want, **dec)
+    assert float((vg - vw).abs().max()) <= 2.0 ** (tile_bits - 21) + 1e-5
+
+
+@pytest.mark.parametrize("q", [16, 300])
+@pytest.mark.parametrize("tile_n,rows", [(256, 4), (512, 16), (1024, 2)])
+def test_bf16_bins_wide_tiles(card, q, tile_n, rows):
+    """Tiles of several 128-row CTA blocks (the tile_n pick_tile_n gives a
+    corpus whose capacity is a multiple of 1,024), bin rows that split
+    the tile loop or not."""
+    qs, c, valid = _inputs(card, q=q, n=8192, d=192, seed=tile_n + q)
+    n_tiles, rows, tile_bits = K.streaming_geometry(c.shape[0], tile_n, rows)
+    before = K.launch_counts()["streaming_topk_bf16"]
+    got = K.streaming_bins(qs, c, valid, tile_n, rows)
+    want = R.streaming_bins_bf16(qs, c, valid, tile_n, rows, tile_bits)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["streaming_topk_bf16"] == before + 1
+    dec = dict(k=50, n=c.shape[0], rows=rows, tile_n=tile_n, tile_bits=tile_bits)
+    vg, ig = K._decode_packed(got, **dec)
+    vw, iw = K._decode_packed(want, **dec)
+    assert float((vg - vw).abs().max()) <= 2.0 ** (tile_bits - 21) + 1e-5
+    overlap = np.mean([len(set(a) & set(b)) / 50 for a, b in
+                       zip(ig.cpu().tolist(), iw.cpu().tolist())])
+    assert overlap >= 0.99
+
+
+def test_bf16_plan_shared_memory_is_the_kernels(card):
+    from nornicdb_tpu_torch.ops import _build
+
+    lib = _build.library("streaming_topk_bf16")
+    for dtype, code in K._CORPUS_DTYPES.items():
+        for q in (1, 16, 40, 100, 1024):
+            plan = K._streaming_plan(q, 1024, dtype, 0, 7813, 16, 128, 132)
+            assert lib.nornic_streaming_bf16_smem_bytes(
+                plan.nq, plan.stages, code) == plan.smem <= K._SMEM_LIMIT
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     qs, c, valid = _inputs(card)
     with pytest.raises(ValueError):
@@ -232,6 +320,89 @@ def test_ragged_attention_matches_plain(card, dtype, h, hkv, dh, tq, lanes):
     assert bool((got[pad] == 0).all()), "padding rows must be zeros"
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _ragged_split_inputs(card, dtype, tq, p, unit, seed=0, h=14, hkv=2, dh=64,
+                         ps=16):
+    """Nine lanes of a table of P pages: lane n < 8 with largest position
+    unit * (n + 1) - 1 (at most S - 1), then an all-padding lane."""
+    rng = np.random.default_rng(seed)
+    s_len = p * ps
+    lanes = 9
+    num_pages = 1 + 8 * p
+    positions = np.full((lanes, tq), -1, np.int32)
+    tables = np.zeros((lanes, p), np.int32)
+    for lane in range(8):
+        last = min(s_len - 1, (lane + 1) * unit - 1)
+        positions[lane] = np.clip(np.arange(last - tq + 1, last + 1), -1, None)
+        tables[lane] = 1 + lane * p + np.arange(p)
+    t = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a)).to(card, dt)
+    return (t(rng.standard_normal((lanes, tq, h, dh))),
+            t(rng.standard_normal((num_pages, ps, hkv, dh))),
+            t(rng.standard_normal((num_pages, ps, hkv, dh))),
+            t(tables, torch.int32), t(positions, torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq", [1, 8])
+def test_ragged_attention_every_split(card, dtype, tq):
+    """Lanes whose largest positions take 1..8 CTAs of the cluster, and a
+    lane whose rows are all padding, in one launch."""
+    args = _ragged_split_inputs(card, dtype, tq, p=16, unit=K._ATTN_MIN_SLOTS,
+                                seed=tq)
+    lane_max = args[4].max(dim=1).values.cpu().tolist()
+    assert [K._ragged_split(m, 256) for m in lane_max] == [1, 2, 3, 4, 5, 6, 7, 8, 0]
+    before = K.launch_counts()["ragged_paged_attention"]
+    got = K.ragged_paged_attention(*args)
+    want = R.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ragged_paged_attention"] == before + 1
+    assert bool((got[args[4] < 0] == 0).all()), "padding rows must be zeros"
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_attention_at_the_shared_memory_limit(card, dtype):
+    """The widest table whose plan fits a CTA: every CTA of the lanes'
+    clusters holds up to S / 8 scores a query vector. One page wider
+    raises."""
+    from test_torch_kernel_plans import widest_ragged_table
+
+    from nornicdb_tpu_torch.ops import _build
+
+    p = widest_ragged_table(dtype)
+    args = _ragged_split_inputs(card, dtype, 1, p=p, unit=p * 16 // 8, seed=p)
+    plan = K._ragged_plan(9, 1, 14, 2, 64, args[1].shape[0], 16, p, dtype)
+    lib = _build.library("ragged_paged_attention")
+    assert lib.nornic_ragged_attn_smem_bytes(
+        plan.qb, 7, 64, p * 16, K._ATTN_DTYPES[dtype]) == plan.smem
+    assert plan.smem <= K._SMEM_LIMIT
+    before = K.launch_counts()["ragged_paged_attention"]
+    got = K.ragged_paged_attention(*args)
+    want = R.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["ragged_paged_attention"] == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    wider = torch.cat([args[3], args[3][:, :1]], dim=1).contiguous()
+    with pytest.raises(ValueError):
+        K.ragged_paged_attention(*args[:3], wider, args[4])
+
+
+def test_ragged_plan_is_the_kernels(card):
+    """The plan's shared memory against the kernel's own (which follows the
+    cluster size through each CTA's span of scores)."""
+    from nornicdb_tpu_torch.ops import _build
+
+    lib = _build.library("ragged_paged_attention")
+    for dtype, code in K._ATTN_DTYPES.items():
+        for qb, n_rep, dh, s_len in [(4, 7, 64, 256), (1, 7, 64, 4096),
+                                     (2, 2, 16, 48), (4, 1, 128, 16),
+                                     (1, 8, 128, 20_000), (2, 7, 64, 100),
+                                     (1, 7, 64, 17)]:
+            assert lib.nornic_ragged_attn_smem_bytes(qb, n_rep, dh, s_len, code) == \
+                K._ragged_smem(qb, n_rep, dh, s_len, dtype)
 
 
 def test_ragged_attention_refuses_what_the_kernel_does_not_take(card):

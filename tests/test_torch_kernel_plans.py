@@ -10,6 +10,11 @@
   plan from B and k.
 - ``fused_cosine.cu``: the tile and copy plan from (Q, D, corpus type,
   pointer alignment).
+- ``streaming_topk_bf16.cu``: the launch plan (query block width, split,
+  ring stages and shared memory, padded width) and the permuted K order
+  of the rounded query buffer, against a numpy model of the wgmma pairing.
+- ``ragged_paged_attention.cu``: the split over a cluster from the lanes'
+  largest positions, the shared-memory plan and its cache.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -189,3 +194,210 @@ def test_zero_padded_copy_keeps_scores():
     assert qp.shape == (5, 8) and bool((qp[:, 7] == 0).all())
     torch.testing.assert_close(R.fused_cosine_scores(qp, cp),
                                R.fused_cosine_scores(q, c), rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------ streaming_topk_bf16.cu
+SERVING = dict(n_tiles=7813, rows=16, tile_n=128, sms=132)  # 1,000,064 rows
+
+
+@pytest.mark.parametrize("q,nq,qblocks,cluster", [
+    (1, 8, 1, 1), (7, 8, 1, 1), (16, 16, 1, 1), (17, 32, 1, 1),
+    (100, 128, 1, 1), (129, 128, 2, 2), (300, 128, 3, 1), (1024, 128, 8, 2)])
+def test_streaming_plan_query_block_from_q(q, nq, qblocks, cluster):
+    plan = K._streaming_plan(q, 1024, torch.float32, 0, **SERVING)
+    assert (plan.nq, plan.qblocks) == (nq, qblocks)
+    assert plan.nq in K._BF16_NQ and plan.nq * plan.qblocks >= q
+    assert 1 <= plan.splits <= -(-SERVING["n_tiles"] // SERVING["rows"])
+    # pairs of query blocks share each corpus chunk where their number is even
+    assert plan.cluster == cluster and plan.qblocks % plan.cluster == 0
+    assert 2 <= plan.stages <= K._BF16_MAX_STAGES
+    assert plan.smem <= K._SMEM_LIMIT
+    assert plan.qbuf_values == qblocks * 16 * nq * 64
+
+
+def test_streaming_plan_at_the_serving_shape():
+    # Q = 1024: 8 query blocks x 16 bin rows = 128 CTAs, one an SM, no split
+    big = K._streaming_plan(1024, 1024, torch.float32, 0, **SERVING)
+    assert (big.splits, big.stages, big.cluster) == (1, 4, 2)
+    assert big.smem == 1024 + 128 + 4 * (128 * 256 + 128 * 128)
+    # Q = 16: 16 bin rows, each tile loop split 8 ways
+    small = K._streaming_plan(16, 1024, torch.float32, 0, **SERVING)
+    assert (small.splits, small.stages) == (8, 6)
+    assert small.smem == 1024 + 128 + 6 * (128 * 256 + 16 * 128)
+    assert not big.copy_c and not small.copy_c
+
+
+@pytest.mark.parametrize("q", [1, 40, 300, 5000])
+@pytest.mark.parametrize("n_tiles,rows", [(1, 1), (3, 3), (32, 16), (7813, 16)])
+def test_streaming_plan_splits_within_the_tile_loop(q, n_tiles, rows):
+    plan = K._streaming_plan(q, 128, torch.float32, 0, n_tiles, rows, 128, 132)
+    assert 1 <= plan.splits <= -(-n_tiles // rows)
+    ctas = plan.qblocks * rows * plan.splits
+    assert plan.splits == 1 or ctas <= 132
+
+
+@pytest.mark.parametrize("dtype,d,ptr,width,copy", [
+    (torch.float32, 1024, 0, 1024, False), (torch.float32, 100, 0, 100, False),
+    (torch.float32, 1030, 0, 1032, True), (torch.float32, 1, 0, 4, True),
+    (torch.float32, 64, 4, 64, True), (torch.bfloat16, 128, 0, 128, False),
+    (torch.bfloat16, 100, 0, 104, True), (torch.bfloat16, 128, 6, 128, True),
+    (torch.float16, 7, 0, 8, True), (torch.float16, 1024, 16, 1024, False)])
+def test_streaming_plan_padded_width(dtype, d, ptr, width, copy):
+    plan = K._streaming_plan(40, d, dtype, 4096 + ptr, 32, 8, 128, 132)
+    assert (plan.width, plan.copy_c) == (width, copy)
+    assert plan.width * K._CORPUS_ESIZE[dtype] % 16 == 0
+
+
+def _physical_k(wide: bool, ks: int, t4: int, i: int) -> int:
+    """streaming_topk_bf16.cu physical_k: the value of a 64-deep chunk that
+    thread t4's register a_i takes in step ks."""
+    if wide:
+        return 32 * (ks >> 1) + 4 * (2 * t4 + (ks & 1)) + i
+    return 8 * (ks + 4 * (t4 >> 1)) + 4 * (t4 & 1) + i
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_streaming_physical_k_is_a_permutation(wide):
+    ks = [_physical_k(wide, s, t, i) for s in range(4) for t in range(4)
+          for i in range(4)]
+    assert sorted(ks) == list(range(64))
+    # a quarter warp (float32, 16 bytes a thread) or half warp (16-bit, 8
+    # bytes) reads 128 distinct bytes of the 128-byte-swizzled box rows
+    for s in range(4):
+        slots = set()
+        for g in range(2 if wide else 4):
+            for t in range(4):
+                p = _physical_k(wide, s, t, 0) % (32 if wide else 64)
+                piece, half = divmod(p * (4 if wide else 2), 16)
+                slots.add(((piece ^ g) << 1 | half // 8) if not wide else piece ^ g)
+        assert len(slots) == (8 if wide else 16)
+
+
+def _rounded_query_layout(qs: np.ndarray, nq: int, wide: bool) -> np.ndarray:
+    """round_queries_kernel's buffer in numpy (float32 values, no rounding):
+    per (query block, 64-deep chunk), core matrices [k8][n8][8 rows][8],
+    the K order of each 16-deep step that of physical_k."""
+    q, d = qs.shape
+    qblocks, kchunks = -(-q // nq), -(-d // 64)
+    out = np.zeros(qblocks * kchunks * nq * 64, np.float32)
+    groups = nq // 8
+    for o in range(out.size):
+        cidx, w = divmod(o, nq * 64)
+        e, w = w % 8, w // 8
+        nr, w = w % 8, w // 8
+        ng, k8 = w % groups, w // groups
+        n = (cidx // kchunks) * nq + ng * 8 + nr
+        j = (k8 & 1) * 8 + e
+        k = (cidx % kchunks) * 64 + _physical_k(
+            wide, k8 >> 1, (j & 7) >> 1, 2 * (j >> 3) + (j & 1))
+        if n < q and k < d:
+            out[o] = qs[n, k]
+    return out
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("q,d,nq", [(5, 64, 8), (16, 100, 16), (20, 130, 32)])
+def test_streaming_query_layout_pairs_the_same_k(q, d, nq, wide):
+    """The tensor cores pair register a_i of thread t4 (the corpus values
+    physical_k names) with B's logical k 2*t4, 2*t4+1, 2*t4+8, 2*t4+9:
+    summing those pairs over the buffer gives the plain product of every
+    query with every corpus row."""
+    rng = np.random.default_rng(q + d)
+    qs = rng.standard_normal((q, d)).astype(np.float32)
+    rows = rng.standard_normal((3, d)).astype(np.float32)
+    buf = _rounded_query_layout(qs, nq, wide)
+    kchunks = -(-d // 64)
+    padded = np.zeros((3, kchunks * 64), np.float32)
+    padded[:, :d] = rows
+    got = np.zeros((q, 3))
+    groups = nq // 8
+    logical = lambda t4: np.array([2 * t4, 2 * t4 + 1, 2 * t4 + 8, 2 * t4 + 9])
+    for n in range(q):
+        blk, nn = divmod(n, nq)
+        for kc in range(kchunks):
+            chunk = buf[(blk * kchunks + kc) * nq * 64:][:nq * 64]
+            for ks in range(4):
+                for t4 in range(4):
+                    phys = kc * 64 + np.array(
+                        [_physical_k(wide, ks, t4, i) for i in range(4)])
+                    j = logical(t4)
+                    k8 = 2 * ks + j // 8
+                    b = chunk[((k8 * groups + nn // 8) * 8 + nn % 8) * 8 + j % 8]
+                    got[n] += padded[:, phys] @ b
+    np.testing.assert_allclose(got, qs @ rows.T, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------- ragged_paged_attention.cu
+@pytest.mark.parametrize("max_pos,split", [(-1, 0), (0, 1), (15, 1), (16, 2),
+                                           (31, 2), (100, 7), (111, 7),
+                                           (112, 8), (255, 8), (10_000, 8)])
+def test_ragged_split_from_the_largest_position(max_pos, split):
+    assert K._ragged_split(max_pos, 256) == split
+
+
+@pytest.mark.parametrize("s_len,cluster", [(8, 1), (16, 1), (17, 2), (64, 4),
+                                           (100, 7), (128, 8), (256, 8),
+                                           (60_000, 8)])
+def test_ragged_cluster_from_the_table(s_len, cluster):
+    assert K._ragged_cluster(s_len) == cluster
+    # a split never exceeds the cluster, and all-padding lanes take no CTA
+    assert K._ragged_split(s_len - 1, s_len) == cluster
+    assert K._ragged_split(-1, s_len) == 0
+
+
+def _ragged_layout_bytes(qb, n_rep, dh, s_len, esize):
+    """ragged_paged_attention.cu's shared memory, region by region."""
+    cluster = min(8, max(1, -(-s_len // 16)))
+    span = max(16, -(-s_len // cluster))
+    rmax = qb * n_rep
+    regions = {
+        "kv_ring": 2 * 64 * (dh + 16 // esize) * esize,
+        "queries": rmax * dh * 4,
+        "partial_sums": rmax * dh * 4,
+        "scores": rmax * span * 4,
+        "maxima": rmax * 4,
+        "sums": rmax * 4,
+        "positions": qb * 4,
+    }
+    return sum(regions.values())
+
+
+@pytest.mark.parametrize("dtype,esize", [(torch.bfloat16, 2), (torch.float32, 4)])
+@pytest.mark.parametrize("qb,n_rep,dh,s_len", [(4, 7, 64, 256), (1, 7, 64, 4096),
+                                               (2, 2, 16, 48), (4, 1, 128, 16)])
+def test_ragged_smem_is_the_kernel_layout(dtype, esize, qb, n_rep, dh, s_len):
+    assert K._ragged_smem(qb, n_rep, dh, s_len, dtype) == _ragged_layout_bytes(
+        qb, n_rep, dh, s_len, esize)
+
+
+def widest_ragged_table(dtype, h=14, hkv=2, dh=64, ps=16) -> int:
+    """The most pages a lane's table may hold at one query row a cluster
+    before a CTA's share of the scores exceeds its shared memory."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if K._ragged_smem(1, h // hkv, dh, mid * ps, dtype) <= K._SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ragged_plan_within_a_cta_and_cached(dtype):
+    # the generation path's shapes: decode block and chunk block
+    dec = K._ragged_plan(10, 1, 14, 2, 64, 129, 16, 16, dtype)
+    chk = K._ragged_plan(1, 64, 14, 2, 64, 129, 16, 16, dtype)
+    assert (dec.qb, dec.cluster, chk.qb, chk.cluster) == (1, 8, 2, 8)
+    assert dec.smem == _ragged_layout_bytes(1, 7, 64, 256, 4 if dtype == torch.float32 else 2)
+    assert K._ragged_plan(10, 1, 14, 2, 64, 129, 16, 16, dtype) is dec
+    assert list(dec.params) == [10, 1, 14, 2, 64, 129, 16, 16, 1, K._ATTN_DTYPES[dtype]]
+    assert dec.scale == 0.125
+    p = widest_ragged_table(dtype)
+    top = K._ragged_plan(9, 1, 14, 2, 64, 100, 16, p, dtype)
+    assert top.smem <= K._SMEM_LIMIT < K._ragged_smem(1, 7, 64, (p + 1) * 16, dtype)
+    with pytest.raises(ValueError):
+        K._ragged_plan(9, 1, 14, 2, 64, 100, 16, p + 1, dtype)
+    # a wide table halves the rows a cluster before it refuses
+    half = K._ragged_plan(1, 64, 14, 2, 64, 100, 16, p // 2, dtype)
+    assert half.qb == 1 and K._ragged_smem(2, 7, 64, p // 2 * 16, dtype) > K._SMEM_LIMIT // 2
