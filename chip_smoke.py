@@ -9,7 +9,11 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
 
 1. holds each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (Q = 1024 and Q = 16, N = 1,000,064 rows), and
-   times kernel, plain version and a one-call library yardstick;
+   times kernel, plain version and a one-call library yardstick (for the
+   int8 kernel also ``torch._int_mm``, the s8 product alone, logged); then
+   the int8 kernel over 10,000,000 x 1024 codes made on the card (bins
+   bit-identical to the plain version at Q = 16, a call timed at Q = 16
+   and 1024: a kernel time at BASELINE.json's scale, not a latency);
 2. drives the serving path: ``SearchService`` with batching, a bulk load,
    concurrent ``vector_candidates`` calls with writes interleaved, recall@100
    against exact float32 ground truth, removed ids never served, the
@@ -50,8 +54,8 @@ extract kernel, the ragged attention kernel and their yardsticks take
 microseconds, so the host's launch work can set that time: their entries
 also carry the device time of a call from CUDA-graph replays (``graph_ms``)
 as ``device_ms`` and ``library_device_ms``. Phases 1 and 6 also print the
-bf16 streaming, extract and fused cosine kernels' ptxas registers, shared
-memory and spills, and phases 1, 5 and 6 each redesigned kernel's share of
+int8 and bf16 streaming, extract and fused cosine kernels' ptxas registers,
+shared memory and spills, and phases 1, 5 and 6 each redesigned kernel's share of
 its bound, its launch plan and its first version's time copied from
 PERF.md (not measured here); phase 1 times the sort epilogue
 (``topk_lowest_index``) over the same bins. Any failed check raises and
@@ -82,6 +86,8 @@ H100_BYTES = 3.35e12     # HBM3 bytes per second
 
 # the main path's size: bench.py's headline search (1M x 1024, top-100)
 N, DIMS, K_TOP = 1_000_000, 1024, 100
+# kernel #3's timing at BASELINE.json's "p50 top-100 @10M vectors" scale
+N_10M = 10_000_000
 REPS = 6  # timed calls of each kernel (a third of that for the slow ones)
 
 # phase 5: the generation mix of scripts/bench_generate.py (kind,
@@ -118,6 +124,7 @@ ATTN_TOL_BF16 = 2.0 ** -7
 FIRST_VERSION_MS = {"extract_topk": {1024: 0.2008, 16: 0.0588},
                     "fused_cosine_scores": {1024: 64.14, 16: 3.181},
                     "streaming_topk_bf16": {1024: 16.358, 16: 3.039},
+                    "streaming_topk_int8": {1024: 7.271, 16: 1.342},
                     "ragged_paged_attention": {"decode": 0.03270,
                                                "chunk": 0.03495}}
 
@@ -289,7 +296,7 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
     kpad = -(-k // K.LANE) * K.LANE
     log(f"[kernels] N={n} D={d} tile_n={tile} rows={rows} tile_bits={tile_bits} "
         f"bins={b} k={k}")
-    for name in ("streaming_topk_bf16", "extract_topk"):
+    for name in ("streaming_topk", "streaming_topk_bf16", "extract_topk"):
         for line in ptxas_summary(_build.ptxas_reports.get(name, "")):
             log(f"[kernels] {name} ptxas: {line}")
     costs = launch_host_costs(K, dev.device)
@@ -353,6 +360,10 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
             q_i8, c_i8, c_scale, valid, tile, rows, tile_bits), max(1, reps // 3))
         t["i8_lib"] = cuda_ms(lambda: torch.topk(
             q_i8.to(torch.bfloat16) @ c_i8.to(torch.bfloat16).T, k, dim=1), max(1, reps // 3))
+        # the s8 product alone (cuBLASLt, no top-k; a (Q, N) int32 output),
+        # which takes more than 16 rows: Q = 16 runs as 32
+        q_mm = q_i8 if q > 16 else torch.cat([q_i8, q_i8])
+        t["i8_int_mm"] = cuda_ms(lambda: torch._int_mm(q_mm, c_i8.T), max(1, reps // 3))
         # #4 and its yardsticks take microseconds: the time of a call, and
         # beside it the device's time from CUDA graphs
         ex = (lambda: K._extract_topk(flat, k, kpad))
@@ -374,9 +385,11 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
         # #4 is a top-k of B values a row: one read of the bins, one write
         # of kpad values and ids, and B compares a row outside the tensor cores
         b4 = bound_ms(q * b * 4 + 2 * q * kpad * 4, q * b, H100_FP32_OPS)
+        sms = torch.cuda.get_device_properties(dev.device).multi_processor_count
         plan = K._streaming_plan(
-            q, d, dev.dtype, dev.data_ptr(), n_tiles, rows, tile,
-            torch.cuda.get_device_properties(dev.device).multi_processor_count)
+            q, d, dev.dtype, dev.data_ptr(), n_tiles, rows, tile, sms)
+        plan8 = K._int8_plan(q, d, q_i8.data_ptr(), c_i8.data_ptr(), n_tiles,
+                             rows, tile, sms)
         log(f"[kernels] bf16 Q={q}: a call {t['bf16']:.4f}ms, "
             f"torch.topk(bf16 matmul) {t['bf16_lib']:.4f}ms; bound "
             f"{b2[0]:.4f}ms ({b2[1]}), {b2[0] / t['bf16']:.4f} of it; achieved "
@@ -385,6 +398,16 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
             f"splits={plan.splits} stages={plan.stages} smem={plan.smem}; "
             f"first version "
             f"{FIRST_VERSION_MS['streaming_topk_bf16'][q]}ms a call (copied "
+            f"from PERF.md, not measured here)")
+        log(f"[kernels] int8 Q={q}: a call {t['i8']:.4f}ms, "
+            f"torch.topk(bf16 matmul) {t['i8_lib']:.4f}ms, torch._int_mm (the s8 "
+            f"product alone, {q_mm.shape[0]} rows) {t['i8_int_mm']:.4f}ms; bound "
+            f"{b3[0]:.4f}ms ({b3[1]}), {b3[0] / t['i8']:.4f} of it; achieved "
+            f"{2 * q * n * d / t['i8'] / 1e9:.2f} TOP/s; plan nq={plan8.nq} "
+            f"query blocks={plan8.qblocks} cluster={plan8.cluster} "
+            f"splits={plan8.splits} stages={plan8.stages} smem={plan8.smem} "
+            f"queries kept={plan8.q_kept}; first version "
+            f"{FIRST_VERSION_MS['streaming_topk_int8'][q]}ms a call (copied "
             f"from PERF.md, not measured here)")
         log(f"[kernels] extract Q={q}: a call {t['ex']:.4f}ms, torch.topk's "
             f"{t['ex_lib']:.4f}ms, the sort epilogue's (topk_lowest_index) "
@@ -419,6 +442,56 @@ def phase_kernels(K, R, dev, valid, c_i8, c_scale, qs_all, k, reps):
         del bins_k, bins_p, bins8_k, bins8_p, flat
         torch.cuda.empty_cache()
     return entries
+
+
+def phase_int8_10m(K, R, seed: int, k: int, reps: int) -> None:
+    """Kernel #3 at BASELINE.json's headline scale: N_10M x 1024 int8 codes
+    made on the card from ``seed`` (10.24 GB; positive scales, 1% of rows
+    masked; the bin geometry of pick_tile_n and streaming_rows_for(k, .)).
+    The bins are bit-identical to the plain version's at Q = 16; the time
+    of a call at Q = 16 and 1024 is logged beside its bounds. A kernel time,
+    not a service latency: no load, no batching, no result epilogue."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, d = N_10M, DIMS
+    t0 = time.perf_counter()
+    c_i8 = torch.empty((n, d), dtype=torch.int8, device=dev).random_(
+        -127, 128, generator=gen)
+    c_scale = torch.rand(n, generator=gen, device=dev) * 1000 + 600
+    valid = torch.rand(n, generator=gen, device=dev) >= 0.01
+    q_all = torch.empty((1024, d), dtype=torch.int8, device=dev).random_(
+        -127, 128, generator=gen)
+    sync()
+    tile = K.pick_tile_n(n)
+    rows = min(K.streaming_rows_for(k, tile), n // tile)
+    n_tiles, rows, tile_bits = K.streaming_geometry(n, tile, rows)
+    log(f"[int8-10M] N={n} D={d} codes made on the card in "
+        f"{time.perf_counter() - t0:.1f}s; tile_n={tile} rows={rows} "
+        f"tile_bits={tile_bits} masked rows={int((~valid).sum())}")
+    for q in (16, 1024):
+        qt = q_all[:q].contiguous()
+        if q == 16:
+            got = K.streaming_bins_int8(qt, c_i8, c_scale, valid, tile, rows)
+            want = R.streaming_bins_int8(qt, c_i8, c_scale, valid, tile, rows,
+                                         tile_bits)
+            sync()
+            assert torch.equal(got, want), (
+                "10M int8 bins differ", int((got != want).sum()))
+            log(f"[int8-10M] Q={q}: bins bit-identical to the plain version")
+            del got, want
+        ms = cuda_ms(lambda: K.streaming_bins_int8(
+            qt, c_i8, c_scale, valid, tile, rows), reps)
+        out_bytes = rows * q * tile * 4
+        nbytes = n * d + q * d + n * 4 + n + out_bytes
+        b = bound_ms(nbytes, 2 * q * n * d, H100_INT8_OPS)
+        log(f"[int8-10M] Q={q}: a call {ms:.4f}ms (a kernel time, not a "
+            f"service latency); bytes bound {nbytes / H100_BYTES * 1e3:.4f}ms, "
+            f"operations bound {2 * q * n * d / H100_INT8_OPS * 1e3:.4f}ms, "
+            f"{b[0] / ms:.4f} of the larger ({b[1]})")
+    del c_i8, c_scale, valid, q_all
+    torch.cuda.empty_cache()
 
 
 def drive_service(svc, queries: np.ndarray, k: int, writes) -> dict:
@@ -1207,6 +1280,9 @@ def main() -> int:
                                 REPS)
         del c_i8, c_scale
     log(f"[phase1] kernels vs plain: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_int8_10m(K, R, args.seed, k, REPS)
+    log(f"[phase1] int8 kernel at 10M rows: {time.perf_counter() - t0:.1f}s")
 
     # -- phase 2: the serving path (batched vector_candidates + writes).
     # Removed: the own rows of queries outside the recall sample, each in

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
 so a build takes seconds, not minutes. All sources build in parallel (one
 ``nvcc`` each). Libraries land in ``ops/_build/`` under a name that carries a
-digest of the source and flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import time.
+digest of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ SIGNATURES: dict[str, dict[str, tuple]] = {
         "nornic_ragged_attn_smem_bytes": (_I, _I, _I, _I, _I),
     },
     "streaming_topk": {
-        "nornic_streaming_topk_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "nornic_streaming_topk_i8": (
+            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "nornic_streaming_i8_smem_bytes": (_I, _I, _I, _I),
     },
     "streaming_topk_bf16": {
         "nornic_streaming_topk_bf16": (
@@ -77,8 +80,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, named by a digest of the source,
+    every header in ``csrc`` (which a source may include) and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

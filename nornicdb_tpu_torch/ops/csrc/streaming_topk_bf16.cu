@@ -69,13 +69,12 @@
 // Plain C interface (loaded with ctypes). The entry point launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <limits.h>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -118,91 +117,7 @@ __host__ __device__ __forceinline__ int physical_k(bool wide, int ks, int t4, in
               : 8 * (ks + 4 * (t4 >> 1)) + 4 * (t4 & 1) + i;
 }
 
-// ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-// Wait until the phase of parity `parity` has completed. No stage takes
-// seconds: a wait that does (a copy that never lands) traps rather than
-// hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > (4LL << 30)) __trap();
-}
-// `bytes` from global memory into this CTA's shared memory by the TMA
-// engine; completion is counted on the mbarrier
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-// A box of the corpus's tensor map at (x = value, y = row) into shared
-// memory at `dst` of every CTA of the cluster in `mask`, counted on the
-// mbarrier at `bar` in each (the same offsets in every CTA).
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map, int x,
-                                                      int y, uint32_t bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-      " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "h"(mask)
-      : "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t n;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
-  return n;
-}
-// one arrival on the mbarrier at this CTA's offset `bar` in cluster CTA `rank`
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep registers that an asynchronous wgmma reads or writes live and in
-// place up to this point (the compiler does not know the wgmma is async).
-template <int M> __device__ __forceinline__ void hold(float (&r)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
+// Keep the A fragments live and in place (hopper.cuh's hold for their type).
 __device__ __forceinline__ void hold(uint32_t (&r)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -544,25 +459,6 @@ streaming_topk_bf16_kernel(const __grid_constant__ CUtensorMap cmap,
   cluster_sync();
 }
 #undef CONSUME_CHUNK
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
 
 template <typename C> CUtensorMapDataType tma_type();
 template <> CUtensorMapDataType tma_type<float>() { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }

@@ -39,22 +39,33 @@ from nornicdb_tpu_torch.ops import _build, kernels_ref
 
 LANE = 128
 INT32_MIN = kernels_ref.INT32_MIN
-# corpus rows a CTA of the streaming kernels (streaming_topk.cu BN,
-# streaming_topk_bf16.cu BM): tile_n must be a multiple of it on the card
+# corpus rows a CTA of the streaming kernels (BM of streaming_topk.cu and
+# streaming_topk_bf16.cu): tile_n must be a multiple of it on the card
 # (pick_tile_n always gives one)
 CUDA_TILE_COLS = 128
 # corpus types of the bf16 streaming kernel -> its c_dtype code, and the
 # bytes of one value
 _CORPUS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _CORPUS_ESIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
-# streaming_topk_bf16.cu: the query block widths (wgmma N) it has instances
-# of, the K chunk, the ring's stages at most, the barriers after it and the
-# slack that aligns it to 1,024 bytes (its TMA boxes are swizzled)
-_BF16_NQ = (8, 16, 32, 64, 128)
+# the query block widths (wgmma N) both streaming kernels have instances of
+_STREAMING_NQ = (8, 16, 32, 64, 128)
+# streaming_topk_bf16.cu: the K chunk, the ring's stages at most, the
+# barriers after it and the slack that aligns it to 1,024 bytes (its TMA
+# boxes are swizzled)
 _BF16_BK = 64
 _BF16_MAX_STAGES = 8
 _BF16_BARRIER_BYTES = 2 * _BF16_MAX_STAGES * 8
 _BF16_ALIGN = 1024
+# streaming_topk.cu: the K chunk (bytes, one 128-byte swizzled box row), a
+# corpus chunk in the ring, the ring's stages at most and at least beside a
+# kept query block, the barriers (full, empty and the queries') and the
+# 1,024-byte alignment slack
+_I8_BK = 128
+_I8_CCHUNK = CUDA_TILE_COLS * _I8_BK
+_I8_MAX_STAGES = 8
+_I8_MIN_KEPT_STAGES = 3
+_I8_BARRIER_BYTES = (2 * _I8_MAX_STAGES + 1) * 8
+_I8_ALIGN = 1024
 EPILOGUES = ("sort", "approx", "pallas")
 # shared memory one CTA may take (H100: 227 KB of the SM's 256 KB)
 _SMEM_LIMIT = 232_448
@@ -315,26 +326,34 @@ class _StreamingPlan:
     qbuf_values: int
 
 
-def _streaming_plan(q: int, d: int, c_dtype: torch.dtype, c_ptr: int,
-                    n_tiles: int, rows: int, tile_n: int, sms: int
-                    ) -> _StreamingPlan:
-    """The launch plan of the bf16 streaming kernel (a pure function of its
-    arguments). The query block is the smallest of the kernel's widths that
-    holds min(Q, 128) queries, so a small batch multiplies only its own
-    rows. The CTAs of one tile's query blocks sit side by side in the grid,
-    so the corpus is read from device memory once, and pairs of them share
-    each corpus chunk (a cluster of 2, TMA multicast) where their number is
-    even; each bin
-    row's tile loop is split over as many CTAs as fill the SMs once (one CTA
-    an SM: the ring takes most of its shared memory). The corpus's TMA
-    tensor map needs rows on 16-byte boundaries: a width that is no
-    multiple of 16 bytes or an unaligned base goes through a zero-padded
-    copy, as for ``fused_cosine.cu``."""
-    nq = next(w for w in _BF16_NQ if w >= min(q, _BF16_NQ[-1]))
+def _query_blocks(q: int, n_tiles: int, rows: int, tile_n: int, sms: int
+                  ) -> tuple[int, int, int, int]:
+    """The query side of a streaming kernel's grid: (block width, blocks,
+    blocks a cluster, split of each bin row's tile loop). The block is the
+    smallest of the kernels' widths that holds min(Q, 128) queries, so a
+    small batch multiplies only its own rows. The CTAs of one tile's query
+    blocks sit side by side in the grid, so the corpus is read from device
+    memory once, and pairs of them share each corpus chunk (a cluster of 2,
+    TMA multicast) where their number is even. Each bin row's tile loop is
+    split over as many CTAs as fill the SMs once (one CTA an SM: the ring
+    takes most of its shared memory)."""
+    nq = next(w for w in _STREAMING_NQ if w >= min(q, _STREAMING_NQ[-1]))
     qblocks = -(-q // nq)
     cluster = 2 if qblocks % 2 == 0 else 1
     ctas = qblocks * rows * (tile_n // CUDA_TILE_COLS)
     splits = max(1, min(-(-n_tiles // rows), sms // ctas))
+    return nq, qblocks, cluster, splits
+
+
+def _streaming_plan(q: int, d: int, c_dtype: torch.dtype, c_ptr: int,
+                    n_tiles: int, rows: int, tile_n: int, sms: int
+                    ) -> _StreamingPlan:
+    """The launch plan of the bf16 streaming kernel (a pure function of its
+    arguments): the grid of ``_query_blocks``, and as many ring stages as
+    fit. The corpus's TMA tensor map needs rows on 16-byte boundaries: a
+    width that is no multiple of 16 bytes or an unaligned base goes through
+    a zero-padded copy, as for ``fused_cosine.cu``."""
+    nq, qblocks, cluster, splits = _query_blocks(q, n_tiles, rows, tile_n, sms)
     esize = _CORPUS_ESIZE[c_dtype]
     step = 16 // esize
     width = -(-d // step) * step
@@ -367,31 +386,80 @@ def streaming_bins_int8(
     if dev.type != "cuda":
         return kernels_ref.streaming_bins_int8(
             q_i8, c_i8, c_scale, valid, tile_n, rows, tile_bits)
-    return _launch_streaming(
-        "streaming_topk_int8", (q_i8, c_i8, c_scale, valid), q, d, tile_n,
-        n_tiles, rows, tile_bits)
-
-
-def _launch_streaming(name: str, inputs: tuple, q: int, d: int, tile_n: int,
-                      n_tiles: int, rows: int, tile_bits: int) -> torch.Tensor:
-    """Launch the int8 kernel of ``streaming_topk.cu`` into fresh
-    INT32_MIN-filled (rows, Q, tile_n) bins. CTAs own (bin row, 128
-    queries, 128 columns); each bin row's tile loop is split over enough
-    CTAs to put about two on every SM (small Q gives a small grid)."""
     if tile_n % CUDA_TILE_COLS != 0:
-        raise ValueError(f"{name}: the CUDA kernel needs tile_n % "
-                         f"{CUDA_TILE_COLS} == 0 (got {tile_n})")
-    dev = inputs[0].device
-    ctas = -(-q // 128) * rows * (tile_n // CUDA_TILE_COLS)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-n_tiles // rows), -(-2 * sms // ctas)))
+        raise ValueError(f"streaming_bins_int8: the CUDA kernel needs tile_n "
+                         f"% {CUDA_TILE_COLS} == 0 (got {tile_n})")
     bins = torch.full((rows, q, tile_n), INT32_MIN, dtype=torch.int32,
                       device=dev)
-    lib = _build.library("streaming_topk")
-    _launch(name, lib.nornic_streaming_topk_i8,
-            *(t.data_ptr() for t in inputs), bins.data_ptr(), q, d, tile_n,
-            n_tiles, rows, tile_bits, splits, device=dev)
+    if q == 0:
+        return bins
+    plan = _int8_plan(
+        q, d, q_i8.data_ptr(), c_i8.data_ptr(), n_tiles, rows, tile_n,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan.copy_q:
+        q_i8 = _zero_padded(q_i8, plan.width)
+    if plan.copy_c:
+        c_i8 = _zero_padded(c_i8, plan.width)
+    _launch("streaming_topk_int8",
+            _build.library("streaming_topk").nornic_streaming_topk_i8,
+            q_i8.data_ptr(), c_i8.data_ptr(), c_scale.data_ptr(),
+            valid.data_ptr(), bins.data_ptr(), q, plan.width, tile_n, n_tiles,
+            rows, tile_bits, plan.splits, plan.nq, plan.stages, plan.cluster,
+            int(plan.q_kept), device=dev)
     return bins
+
+
+@dataclasses.dataclass(frozen=True)
+class _Int8Plan:
+    """How ``streaming_topk.cu`` takes a call: query blocks of ``nq`` (the
+    wgmma's N) and their count, the split of each bin row's tile loop, the
+    query blocks a cluster, the ring's stages and the CTA's shared memory,
+    whether the query block is kept in shared memory for the whole tile
+    loop (else each stage carries its chunk), the padded width the kernel
+    reads and whether the queries and whether the corpus go through a
+    zero-padded copy first."""
+    nq: int
+    qblocks: int
+    splits: int
+    cluster: int
+    stages: int
+    smem: int
+    q_kept: bool
+    width: int
+    copy_q: bool
+    copy_c: bool
+
+
+def _int8_plan(q: int, d: int, q_ptr: int, c_ptr: int, n_tiles: int,
+               rows: int, tile_n: int, sms: int) -> _Int8Plan:
+    """The launch plan of the int8 streaming kernel (a pure function of its
+    arguments): the grid of ``_query_blocks``. Both operands reach the
+    kernel through TMA tensor maps, which need rows on 16-byte boundaries:
+    a width that is no multiple of 16 or a base off a 16-byte boundary
+    goes through a zero-padded copy (zero codes add nothing to an s32 sum,
+    so the bins do not change). The query block (nq x the width rounded up
+    to 128-byte chunks) stays in shared memory where it fits beside a ring
+    of ``_I8_MIN_KEPT_STAGES`` stages; otherwise each stage carries its
+    chunk. The ring takes as many stages as fit, up to ``_I8_MAX_STAGES``."""
+    nq, qblocks, cluster, splits = _query_blocks(q, n_tiles, rows, tile_n, sms)
+    width = -(-d // 16) * 16
+    qchunk = nq * _I8_BK
+    kept_bytes = -(-width // _I8_BK) * qchunk
+    fixed = _I8_ALIGN + _I8_BARRIER_BYTES
+    kept_stages = (_SMEM_LIMIT - fixed - kept_bytes) // _I8_CCHUNK
+    q_kept = kept_stages >= _I8_MIN_KEPT_STAGES
+    if q_kept:
+        stages = min(_I8_MAX_STAGES, kept_stages)
+        smem = fixed + kept_bytes + stages * _I8_CCHUNK
+    else:
+        stage = _I8_CCHUNK + qchunk
+        stages = min(_I8_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
+        smem = fixed + stages * stage
+    return _Int8Plan(
+        nq=nq, qblocks=qblocks, splits=splits, cluster=cluster, stages=stages,
+        smem=smem, q_kept=q_kept, width=width,
+        copy_q=width != d or q_ptr % 16 != 0,
+        copy_c=width != d or c_ptr % 16 != 0)
 
 
 # -------------------------------------------------------------- epilogue

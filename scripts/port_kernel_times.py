@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's kernels #2 and #5 in one or more checkouts, on one GPU.
+"""Time the port's kernels #2, #3 and #5 in one or more checkouts, on one GPU.
 
     python3 scripts/port_kernel_times.py [--root DIR ...] [--seed 0]
 
@@ -14,6 +14,9 @@ change, change, parent). Each run prints one JSON line:
   over 1,000,064 x 1024 float32 unit rows (the serving shape: tile_n 128,
   16 bin rows, 64 masked rows), the time of a call (CUDA events around
   back-to-back calls, ``ms``);
+- ``streaming_topk_int8``: ``kernels.streaming_bins_int8`` at Q = 1024 and
+  16 over the same rows as ``quantize_rows`` codes (the int8 corpus
+  mirror's), the queries' codes likewise, the time of a call (``ms``);
 - ``ragged_paged_attention``: ``kernels.ragged_paged_attention`` at the
   generation path's two blocks with Qwen2.5-0.5B's heads (14 / 2, head dim
   64, bf16, pages of 16, a 16-page table): the decode block (L = 10,
@@ -112,7 +115,16 @@ def run_one(root: str, seed: int) -> dict:
         qt = queries[:q].contiguous()
         out["streaming_topk_bf16"][q] = {"ms": cuda_ms(
             lambda: K.streaming_bins(qt, corpus, valid, TILE_N, BIN_ROWS), 6)}
-    del corpus, valid, queries
+    c_i8, c_scale = K.quantize_rows(corpus)
+    del corpus
+    q_i8 = K.quantize_rows(queries)[0]
+    out["streaming_topk_int8"] = {}
+    for q in (1024, 16):
+        qt = q_i8[:q].contiguous()
+        out["streaming_topk_int8"][q] = {"ms": cuda_ms(
+            lambda: K.streaming_bins_int8(qt, c_i8, c_scale, valid, TILE_N,
+                                          BIN_ROWS), 6)}
+    del c_i8, c_scale, valid, queries, q_i8
     torch.cuda.empty_cache()
     out["ragged_paged_attention"] = {}
     for key, a in attention_inputs(dev, seed).items():

@@ -130,7 +130,8 @@ def test_extract_radix_select_whole_row_at_the_largest_b(card):
 
 @pytest.mark.parametrize("d", [130, 100, 1])
 def test_int8_bins_bit_identical_any_width(card, d):
-    """Widths that are no multiple of 16 take the value-by-value loads."""
+    """Widths that are no multiple of 16 bytes, which a tensor map cannot
+    take, go through a zero-padded copy to the same kernel."""
     qs, c, valid = _inputs(card, d=d)
     q_i8, _ = K.quantize_rows(qs)
     c_i8, c_scale = K.quantize_rows(c)
@@ -140,6 +141,87 @@ def test_int8_bins_bit_identical_any_width(card, d):
                                  tile_bits)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _int8_inputs(card, q, d, n=4096, seed=0):
+    qs, c, valid = _inputs(card, q=q, n=n, d=d, seed=seed)
+    q_i8, _ = K.quantize_rows(qs)
+    c_i8, c_scale = K.quantize_rows(c)
+    return q_i8, c_i8, c_scale, valid
+
+
+def _int8_bins_agree(q_i8, c_i8, c_scale, valid, tile_n=128, rows=8):
+    """The kernel's bins equal the plain version's bit for bit, in one
+    launch."""
+    n_tiles, rows, tile_bits = K.streaming_geometry(c_i8.shape[0], tile_n, rows)
+    before = K.launch_counts()["streaming_topk_int8"]
+    got = K.streaming_bins_int8(q_i8, c_i8, c_scale, valid, tile_n, rows)
+    want = R.streaming_bins_int8(q_i8, c_i8, c_scale, valid, tile_n, rows,
+                                 tile_bits)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["streaming_topk_int8"] == before + 1
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("d", [1, 100, 130, 1024, 2048])
+@pytest.mark.parametrize("q", [1, 16, 40, 200, 300])
+def test_int8_bins_every_query_block_and_width(card, q, d):
+    """Every query block width the plan picks (8, 16, 64, then 2 blocks of
+    128 in a cluster of 2, the second partly empty, and 3 blocks
+    unclustered), widths padded to 16 bytes and partial 128-byte chunks,
+    the query block kept in shared memory (D <= 1024) or carried by each
+    stage (D = 2048 at 128 queries), each bin row's tile loop split: bins
+    bit-identical to the plain version's, one launch."""
+    _int8_bins_agree(*_int8_inputs(card, q, d, seed=q + d))
+
+
+@pytest.mark.parametrize("which", ["queries", "corpus", "both"])
+def test_int8_bins_unaligned_base(card, which):
+    """A contiguous view one byte into its buffer (off every 16-byte
+    boundary) goes through the padded copy, bins unchanged."""
+    q_i8, c_i8, c_scale, valid = _int8_inputs(card, 40, 128, seed=3)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 == 1
+        return view
+
+    if which in ("queries", "both"):
+        q_i8 = shifted(q_i8)
+    if which in ("corpus", "both"):
+        c_i8 = shifted(c_i8)
+    _int8_bins_agree(q_i8, c_i8, c_scale, valid)
+
+
+@pytest.mark.parametrize("q", [16, 300])
+def test_int8_bins_all_rows_masked(card, q):
+    """Every row masked: every score -3 + 0, the bins still the plain
+    version's."""
+    q_i8, c_i8, c_scale, valid = _int8_inputs(card, q, 256, seed=5)
+    _int8_bins_agree(q_i8, c_i8, c_scale, torch.zeros_like(valid))
+
+
+@pytest.mark.parametrize("q,tile_n,rows", [(16, 512, 4), (256, 256, 16),
+                                           (1024, 1024, 2)])
+def test_int8_bins_wide_tiles(card, q, tile_n, rows):
+    """Tiles of several 128-row blocks (blockIdx.y), an even number of
+    query blocks in clusters of 2, few bin rows (long tile loops)."""
+    _int8_bins_agree(*_int8_inputs(card, q, 256, n=8192, seed=tile_n),
+                     tile_n=tile_n, rows=rows)
+
+
+def test_int8_plan_shared_memory_is_the_kernels(card):
+    from nornicdb_tpu_torch.ops import _build
+
+    lib = _build.library("streaming_topk")
+    for d in (1, 100, 1024, 2048, 4096):
+        for q in (1, 16, 40, 100, 1024):
+            plan = K._int8_plan(q, d, 0, 0, 7813, 16, 128, 132)
+            assert lib.nornic_streaming_i8_smem_bytes(
+                plan.nq, plan.width, plan.stages,
+                int(plan.q_kept)) == plan.smem <= K._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("dtype,d", [
@@ -257,6 +339,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         K.streaming_bins(qs, c.t(), valid, 128, 4)  # not contiguous
     with pytest.raises(TypeError):
         K.streaming_bins(qs.double(), c, valid, 128, 4)
+
+
+def test_int8_wrapper_refuses_what_the_kernel_does_not_take(card):
+    q_i8, c_i8, c_scale, valid = _int8_inputs(card, 16, 128)
+    with pytest.raises(ValueError):
+        K.streaming_bins_int8(q_i8, c_i8, c_scale, valid, 64, 4)  # tile_n
+    with pytest.raises(ValueError):
+        K.streaming_bins_int8(q_i8, c_i8.t(), c_scale, valid, 128, 4)
+    with pytest.raises(TypeError):
+        K.streaming_bins_int8(q_i8.float(), c_i8, c_scale, valid, 128, 4)
 
 
 # ------------------------------------------------- ragged paged attention

@@ -206,7 +206,7 @@ SERVING = dict(n_tiles=7813, rows=16, tile_n=128, sms=132)  # 1,000,064 rows
 def test_streaming_plan_query_block_from_q(q, nq, qblocks, cluster):
     plan = K._streaming_plan(q, 1024, torch.float32, 0, **SERVING)
     assert (plan.nq, plan.qblocks) == (nq, qblocks)
-    assert plan.nq in K._BF16_NQ and plan.nq * plan.qblocks >= q
+    assert plan.nq in K._STREAMING_NQ and plan.nq * plan.qblocks >= q
     assert 1 <= plan.splits <= -(-SERVING["n_tiles"] // SERVING["rows"])
     # pairs of query blocks share each corpus chunk where their number is even
     assert plan.cluster == cluster and plan.qblocks % plan.cluster == 0
@@ -246,6 +246,90 @@ def test_streaming_plan_padded_width(dtype, d, ptr, width, copy):
     plan = K._streaming_plan(40, d, dtype, 4096 + ptr, 32, 8, 128, 132)
     assert (plan.width, plan.copy_c) == (width, copy)
     assert plan.width * K._CORPUS_ESIZE[dtype] % 16 == 0
+
+
+# ---------------------------------------------------- streaming_topk.cu
+@pytest.mark.parametrize("q,nq,qblocks,cluster", [
+    (1, 8, 1, 1), (8, 8, 1, 1), (16, 16, 1, 1), (17, 32, 1, 1),
+    (32, 32, 1, 1), (300, 128, 3, 1), (1024, 128, 8, 2)])
+def test_int8_plan_query_block_from_q(q, nq, qblocks, cluster):
+    plan = K._int8_plan(q, 1024, 0, 0, **SERVING)
+    assert (plan.nq, plan.qblocks) == (nq, qblocks)
+    assert plan.nq in K._STREAMING_NQ and plan.nq * plan.qblocks >= q
+    assert plan.nq < 2 * q or plan.nq == 8  # no wider than Q needs
+    # pairs of query blocks share each corpus chunk where their number is even
+    assert plan.cluster == cluster and plan.qblocks % plan.cluster == 0
+    assert 1 <= plan.splits <= -(-SERVING["n_tiles"] // SERVING["rows"])
+    assert plan.smem <= K._SMEM_LIMIT
+
+
+def test_int8_plan_at_the_serving_shape():
+    # Q = 1024: 8 query blocks x 16 bin rows = 128 CTAs, one an SM, no
+    # split; each block's 128 x 1024 codes kept beside 6 corpus stages
+    big = K._int8_plan(1024, 1024, 0, 0, **SERVING)
+    assert (big.splits, big.stages, big.cluster, big.q_kept) == (1, 6, 2, True)
+    assert big.smem == 1024 + 136 + 128 * 1024 + 6 * 128 * 128
+    # Q = 16: one block of 16, each bin row's tile loop split 8 ways
+    small = K._int8_plan(16, 1024, 0, 0, **SERVING)
+    assert (small.splits, small.stages, small.q_kept) == (8, 8, True)
+    assert small.smem == 1024 + 136 + 16 * 1024 + 8 * 128 * 128
+    assert not (big.copy_q or big.copy_c or small.copy_q or small.copy_c)
+
+
+@pytest.mark.parametrize("d,kept", [(128, True), (1024, True), (1408, True),
+                                    (1409, False), (2048, False), (4096, False)])
+def test_int8_plan_keeps_the_queries_where_they_fit(d, kept):
+    """At 128 queries the block (128 x D bytes, D rounded up to 128-byte
+    chunks) stays in shared memory up to D = 1,408 (11 chunks) beside a
+    ring of at least 3 stages; wider, each stage carries its chunk of the
+    block (and the ring takes at least 2)."""
+    plan = K._int8_plan(1024, d, 0, 0, **SERVING)
+    assert plan.nq == 128 and plan.q_kept == kept
+    kchunks = -(-plan.width // K._I8_BK)
+    qarea = (kchunks if kept else plan.stages) * plan.nq * K._I8_BK
+    assert plan.smem == (K._I8_ALIGN + K._I8_BARRIER_BYTES
+                         + plan.stages * K._I8_CCHUNK + qarea) <= K._SMEM_LIMIT
+    assert plan.stages <= K._I8_MAX_STAGES
+    assert plan.stages >= (K._I8_MIN_KEPT_STAGES if kept else 2)
+    # a kept block that one more chunk would push out of shared memory
+    if not kept:
+        assert qarea < kchunks * plan.nq * K._I8_BK
+
+
+@pytest.mark.parametrize("q", [1, 40, 300, 5000])
+@pytest.mark.parametrize("n_tiles,rows", [(1, 1), (3, 3), (32, 16), (7813, 16)])
+def test_int8_plan_splits_within_the_tile_loop(q, n_tiles, rows):
+    plan = K._int8_plan(q, 128, 0, 0, n_tiles, rows, 128, 132)
+    assert 1 <= plan.splits <= -(-n_tiles // rows)
+    ctas = plan.qblocks * rows * plan.splits
+    assert plan.splits == 1 or ctas <= 132
+    assert plan.cluster == (2 if plan.qblocks % 2 == 0 else 1)
+
+
+@pytest.mark.parametrize("d,q_off,c_off,width,copy_q,copy_c", [
+    (1, 0, 0, 16, True, True), (100, 0, 0, 112, True, True),
+    (130, 0, 0, 144, True, True), (1024, 0, 0, 1024, False, False),
+    (1024, 1, 0, 1024, True, False), (1024, 0, 1, 1024, False, True),
+    (128, 8, 8, 128, True, True), (128, 16, 32, 128, False, False)])
+def test_int8_plan_padded_width(d, q_off, c_off, width, copy_q, copy_c):
+    plan = K._int8_plan(40, d, 4096 + q_off, 8192 + c_off, 32, 8, 128, 132)
+    assert (plan.width, plan.copy_q, plan.copy_c) == (width, copy_q, copy_c)
+    assert plan.width % 16 == 0 and plan.width - d < 16
+
+
+def test_int8_padded_copy_keeps_the_bins():
+    """The zero columns of the padded copy add nothing to an s32 sum: the
+    plain version's bins over the copies are the bins of the originals."""
+    rng = np.random.default_rng(4)
+    q_i8 = torch.from_numpy(rng.integers(-127, 128, (5, 100), dtype=np.int8))
+    c_i8 = torch.from_numpy(rng.integers(-127, 128, (256, 100), dtype=np.int8))
+    c_scale = torch.from_numpy(rng.uniform(50, 200, 256).astype(np.float32))
+    valid = torch.from_numpy(rng.random(256) > 0.2)
+    plain = R.streaming_bins_int8(q_i8, c_i8, c_scale, valid, 128, 2, 1)
+    padded = R.streaming_bins_int8(K._zero_padded(q_i8, 112),
+                                   K._zero_padded(c_i8, 112), c_scale, valid,
+                                   128, 2, 1)
+    assert torch.equal(plain, padded)
 
 
 def _physical_k(wide: bool, ks: int, t4: int, i: int) -> int:
