@@ -41,7 +41,23 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    tunes ``n_probe`` against recall@100 >= 0.95; then 32 threads x 8
    queries through ``vector_candidates`` with the tuned plan: recall@100
    against exact float32 ground truth, client p50/p99 and qps beside phase
-   2's full scan, fused dispatches, peak device memory, peak host RSS.
+   2's full scan, fused dispatches, peak device memory, peak host RSS;
+8. embed serving at full width: bge-m3 (``BGE_M3``, 24 layers, hidden 1024,
+   bf16, weights from ``--seed``, ``HashTokenizer``) in a
+   ``DeviceEmbedder`` behind ``ServingEngine`` with the default
+   ``ServingConfig``. 65,536 texts of ``scripts/bench_embed.py``'s
+   graph-node mix from 16 clients, 64 a call, after one untimed pack of
+   each capacity class the mix reaches: embeddings/s, tokens/s, client
+   p50/p99, pack p50, packs, pack efficiency, zero sheds, peak memory.
+   Every embedding finite with norm 1; 256 of them, stratified over the
+   kinds, within cosine 0.99 of the padded per-request path; a probe
+   alone and inside a full pack likewise; the gap to float32 weights
+   logged. Then a ``SearchService`` over the 65,536 embeddings serves 256
+   stored texts embedded again, from 32 clients: recall@100 >= 0.95
+   against an exact float32 scan, each text's own id in its top-100
+   within 0.02 of the best, the bf16 streaming kernel launched (its count
+   on a log line of its own; the ``kernels`` line keeps its five
+   entries), fused dispatches.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -58,7 +74,8 @@ int8 and bf16 streaming, extract and fused cosine kernels' ptxas registers,
 shared memory and spills, and phases 1, 5 and 6 each redesigned kernel's share of
 its bound, its launch plan and its first version's time copied from
 PERF.md (not measured here); phase 1 times the sort epilogue
-(``topk_lowest_index``) over the same bins. Any failed check raises and
+(``topk_lowest_index``) over the same bins; ``--profile`` writes
+``chiprun_out/profile_embed.txt`` for phase 8. Any failed check raises and
 the script exits non-zero without that line. Without CUDA it exits 2.
 Matmul precision is pinned to full float32 (no TF32) for every reference,
 and bf16 GEMMs to float32 reductions.
@@ -108,6 +125,30 @@ GEN_REQUESTS, GEN_CLIENTS = 32, 8
 # place
 GEN_MARGIN_TOL = 0.06
 GEN_PROBES = 4
+# phase 8: scripts/bench_embed.py's graph-node text mix (kind, weight,
+# min_words, max_words) over its 38-word list; each text ends with one
+# unique word. 65,536 texts from 16 closed-loop clients, 64 a call
+EMBED_MIX = (
+    ("title", 0.85, 2, 5),
+    ("description", 0.12, 10, 18),
+    ("paragraph", 0.03, 40, 60),
+)
+EMBED_WORDS = (
+    "graph node edge vector search index memory storage engine query "
+    "batch token device shard corpus embed serve latency throughput "
+    "append commit probe replica quorum trace metric histogram cache "
+    "segment packed ragged schedule deadline admission queue stream"
+).split()
+EMBED_TEXTS, EMBED_CLIENTS, EMBED_CALL = 65_536, 16, 64
+# packed against per-request bf16 embeddings: the JAX package's own bound
+# (tests/test_serving.py, bf16 config)
+EMBED_COS = 0.99
+# 256 stored texts, stratified over the kinds, checked against the padded
+# path; 256 more embedded again as search queries
+EMBED_CHECK, EMBED_QUERIES = 256, 256
+# a query's own text must score within this of its best hit: the same text
+# in two packs differs by bf16 rounding only
+OWN_SCORE_TOL = 0.02
 # fused cosine kernel vs plain version: both float32 (no TF32); the kernel
 # scales the dot product by the row's inverse norm where the plain version
 # scales the row first, and sums in another order
@@ -1177,13 +1218,308 @@ def phase_ivf(svc, corpus, qs_serve, k, phase2: dict):
     assert counts["streaming_topk_bf16"] == 0, ("full-scan fallback", counts)
 
 
+def build_texts(n: int, seed: int) -> tuple[list, np.ndarray]:
+    """scripts/bench_embed.py's corpus with a unique last word a text:
+    (texts, kind index of each)."""
+    rng = np.random.default_rng(seed)
+    weights = np.array([m[1] for m in EMBED_MIX])
+    kinds = rng.choice(len(EMBED_MIX), size=n, p=weights / weights.sum())
+    texts = []
+    for i in range(n):
+        _, _, lo, hi = EMBED_MIX[kinds[i]]
+        words = rng.choice(EMBED_WORDS, size=int(rng.integers(lo, hi + 1)))
+        texts.append(" ".join(words) + f" n{i}")
+    return texts, kinds
+
+
+def drive_embed(eng, texts: list, n_threads: int, per_call: int) -> dict:
+    """n_threads closed-loop clients, each embedding its contiguous share
+    of ``texts`` in calls of ``per_call``, as the EmbedWorker and HTTP
+    /nornicdb/embed call ``embed_batch``."""
+    share = len(texts) // n_threads
+    out: list = [None] * len(texts)
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(t: int) -> None:
+        try:
+            for i in range(t * share, (t + 1) * share, per_call):
+                t0 = time.perf_counter()
+                out[i:i + per_call] = eng.embed_batch(texts[i:i + per_call])
+                with lock:
+                    lat.append(time.perf_counter() - t0)
+        except Exception as e:  # reported and re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads), "client thread hung"
+    return dict(out=out, lat=np.asarray(lat), wall=wall)
+
+
+def profile_embed(eng, texts: list, out_dir: str) -> None:
+    """Device busy share of the engine serving about 32 packs of the timed
+    mix (16 clients x 2 calls of 64 texts), from torch.profiler: the device
+    time of every kernel over the host wall time, device ops a pack, and
+    the GEMM rows' share of device time (every product of the forward is
+    float32: ``dense`` casts to float32 beside a bias, attention scores
+    and P.V in float32). The per-op table goes to
+    ``chiprun_out/profile_embed.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = EMBED_CLIENTS * 2 * EMBED_CALL
+    packs0 = eng.stats.packed_batches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run = drive_embed(eng, texts[:n], EMBED_CLIENTS, EMBED_CALL)
+    packs = eng.stats.packed_batches - packs0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    gemm = [e for e in kernels if "gemm" in e.key.lower()]
+    gemm_us = sum(e.self_device_time_total for e in gemm)
+    launched = sum(e.count for e in kernels)
+    with open(os.path.join(out_dir, "profile_embed.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=30))
+        f.write("\n")
+        f.write(events.table(sort_by="self_cpu_time_total", row_limit=30))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[profile] embed: {n} texts in {packs} packs, wall "
+        f"{run['wall'] * 1e3:.2f}ms ({run['wall'] * 1e3 / max(1, packs):.3f}ms "
+        f"a pack); device {dev_us / 1e3:.2f}ms busy share "
+        f"{dev_us / 1e6 / run['wall']:.4f}; {launched / max(1, packs):.1f} "
+        f"device ops a pack; GEMM rows (float32) {gemm_us / 1e3:.2f}ms, "
+        f"{gemm_us / max(dev_us, 1e-9):.4f} of device time over "
+        f"{sum(e.count for e in gemm)} calls; top device ops: "
+        + "; ".join(f"{e.key[:50]}={e.self_device_time_total / 1e3:.3f}ms"
+                    f"/{e.count}" for e in top))
+
+
+def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> int:
+    """Phase 8: bge-m3 at full width and depth behind ServingEngine
+    (ServingConfig defaults) embeds EMBED_TEXTS texts from EMBED_CLIENTS
+    clients, checked against the padded per-request path; then a
+    SearchService over the embeddings serves EMBED_QUERIES stored texts
+    embedded again. Returns the bf16 streaming kernel's launches in the
+    search step."""
+    import torch
+
+    from nornicdb_tpu_torch._device import map_tree
+    from nornicdb_tpu_torch.config import ServingConfig
+    from nornicdb_tpu_torch.embed import DeviceEmbedder
+    from nornicdb_tpu_torch.models import bge_m3 as B
+    from nornicdb_tpu_torch.models.tokenizer import HashTokenizer
+    from nornicdb_tpu_torch.ops import similarity as S
+    from nornicdb_tpu_torch.search import SearchConfig, SearchService
+    from nornicdb_tpu_torch.serving import ServingEngine
+
+    cfg = B.BGE_M3
+    t0 = time.perf_counter()
+    params = B.init_params(cfg, seed, "cuda")
+    leaves: list = []
+    map_tree(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    sync()
+    log(f"[phase8] BGE_M3 bf16: {n_params} parameters "
+        f"({n_params * 2 / 1e9:.3f} GB) in {time.perf_counter() - t0:.1f}s")
+    tok = HashTokenizer(cfg.vocab_size)
+    emb = DeviceEmbedder(cfg=cfg, params=params, tokenizer=tok, max_len=512,
+                         device="cuda")
+    eng = ServingEngine(emb, ServingConfig())
+    t0 = time.perf_counter()
+    texts, kinds = build_texts(EMBED_TEXTS, seed)
+    log(f"[phase8] {EMBED_TEXTS} texts in {time.perf_counter() - t0:.1f}s: "
+        + ", ".join(f"{m[0]} {int((kinds == i).sum())}"
+                    for i, m in enumerate(EMBED_MIX)))
+
+    # every pack of the engine, timed: wall (the forward ends in a copy to
+    # the host, so a sync) and device span (CUDA events around it)
+    pack_log: list = []
+    packed = emb.embed_packed
+
+    def timed_packed(pack):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        ev0.record()
+        out = packed(pack)
+        ev1.record()
+        ev1.synchronize()
+        pack_log.append((time.perf_counter() - t, ev0.elapsed_time(ev1),
+                         pack.shape_class, pack.n_segments, pack.tokens))
+        return out
+
+    emb.embed_packed = timed_packed
+
+    # -- 8.1 warm each capacity class the mix reaches with one untimed full
+    # pack (cuBLAS initialisation, allocator growth), outside the engine
+    packer = eng._packer
+    t0 = time.perf_counter()
+    warmed = []
+    for cap, kind in ((32, 0), (64, 2)):
+        seqs = [tok.encode(texts[i], max_len=packer.max_len)
+                for i in np.flatnonzero(kinds == kind)[:512]]
+        take, _, _ = packer.plan([len(s) for s in seqs], budget_tokens=8192,
+                                 capacity=cap)
+        warm = packer.pack(seqs[:take], capacity=cap)  # as the engine packs
+        packed(warm)
+        warmed.append((*warm.ids.shape, take))
+    sync()
+    log(f"[phase8] warm packs (R, C, texts) {warmed} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    assert {c for _, c, _ in warmed} == {32, 64}
+
+    # -- 8.2 the timed window
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    run = drive_embed(eng, texts, EMBED_CLIENTS, EMBED_CALL)
+    peak = torch.cuda.max_memory_allocated()
+    snap = eng.stats_snapshot()
+    st = dataclasses.replace(eng.stats)
+    window = list(pack_log)
+    embs = np.stack(run["out"])
+    wall_ms = np.array([w for w, _, _, _, _ in window]) * 1e3
+    span_ms = np.array([d for _, d, _, _, _ in window])
+    classes = sorted({s for _, _, s, _, _ in window})
+    log(f"[phase8] {EMBED_TEXTS} texts from {EMBED_CLIENTS} clients x "
+        f"{EMBED_CALL} a call in {run['wall']:.3f}s: "
+        f"embeddings/s={EMBED_TEXTS / run['wall']:.1f} "
+        f"tokens/s={st.tokens / run['wall']:.1f} ({st.tokens} real tokens) "
+        f"client p50={np.median(run['lat']) * 1e3:.2f}ms "
+        f"p99={np.percentile(run['lat'], 99) * 1e3:.2f}ms; "
+        f"packs={st.packed_batches} texts a pack={st.texts / st.packed_batches:.2f} "
+        f"pack p50 wall={np.median(wall_ms):.3f}ms device span "
+        f"p50={np.median(span_ms):.3f}ms (p99 {np.percentile(wall_ms, 99):.3f} / "
+        f"{np.percentile(span_ms, 99):.3f}ms) device seconds "
+        f"{st.device_seconds:.3f} of {run['wall']:.3f}; "
+        f"pack_efficiency={snap['pack_efficiency']} staging_overlap_ratio="
+        f"{snap['staging_overlap_ratio']} (R, C, S) classes used {classes}; "
+        f"sheds queue_full={st.sheds_queue_full} deadline={st.sheds_deadline}; "
+        f"peak device memory {peak / 2**30:.3f}GiB ({held / 2**30:.3f}GiB held "
+        f"before)")
+    assert st.texts == EMBED_TEXTS and st.packed_batches == len(window)
+    assert st.sheds_queue_full == 0 and st.sheds_deadline == 0, snap
+    assert embs.shape == (EMBED_TEXTS, cfg.dims) and np.isfinite(embs).all()
+    norms = np.linalg.norm(embs, axis=1)
+    assert np.abs(norms - 1.0).max() <= 1e-3, ("norms", norms.min(), norms.max())
+    if profile_dir:
+        profile_embed(eng, texts, profile_dir)
+
+    # -- 8.3 packed against the padded per-request path; a probe alone and
+    # inside a full pack; the float32 gap (logged only)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 8)
+    per = -(-EMBED_CHECK // len(EMBED_MIX))
+    check = np.concatenate([
+        rng.choice(np.flatnonzero(kinds == i), size=per, replace=False)
+        for i in range(len(EMBED_MIX))])[:EMBED_CHECK]
+    ref = np.stack(emb.embed_batch([texts[i] for i in check]))
+    cos = (embs[check] * ref).sum(-1)
+    by_kind = {m[0]: float(cos[kinds[check] == i].min())
+               for i, m in enumerate(EMBED_MIX)}
+    probe = tok.encode(texts[int(check[0])], max_len=packer.max_len)
+    alone = packed(packer.pack([probe]))[0]
+    titles = [tok.encode(texts[i], max_len=packer.max_len)
+              for i in np.flatnonzero(kinds == 0)[1000:1512]]
+    take, _, _ = packer.plan([len(probe)] + [len(s) for s in titles],
+                             budget_tokens=8192, capacity=32)
+    full = packer.pack([probe] + titles[:take - 1], capacity=32)
+    inside = packed(full)[full.order.index(0)]
+    probe_cos = float(np.dot(alone, inside))
+    params32 = map_tree(lambda t: t.float(), params)
+    emb32 = DeviceEmbedder(cfg=dataclasses.replace(cfg, dtype="float32"),
+                           params=params32, tokenizer=tok, max_len=512,
+                           device="cuda")
+    ref32 = np.stack(emb32.embed_batch([texts[i] for i in check]))
+    cos32 = (embs[check] * ref32).sum(-1)
+    del emb32, params32
+    torch.cuda.empty_cache()
+    log(f"[phase8] packed vs per-request over {len(check)} texts: min cos "
+        f"{cos.min():.6f} mean {cos.mean():.6f} (at least {EMBED_COS}) by kind "
+        f"{json.dumps(by_kind)}; probe alone vs inside a {full.ids.shape} pack "
+        f"of {full.n_segments} texts: cos {probe_cos:.6f}; float32 weights "
+        f"(logged only): min cos {cos32.min():.6f} mean {cos32.mean():.6f}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    assert cos.min() >= EMBED_COS, ("packed vs per-request", cos.min())
+    assert full.n_segments > 1 and probe_cos >= EMBED_COS, (
+        "segment leak", probe_cos)
+
+    # -- 8.4 search what was embedded: the same engine embeds stored texts
+    # again as queries; the service scans with the bf16 streaming kernel
+    t0 = time.perf_counter()
+    svc = SearchService(config=SearchConfig(batching_enabled=True),
+                        device="cuda")
+    svc.index_vectors([f"t{i}" for i in range(EMBED_TEXTS)], embs)
+    corpus = svc.corpus()
+    plan = S._streaming_plan(corpus.capacity, k)
+    assert corpus.capacity >= S.STREAMING_MIN_ROWS and plan is not None, (
+        "no streaming plan", corpus.capacity, plan)
+    q_rows = rng.choice(EMBED_TEXTS, size=EMBED_QUERIES, replace=False)
+    queries = np.stack(eng.embed_batch([texts[i] for i in q_rows]))
+    log(f"[phase8] index + {EMBED_QUERIES} query embeddings "
+        f"{time.perf_counter() - t0:.1f}s, capacity {corpus.capacity}, "
+        f"streaming plan (tile_n, rows) {plan}")
+    K.reset_launch_counts()
+    d0 = corpus.sync_stats.device_dispatches
+    srun = drive_service(svc, queries, k, lambda: None)
+    launches = K.launch_counts()["streaming_topk_bf16"]
+    dispatches = corpus.sync_stats.device_dispatches - d0
+    with corpus._borrow_device() as (dev, valid, _, slot_ids, _):
+        gt = ground_truth(queries, dev, valid, k)
+        gt_ids = [{slot_ids[s] for s in g} for g in gt]
+    del dev, valid
+    rec = recall(srun["results"], gt_ids)
+    own_rank, own_gap = [], []
+    for res, row in zip(srun["results"], q_rows):
+        ids = [i for i, _ in res]
+        own = f"t{row}"
+        own_rank.append(ids.index(own) if own in ids else -1)
+        own_gap.append(res[0][1] - res[ids.index(own)][1] if own in ids
+                       else float("inf"))
+    own_rank, own_gap = np.array(own_rank), np.array(own_gap)
+    sample = embs[rng.choice(EMBED_TEXTS, size=1024, replace=False)]
+    pair = sample @ sample.T
+    mean_pair = float((pair.sum() - np.trace(pair)) / (1024 * 1023))
+    log(f"[phase8] search: {EMBED_QUERIES} queries from 32 clients in "
+        f"{srun['wall']:.3f}s qps={EMBED_QUERIES / srun['wall']:.1f} client "
+        f"p50={np.median(srun['lat']) * 1e3:.2f}ms "
+        f"p99={np.percentile(srun['lat'], 99) * 1e3:.2f}ms dispatches="
+        f"{dispatches} recall@{k}={rec:.4f}; own text in its top-{k}: "
+        f"{int((own_rank >= 0).sum())}/{EMBED_QUERIES}, rank 1 "
+        f"{float((own_rank == 0).mean()):.4f}, largest gap to the best "
+        f"{own_gap.max():.5f} (at most {OWN_SCORE_TOL}); mean pairwise cosine "
+        f"of 1024 stored embeddings {mean_pair:.4f} (random weights)")
+    log(f"[phase8] streaming_topk_bf16 launches in the search step: {launches}")
+    assert rec >= 0.95, ("embedded corpus recall", rec)
+    assert (own_rank >= 0).all() and own_gap.max() <= OWN_SCORE_TOL, (
+        "own text", own_rank.min(), own_gap.max())
+    assert launches > 0, "the search missed the bf16 streaming kernel"
+    assert dispatches < EMBED_QUERIES, ("no fusion", dispatches)
+    eng.stop()
+    svc.close()
+    del eng, emb, params, svc, corpus, embs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 2, trace 16 batches of 16 queries, and "
-                    "after phase 5 eight generation requests, with "
-                    "torch.profiler (device busy share, per-op tables)")
+                    help="after phase 2, trace 16 batches of 16 queries, "
+                    "after phase 5 eight generation requests, and in phase 8 "
+                    "about 32 embed packs, with torch.profiler (device busy "
+                    "share, per-op tables)")
     args = ap.parse_args()
 
     import torch
@@ -1419,6 +1755,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase7] {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 8: embed serving at full width, then search over it
+    t0 = time.perf_counter()
+    phase_embed(K, args.seed, k, out_dir if args.profile else "")
+    log(f"[phase8] {time.perf_counter() - t0:.1f}s")
 
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],

@@ -1,7 +1,8 @@
-"""NornicDB's vector-search tier and paged-KV generation serving in PyTorch,
-with hand-written CUDA kernels for the NVIDIA H100 (sm_90a): ``search``
-(``SearchService``) and ``genserve`` (``GenerationEngine`` over the Qwen2
-decoder of ``models``).
+"""NornicDB's vector-search tier, embed serving and paged-KV generation
+serving in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
+(sm_90a): ``search`` (``SearchService``), ``serving`` (``ServingEngine``
+over ``embed.DeviceEmbedder``, the bge-m3 encoder of ``models``) and
+``genserve`` (``GenerationEngine`` over the Qwen2 decoder of ``models``).
 
 A port of ``nornicdb_tpu`` (JAX on a TPU), kept beside it: the module names
 mirror the JAX package's so each module's counterpart is easy to find, and

@@ -1,12 +1,78 @@
-"""Configuration of the port's generation engine: a copy of
-``GenServeConfig`` (``nornicdb_tpu/config.py``), same fields and defaults,
-kept here so the port imports nothing of the JAX package."""
+"""Configuration of the port's serving engines: copies of ``ServingConfig``
+(embedding) and ``GenServeConfig`` (generation) of
+``nornicdb_tpu/config.py``, same fields and defaults, kept here so the port
+imports nothing of the JAX package."""
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, fields
-from typing import Mapping, Optional
+from typing import Mapping, Optional, TypeVar
+
+_C = TypeVar("_C")
+
+
+def _from_env(cls: type[_C], prefix: str,
+              environ: Optional[Mapping[str, str]]) -> _C:
+    """``cls()`` overridden by ``<prefix><FIELD>`` variables, coerced by
+    each field's default type as the JAX package does."""
+    env = os.environ if environ is None else environ
+    cfg = cls()
+    for f in fields(cls):
+        raw = env.get(f"{prefix}{f.name.upper()}")
+        if raw is None:
+            continue
+        current = getattr(cfg, f.name)
+        if isinstance(current, bool):
+            value = raw.lower() in ("1", "true", "yes", "always", "sync")
+        else:
+            value = type(current)(raw)
+        setattr(cfg, f.name, value)
+    return cfg
+
+
+@dataclass
+class ServingConfig:
+    """Continuous batching engine knobs of the embed path
+    (``nornicdb_tpu_torch.serving.ServingEngine``). Env form:
+    ``NORNICDB_SERVING_<FIELD>`` (:meth:`from_env`).
+
+    ``enabled``, ``embedder`` and the ``student_*`` fields are read by
+    nothing in the port yet: their readers (the server's embedder
+    selection and the distilled-student gate) are still to port. Setting
+    them changes nothing."""
+
+    # master switch for the continuous batching engine
+    enabled: bool = True
+    # production embedder selection: "full" = the configured encoder as
+    # is; "student" = the distilled checkpoint at student_model_dir,
+    # admitted only when its eval MRR clears student_min_mrr
+    embedder: str = "full"
+    student_model_dir: str = ""
+    student_min_mrr: float = 0.6
+    student_eval_suite: str = ""  # JSON suite path; "" = builtin suite
+    # admission control: queued texts/tokens beyond these shed new
+    # requests with ResourceExhausted (an empty queue always admits)
+    max_queue: int = 4096
+    max_queue_tokens: int = 262144
+    # per-request deadline; expired work is shed pre-dispatch and waiting
+    # callers give up at deadline + grace. 0 disables (not recommended
+    # for serving: the deadline is the no-indefinite-block guarantee)
+    deadline_ms: float = 2000.0
+    # batch window under low queue depth (a deep queue dispatches
+    # immediately at max_batch_tokens)
+    batch_wait_ms: float = 2.0
+    # ragged scheduler: token budget per packed dispatch + row-grid bound
+    max_batch_tokens: int = 8192
+    max_rows: int = 16
+    # host staging pipeline depth (double buffering; >=1)
+    staging_depth: int = 2
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None
+                 ) -> "ServingConfig":
+        """Defaults overridden by ``NORNICDB_SERVING_<FIELD>`` variables."""
+        return _from_env(cls, "NORNICDB_SERVING_", environ)
 
 
 @dataclass
@@ -51,18 +117,5 @@ class GenServeConfig:
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None
                  ) -> "GenServeConfig":
-        """Defaults overridden by ``NORNICDB_GENSERVE_<FIELD>`` variables,
-        coerced by each field's default type as the JAX package does."""
-        env = os.environ if environ is None else environ
-        cfg = cls()
-        for f in fields(cls):
-            raw = env.get(f"NORNICDB_GENSERVE_{f.name.upper()}")
-            if raw is None:
-                continue
-            current = getattr(cfg, f.name)
-            if isinstance(current, bool):
-                value = raw.lower() in ("1", "true", "yes", "always", "sync")
-            else:
-                value = type(current)(raw)
-            setattr(cfg, f.name, value)
-        return cfg
+        """Defaults overridden by ``NORNICDB_GENSERVE_<FIELD>`` variables."""
+        return _from_env(cls, "NORNICDB_GENSERVE_", environ)

@@ -1,5 +1,5 @@
-"""Carry state from the JAX package into the port: corpus state (search) and
-Qwen2 parameters (generation).
+"""Carry state from the JAX package into the port: corpus state (search),
+Qwen2 parameters (generation) and bge-m3 parameters (embedding).
 
 For the search tier the state takes the place of a model's weights: the rows,
 their validity and the id -> slot layout. Indices must mean the same thing
@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nornicdb_tpu_torch._device import DeviceLike, resolve_device
+from nornicdb_tpu_torch._device import DeviceLike, map_tree, resolve_device
 from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
 
 
@@ -56,18 +56,21 @@ def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def qwen2_params_from_jax(params, device: DeviceLike = None) -> dict:
-    """The port's Qwen2 parameters from the JAX parameter pytree given as
-    numpy arrays (``jax.tree.map(np.asarray, params)``): the same nested
+def _params_from_jax(params, device: DeviceLike) -> dict:
+    """The JAX parameter pytree given as numpy arrays
+    (``jax.tree.map(np.asarray, params)``) as the port's: the same nested
     dict/list layout, each leaf a tensor of the same dtype and bits (dense
     weights stay ``(in, out)``) on ``device``."""
     dev = resolve_device(device)
+    return map_tree(lambda a: _leaf_to_torch(a, dev), params)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [walk(v) for v in node]
-        return _leaf_to_torch(node, dev)
 
-    return walk(params)
+def qwen2_params_from_jax(params, device: DeviceLike = None) -> dict:
+    """The port's Qwen2 parameters from the JAX ones (``_params_from_jax``)."""
+    return _params_from_jax(params, device)
+
+
+def bge_params_from_jax(params, device: DeviceLike = None) -> dict:
+    """The port's bge-m3 parameters from the JAX ones
+    (``_params_from_jax``)."""
+    return _params_from_jax(params, device)

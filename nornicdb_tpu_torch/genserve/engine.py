@@ -48,7 +48,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from nornicdb_tpu_torch._device import DeviceLike, resolve_device
+from nornicdb_tpu_torch._device import DeviceLike, resolve_device, tree_to
 from nornicdb_tpu_torch.errors import ClosedError, ResourceExhausted
 from nornicdb_tpu_torch.models import qwen2
 
@@ -280,7 +280,7 @@ class GenerationEngine:
                              "only 'paged' is")
         self.device = resolve_device(device)
         self.params = qwen2.with_f32_logit_weights(
-            _to_device(params, self.device))
+            tree_to(params, self.device))
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.config = config
@@ -903,13 +903,3 @@ class GenerationEngine:
         # copy first: the scheduler thread adds to the ledger concurrently
         out["programs"] = sorted(str(p) for p in self.programs.copy())
         return out
-
-
-def _to_device(tree, device: torch.device):
-    """The parameter tree with every tensor on ``device`` (no copy for one
-    already there)."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree.to(device)

@@ -26,6 +26,18 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """Mean/variance normalization over the last axis in float32, the
+    float32 ``scale`` and ``bias`` applied in float32, one rounding to
+    ``x.dtype``."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
 def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -14,8 +14,12 @@ import torch
 
 import nornicdb_tpu_torch
 from nornicdb_tpu_torch import DeviceUnavailable, resolve_device
+from nornicdb_tpu_torch.config import ServingConfig
+from nornicdb_tpu_torch.embed import DeviceEmbedder
+from nornicdb_tpu_torch.models import BGE_SMALL
 from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
 from nornicdb_tpu_torch.search import SearchService
+from nornicdb_tpu_torch.serving import ServingEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,8 +73,14 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.models.layers",
                      "nornicdb_tpu_torch.models.qwen2",
                      "nornicdb_tpu_torch.models.tokenizer",
+                     "nornicdb_tpu_torch.models.bge_m3",
                      "nornicdb_tpu_torch.genserve",
-                     "nornicdb_tpu_torch.genserve.engine"):
+                     "nornicdb_tpu_torch.genserve.engine",
+                     "nornicdb_tpu_torch.embed",
+                     "nornicdb_tpu_torch.embed.base",
+                     "nornicdb_tpu_torch.serving",
+                     "nornicdb_tpu_torch.serving.engine",
+                     "nornicdb_tpu_torch.serving.ragged"):
             assert name in imported
 
 
@@ -85,6 +95,19 @@ class TestDevicePolicy:
             SearchService(dims=8)
         with pytest.raises(DeviceUnavailable):
             resolve_device(None)
+
+    def test_embedder_and_serving_engine_default_to_cuda(self):
+        if torch.cuda.is_available():
+            emb = DeviceEmbedder(cfg=BGE_SMALL)
+            assert emb.device.type == "cuda"
+            assert emb.params["tok_emb"].device.type == "cuda"
+            return
+        with pytest.raises(DeviceUnavailable, match="device='cpu'"):
+            DeviceEmbedder(cfg=BGE_SMALL)
+        with pytest.raises(DeviceUnavailable):
+            ServingEngine(DeviceEmbedder(cfg=BGE_SMALL), ServingConfig())
+        emb = DeviceEmbedder(cfg=BGE_SMALL, device="cpu")
+        assert emb.params["tok_emb"].device.type == "cpu"
 
     def test_cpu_only_when_named(self):
         assert resolve_device("cpu") == torch.device("cpu")

@@ -649,3 +649,63 @@ def test_clustered_corpus_on_the_card(card):
     assert corpus._ivf.blocks.is_cuda
     res = corpus.search(rows[:16], k=5, n_probe=3)
     assert [r[0][0] for r in res] == [f"n{i}" for i in range(16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bge_forward_packed_on_the_card_gives_the_cpu_result(card, dtype):
+    """The embed slice's packed forward (plain torch ops) on the card
+    against the same function on the CPU at BGE_SMALL: float32 within
+    1e-5, bf16 within 2**-5 absolute and cosine >= 0.999 (the bound of
+    tests/test_torch_bge_m3.py)."""
+    import dataclasses
+
+    from nornicdb_tpu_torch._device import tree_to
+    from nornicdb_tpu_torch.models import bge_m3 as TB
+    from nornicdb_tpu_torch.serving import RaggedPacker
+
+    cfg = dataclasses.replace(TB.BGE_SMALL, dtype=dtype)
+    params = TB.init_params(cfg, 0, "cpu")
+    on_card = tree_to(params, card)
+    rng = np.random.default_rng(0)
+    seqs = [[0] + rng.integers(4, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(1, 60, 24)]
+    p = RaggedPacker(pad_id=1, pad_token_id=1, max_len=128).pack(seqs)
+    args = [torch.from_numpy(a) for a in
+            (p.ids, p.seg, p.positions, p.cls_rows, p.cls_cols)]
+    want = TB.forward_packed(params, cfg, *args)[:p.n_segments]
+    got = TB.forward_packed(on_card, cfg, *[a.to(card) for a in args])
+    got = got[:p.n_segments].cpu()
+    assert torch.isfinite(got).all()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert float((got - want).abs().max()) <= 2.0 ** -5
+        assert float((got * want).sum(-1).min()) >= 0.999
+
+
+def test_serving_engine_round_trip_on_the_card(card):
+    """One ServingEngine round trip over a DeviceEmbedder on the card:
+    packed embeddings agree with the padded per-request path (float32
+    cosine > 1 - 1e-5) and the engine packed them."""
+    import dataclasses
+
+    from nornicdb_tpu_torch.config import ServingConfig
+    from nornicdb_tpu_torch.embed import DeviceEmbedder
+    from nornicdb_tpu_torch.models import bge_m3 as TB
+    from nornicdb_tpu_torch.serving import ServingEngine
+
+    emb = DeviceEmbedder(cfg=dataclasses.replace(TB.BGE_SMALL,
+                                                 dtype="float32"))
+    assert emb.device.type == "cuda"
+    eng = ServingEngine(emb, ServingConfig())
+    texts = ["x", "short one", " ".join(f"w{i}" for i in range(60)),
+             "a slightly longer sentence with a dozen words in it"]
+    try:
+        out = eng.embed_batch(texts)
+    finally:
+        eng.stop()
+    ref = emb.embed_batch(texts)
+    for a, b in zip(out, ref):
+        assert a.shape == (TB.BGE_SMALL.dims,) and np.isfinite(a).all()
+        assert float(np.dot(a, b)) > 1.0 - 1e-5
+    assert eng.stats.packed_batches >= 1 and emb.stats["packed_dispatches"] >= 1
