@@ -29,7 +29,16 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    client threads: every request completes, the prefix cache hits, the
    kernel ran 24 x (steps + chunk steps) times, and every greedy token is
    the dense plain reference's (``prefill`` + ``decode_step``) or within
-   GEN_MARGIN_TOL of it in the reference's logits;
+   GEN_MARGIN_TOL of it in the reference's logits. 5d: the engine's
+   ``mode="dense"`` (a dense KV cache a sequence, torch ops, each
+   sequence's decode step replayed from a captured CUDA graph) on 8 of the
+   requests from 8 clients: no ragged launch, every token passing the
+   dense reference at the cache width the engine chose, tok/s, ttft,
+   per-token p50 and the longest request logged beside the paged run's. 5e: Heimdall's synchronous
+   ``QwenGenerator`` over the same weights on 4 text prompts: ``generate``
+   equal to ``qwen2.generate``'s tokens, which pass the dense reference,
+   ``generate_stream``'s deltas joining to the same text, sampling at
+   T = 0.8 repeating for a seed and changing for another;
 6. the fused cosine kernel through ``ops.fused_cosine_topk`` at Q = 1024
    and Q = 16 on the 1,000,064 x 1024 float32 corpus buffer (tile_n 128,
    k = 100): held against its plain version (max |d| <= COSINE_TOL, top-100
@@ -57,7 +66,22 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    against an exact float32 scan, each text's own id in its top-100
    within 0.02 of the best, the bf16 streaming kernel launched (its count
    on a log line of its own; the ``kernels`` line keeps its five
-   entries), fused dispatches.
+   entries), fused dispatches. The embed engine and the search service
+   stay up for phase 9.
+
+9. a checkpoint and GraphRAG answers: a ``QWEN25_05B`` checkpoint directory
+   (weights from ``--seed``, a ``VocabTokenizer`` over phase 8's texts and
+   the prompt header) written to a temporary directory and mounted with
+   ``load_generator``, every tensor bit for bit; an ``EngineGenerator``
+   over a ``GenerationEngine`` on it (sequences of 1,024 tokens); then
+   ``GraphRAGService`` answers 32 stored phase-8 texts from 8 clients over
+   a stand-in db: ``recall`` embeds the question with phase 8's engine and
+   serves it through ``SearchService.vector_candidates`` (#2), the vector
+   leg of ``DB.recall`` only, and the storage holds 2-4 seeded edges a
+   node. Every answer is paged, retrieves its own node and generates 1-64
+   tokens; answers after the first wave reuse the cached header pages; #2
+   and #5 both launch (their counts on a log line of their own); 4
+   answers' tokens pass the dense reference.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -125,6 +149,12 @@ GEN_REQUESTS, GEN_CLIENTS = 32, 8
 # place
 GEN_MARGIN_TOL = 0.06
 GEN_PROBES = 4
+# phase 5d: the engine's dense mode serves the first 8 of phase 5's requests
+# from 8 clients; phase 5e: QwenGenerator on 4 text prompts (words of
+# EMBED_WORDS) of these lengths, SYNC_NEW tokens each, sampling at
+# SYNC_TEMPERATURE
+DENSE_REQUESTS = 8
+SYNC_PROMPT_WORDS, SYNC_NEW, SYNC_TEMPERATURE = (8, 24, 40, 64), 32, 0.8
 # phase 8: scripts/bench_embed.py's graph-node text mix (kind, weight,
 # min_words, max_words) over its 38-word list; each text ends with one
 # unique word. 65,536 texts from 16 closed-loop clients, 64 a call
@@ -149,6 +179,19 @@ EMBED_CHECK, EMBED_QUERIES = 256, 256
 # a query's own text must score within this of its best hit: the same text
 # in two packs differs by bf16 rounding only
 OWN_SCORE_TOL = 0.02
+# phase 9: GraphRAG answers to 32 stored phase-8 texts from 8 clients over a
+# checkpoint written and loaded by the run; each node has 2-4 outgoing
+# edges. GraphRAG budgets its prompt in whitespace words (max_seq_tokens -
+# 72) and the tokenizer splits punctuation, so a packed prompt (the 92-word
+# header in 109 tokens, 5 hits of up to 200 characters, up to 8 edges a hit
+# at 7 tokens each) outgrows its budget: ~250-300 tokens where the default
+# sequence holds 256, up to ~660 in all. The engine keeps a prompt's tail,
+# so the shared header would be cut away. Sequences of 1,024 tokens hold
+# every such prompt whole; the pool holds 8 of them
+RAG_QUESTIONS, RAG_CLIENTS = 32, 8
+RAG_EDGES = (2, 4)
+RAG_SEQ_TOKENS = 1024
+RAG_CHECKED = 4  # answers whose tokens are held against the dense path
 # fused cosine kernel vs plain version: both float32 (no TF32); the kernel
 # scales the dot product by the row's inverse norm where the plain version
 # scales the row first, and sums in another order
@@ -814,10 +857,11 @@ def phase_attention(K, R, captured, logit_diffs, reps):
 def drive_engine(eng, requests: list, n_threads: int) -> dict:
     """n_threads closed-loop clients, request i on thread i % n_threads:
     submit, stream every token (time to first token, gaps between
-    tokens), next request."""
+    tokens, the whole request), next request."""
     n = len(requests)
     outs: list = [None] * n
     ttft = np.zeros(n)
+    lat = np.zeros(n)
     gaps: list = []
     errors: list = []
     lock = threading.Lock()
@@ -837,6 +881,7 @@ def drive_engine(eng, requests: list, n_threads: int) -> dict:
                         mine.append(now - last)
                     last = now
                 outs[i] = h.result()
+                lat[i] = time.perf_counter() - t0
                 with lock:
                     gaps.extend(mine)
         except Exception as e:  # reported and re-raised on the main thread
@@ -853,7 +898,8 @@ def drive_engine(eng, requests: list, n_threads: int) -> dict:
     if errors:
         raise errors[0]
     assert not any(th.is_alive() for th in threads), "client thread hung"
-    return dict(outs=outs, ttft=ttft, gaps=np.asarray(gaps), wall=wall)
+    return dict(outs=outs, ttft=ttft, gaps=np.asarray(gaps), lat=lat,
+                wall=wall)
 
 
 def dense_agreement(Q, params, cfg, prompt, gen, max_new, eos, max_len):
@@ -975,11 +1021,12 @@ def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict
         profile_generation(eng, requests[:GEN_CLIENTS], profile_dir)
     eng.stop()
     tokens = sum(len(o) for o in run["outs"])
+    paged = serve_summary(run)
     log(f"[phase5] {GEN_REQUESTS} requests from {GEN_CLIENTS} clients: "
-        f"{tokens} tokens in {run['wall']:.3f}s tok/s={tokens / run['wall']:.1f} "
-        f"ttft p50={np.median(run['ttft']) * 1e3:.2f}ms "
+        f"{tokens} tokens in {run['wall']:.3f}s tok/s={paged['tok_s']:.1f} "
+        f"ttft p50={paged['ttft_p50']:.2f}ms "
         f"p99={np.percentile(run['ttft'], 99) * 1e3:.2f}ms "
-        f"per-token p50={np.median(run['gaps']) * 1e3:.2f}ms "
+        f"per-token p50={paged['gap_p50']:.2f}ms "
         f"fused steps={st.fused_steps} chunk steps={st.prefill_chunks} "
         f"mean decode lanes={st.decode_lane_tokens / max(1, st.decode_steps):.2f} "
         f"prefix hits={st.prefix_hits} reused tokens={st.prefix_reused_tokens} "
@@ -1007,10 +1054,134 @@ def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict
         f"equal to its argmax, {full}/{GEN_REQUESTS} requests equal in full, "
         f"largest shortfall of a chosen token {worst:.4g} (at most "
         f"{GEN_MARGIN_TOL}) in {time.perf_counter() - t0:.1f}s")
-    del eng, params
+    del eng
+
+    t0 = time.perf_counter()
+    phase_dense_mode(K, Q, params, cfg, gcfg, tok, requests, paged)
+    log(f"[phase5d] {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_sync_generation(Q, params, cfg, tok, seed)
+    log(f"[phase5e] {time.perf_counter() - t0:.1f}s")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return entries, {"ragged_paged_attention": launches}
+
+
+def serve_summary(run: dict) -> dict:
+    """tok/s over the run, ttft p50 and per-token p50 (ms) of a
+    ``drive_engine`` run."""
+    tokens = sum(len(o) for o in run["outs"])
+    return {"tok_s": tokens / run["wall"],
+            "ttft_p50": float(np.median(run["ttft"])) * 1e3,
+            "gap_p50": float(np.median(run["gaps"])) * 1e3}
+
+
+def phase_dense_mode(K, Q, params, cfg, gcfg, tok, requests, paged) -> None:
+    """Phase 5d: the engine in ``mode="dense"`` (a dense cache a sequence,
+    torch ops) serves the first DENSE_REQUESTS of phase 5's requests from
+    GEN_CLIENTS clients. No ragged kernel launches; every token passes
+    ``dense_agreement`` at the width the engine gave its cache. Its
+    tok/s, ttft and per-token p50 are logged beside phase 5's paged run
+    (32 requests), to read, not to compare as a claim."""
+    import torch
+
+    from nornicdb_tpu_torch.genserve import GenerationEngine
+
+    dcfg = dataclasses.replace(gcfg, mode="dense")
+    eng = GenerationEngine(params, cfg, tokenizer=tok, config=dcfg)
+    eng.warmup()  # one tiny request
+    sub = requests[:DENSE_REQUESTS]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    st0 = dataclasses.replace(eng.stats)
+    run = drive_engine(eng, sub, GEN_CLIENTS)
+    launches = K.launch_counts()["ragged_paged_attention"]
+    st = dataclasses.replace(eng.stats)
+    programs = sorted(eng.programs)
+    peak = torch.cuda.max_memory_allocated()
+    eng.stop()
+    dense = serve_summary(run)
+    tokens = sum(len(o) for o in run["outs"])
+    log(f"[phase5d] dense mode, {len(sub)} requests from {GEN_CLIENTS} "
+        f"clients: {tokens} tokens in {run['wall']:.3f}s "
+        f"tok/s={dense['tok_s']:.1f} ttft p50={dense['ttft_p50']:.2f}ms "
+        f"per-token p50={dense['gap_p50']:.2f}ms (phase 5 paged, 32 "
+        f"requests: tok/s={paged['tok_s']:.1f} ttft p50="
+        f"{paged['ttft_p50']:.2f}ms per-token p50={paged['gap_p50']:.2f}ms); "
+        f"prefills={st.prefill_chunks - st0.prefill_chunks} decode steps="
+        f"{st.decode_steps - st0.decode_steps} "
+        f"ragged launches={launches} longest request "
+        f"{run['lat'].max():.3f}s (deadline {dcfg.deadline_ms / 1e3:g}s) "
+        f"cache widths "
+        f"{sorted({p[-1] for p in programs})} max_memory_allocated="
+        f"{peak / 2**30:.3f}GiB")
+    assert st.completed - st0.completed == len(sub) and all(run["outs"]), (
+        st.as_dict())
+    assert launches == 0 and st.fused_steps == 0, ("dense mode ran the "
+                                                   "ragged kernel", launches)
+    equal = 0
+    for (prompt, max_new), gen in zip(sub, run["outs"]):
+        width = Q.round_up_pow2(min(len(prompt) + max_new,
+                                    dcfg.max_seq_tokens))
+        same, _ = dense_agreement(Q, params, cfg, prompt, gen, max_new,
+                                  tok.eos_id, width)
+        equal += same
+    log(f"[phase5d] dense reference: all {tokens} tokens checked, {equal} "
+        "equal to its argmax")
+
+
+def phase_sync_generation(Q, params, cfg, tok, seed: int) -> None:
+    """Phase 5e: Heimdall's synchronous ``QwenGenerator`` over phase 5's
+    parameters on 4 text prompts. ``generate``'s text is ``qwen2.generate``'s
+    tokens, which pass ``dense_agreement``; ``generate_stream``'s deltas
+    join to that text; sampling at SYNC_TEMPERATURE repeats for one seed
+    and moves for another; every id is below the vocabulary size."""
+    from nornicdb_tpu_torch.heimdall import QwenGenerator
+    from nornicdb_tpu_torch.heimdall.manager import _trim_prompt_ids
+
+    gen = QwenGenerator(cfg=cfg, params=params, tokenizer=tok)
+    rng = np.random.default_rng(seed + 5)
+    prompts = [" ".join(rng.choice(EMBED_WORDS, size=n))
+               for n in SYNC_PROMPT_WORDS]
+    eos = tok.eos_id
+    t_gen, t_stream, sampled, equal, n_tokens = [], [], {}, 0, 0
+    for text in prompts:
+        ids = _trim_prompt_ids(tok, text, gen.max_context)
+        t0 = time.perf_counter()
+        out = gen.generate(text, SYNC_NEW)
+        t_gen.append(time.perf_counter() - t0)
+        toks = Q.generate(gen.params, cfg, ids, SYNC_NEW, eos_id=eos)
+        assert tok.decode(toks) == out, ("generate's text", text)
+        # generate cuts the eos off; the reference check wants it back
+        full = toks + ([eos] if len(toks) < SYNC_NEW else [])
+        same, _ = dense_agreement(Q, gen.params, cfg, ids, full, SYNC_NEW,
+                                  eos, len(ids) + SYNC_NEW)
+        equal += same
+        n_tokens += len(full)
+        t0 = time.perf_counter()
+        stream = list(gen.generate_stream(text, SYNC_NEW))
+        t_stream.append(time.perf_counter() - t0)
+        assert "".join(stream) == out, ("stream deltas", text)
+        for s in (seed + 1, seed + 1, seed + 2):
+            sampled.setdefault(s, []).append(Q.generate(
+                gen.params, cfg, ids, SYNC_NEW, temperature=SYNC_TEMPERATURE,
+                eos_id=eos, seed=s))
+    one, again = sampled[seed + 1][0::2], sampled[seed + 1][1::2]
+    other = sampled[seed + 2]
+    changed = sum(a != b for a, b in zip(one, other))
+    ids_ok = all(0 <= t < cfg.vocab_size for r in one + other for t in r)
+    log(f"[phase5e] QwenGenerator, {len(prompts)} prompts of "
+        f"{list(SYNC_PROMPT_WORDS)} words x {SYNC_NEW} tokens: generate "
+        f"p50={np.median(t_gen) * 1e3:.1f}ms stream p50="
+        f"{np.median(t_stream) * 1e3:.1f}ms ({SYNC_NEW / np.median(t_gen):.1f} "
+        f"tok/s a request); dense reference: {n_tokens} tokens checked, "
+        f"{equal} equal to its argmax; T={SYNC_TEMPERATURE}: seed {seed + 1} "
+        f"twice identical {one == again}, seed {seed + 2} changed {changed}/"
+        f"{len(prompts)} outputs")
+    assert one == again, "sampling is not deterministic for one seed"
+    assert changed >= 1, "another seed changed no output"
+    assert ids_ok, "a sampled id is outside the vocabulary"
 
 
 def phase_fused_cosine(K, R, dev, valid, qs_all, k, reps):
@@ -1304,13 +1475,13 @@ def profile_embed(eng, texts: list, out_dir: str) -> None:
                     f"/{e.count}" for e in top))
 
 
-def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> int:
+def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
     """Phase 8: bge-m3 at full width and depth behind ServingEngine
     (ServingConfig defaults) embeds EMBED_TEXTS texts from EMBED_CLIENTS
     clients, checked against the padded per-request path; then a
     SearchService over the embeddings serves EMBED_QUERIES stored texts
-    embedded again. Returns the bf16 streaming kernel's launches in the
-    search step."""
+    embedded again. Returns what phase 9 serves from: the texts, the
+    embed engine and the search service, both still running."""
     import torch
 
     from nornicdb_tpu_torch._device import map_tree
@@ -1504,12 +1675,269 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> int:
         "own text", own_rank.min(), own_gap.max())
     assert launches > 0, "the search missed the bf16 streaming kernel"
     assert dispatches < EMBED_QUERIES, ("no fusion", dispatches)
-    eng.stop()
-    svc.close()
-    del eng, emb, params, svc, corpus, embs
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    return {"texts": texts, "engine": eng, "service": svc}
+
+
+class _RagNode:
+    def __init__(self, content: str):
+        self.properties = {"content": content}
+
+
+class _RagEdge:
+    __slots__ = ("id", "start_node", "end_node", "type")
+
+    def __init__(self, k: int, start: int, end: int):
+        self.id, self.start_node, self.end_node, self.type = (
+            f"e{k}", f"t{start}", f"t{end}", "RELATED_TO")
+
+
+class _RagStorage:
+    """The graph of phase 9: node ``t<i>`` has RAG_EDGES[0]..RAG_EDGES[1]
+    outgoing edges to seeded random nodes, held as CSR arrays (edge k runs
+    src[k] -> dst[k]; edges made on demand)."""
+
+    def __init__(self, n: int, rng):
+        deg = rng.integers(RAG_EDGES[0], RAG_EDGES[1] + 1, n)
+        self.src = np.repeat(np.arange(n), deg)
+        self.dst = rng.integers(0, n, self.src.size)
+        self.out_ptr = np.concatenate([[0], np.cumsum(deg)])
+        self.in_order = np.argsort(self.dst, kind="stable")
+        self.in_ptr = np.searchsorted(self.dst[self.in_order],
+                                      np.arange(n + 1))
+
+    def get_outgoing_edges(self, nid: str) -> list:
+        i = int(nid[1:])
+        return [_RagEdge(k, i, int(self.dst[k]))
+                for k in range(self.out_ptr[i], self.out_ptr[i + 1])]
+
+    def get_incoming_edges(self, nid: str) -> list:
+        i = int(nid[1:])
+        ks = self.in_order[self.in_ptr[i]:self.in_ptr[i + 1]]
+        return [_RagEdge(int(k), int(self.src[k]), i) for k in ks]
+
+
+class _RagDB:
+    """A stand-in for the JAX package's ``DB`` as ``GraphRAGService`` reads
+    it: ``recall`` is the vector leg of ``DB.recall`` only (the question
+    embedded by phase 8's engine, then ``SearchService.vector_candidates``;
+    the BM25 leg and its fusion are not ported), ``storage`` the seeded
+    graph, ``genserve_engine()`` the engine behind the generator."""
+
+    def __init__(self, texts, embed_engine, service, storage, gen_engine):
+        self.texts, self.embed, self.service = texts, embed_engine, service
+        self.storage, self._engine = storage, gen_engine
+
+    def recall(self, question: str, limit: int = 10) -> list:
+        vec = self.embed.embed_batch([question])[0]
+        return [{"id": i, "score": float(sc),
+                 "content": self.texts[int(i[1:])],
+                 "node": _RagNode(self.texts[int(i[1:])])}
+                for i, sc in self.service.vector_candidates(vec, k=limit)]
+
+    def genserve_engine(self):
+        return self._engine
+
+
+def write_checkpoint(d: str, cfg, params, tok) -> None:
+    """An assistant checkpoint directory as the JAX package's
+    ``train_assistant`` writes it: config.json, model.safetensors,
+    vocab.json."""
+    from nornicdb_tpu_torch.models import weights
+
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"kind": "qwen2", "vocab_size": cfg.vocab_size,
+                   "hidden": cfg.hidden, "layers": cfg.layers,
+                   "heads": cfg.heads, "kv_heads": cfg.kv_heads,
+                   "intermediate": cfg.intermediate,
+                   "max_positions": cfg.max_positions,
+                   "rope_theta": cfg.rope_theta, "trained_seq_len": 0}, f)
+    weights.save_params(os.path.join(d, "model.safetensors"), params)
+    tok.save(os.path.join(d, "vocab.json"))
+
+
+def mount_checkpoint(seed: int, texts: list):
+    """Phase 9.1: a QWEN25_05B checkpoint (weights from ``seed``, a
+    VocabTokenizer over ``texts`` and the GraphRAG prompt header) written
+    to a temporary directory and mounted with ``load_generator``: every
+    tensor bit for bit. Returns the QwenGenerator."""
+    import tempfile
+
+    import torch
+
+    from nornicdb_tpu_torch.genserve.graphrag import _PROMPT_HEADER
+    from nornicdb_tpu_torch.models import qwen2 as Q
+    from nornicdb_tpu_torch.models import weights
+    from nornicdb_tpu_torch.models.pretrain import VocabTokenizer, load_generator
+
+    cfg = Q.QWEN25_05B
+    params = Q.init_params(cfg, seed, "cuda")
+    t0 = time.perf_counter()
+    tok = VocabTokenizer.from_corpus(texts + [_PROMPT_HEADER],
+                                     max_vocab=cfg.vocab_size)
+    t_vocab = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_checkpoint(d, cfg, params, tok)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+        t0 = time.perf_counter()
+        gen = load_generator(d)
+        sync()
+        t_load = time.perf_counter() - t0
+    saved, loaded = weights.flatten_params(params), weights.flatten_params(
+        gen.params)
+    assert list(loaded) == list(saved), "checkpoint names"
+    for name, want in saved.items():
+        got = loaded[name]
+        assert got.dtype == want.dtype and got.is_cuda, name
+        if want.dtype == torch.bfloat16:
+            got, want = got.view(torch.int16), want.view(torch.int16)
+        assert torch.equal(got, want), ("not bit for bit", name)
+    del params, saved, loaded
+    log(f"[phase9] checkpoint: vocabulary {tok.vocab_size} words in "
+        f"{t_vocab:.1f}s; model.safetensors {size / 1e9:.3f} GB written in "
+        f"{t_write:.2f}s (with config.json and vocab.json), load_generator "
+        f"{t_load:.2f}s, {len(weights.flatten_params(gen.params))} tensors "
+        "bit for bit")
+    return gen
+
+
+def phase_rag(K, seed: int, served: dict) -> dict:
+    """Phase 9: the checkpoint of ``mount_checkpoint`` served through an
+    ``EngineGenerator`` over a ``GenerationEngine``; ``GraphRAGService``
+    answers RAG_QUESTIONS stored phase-8 texts from RAG_CLIENTS clients
+    over phase 8's embed engine and search service. Returns the launches
+    of #2 and #5 in the traffic."""
+    import torch
+
+    from nornicdb_tpu_torch.config import GenServeConfig
+    from nornicdb_tpu_torch.genserve import GenerationEngine, GraphRAGService
+    from nornicdb_tpu_torch.heimdall import EngineGenerator
+    from nornicdb_tpu_torch.models import qwen2 as Q
+
+    texts = served["texts"]
+    gen = mount_checkpoint(seed, texts)
+    cfg, tok = gen.cfg, gen.tokenizer
+    # -- 9.2 the engine behind Heimdall's generator, and the graph
+    gcfg = GenServeConfig(max_seq_tokens=RAG_SEQ_TOKENS,
+                          pool_pages=8 * RAG_SEQ_TOKENS // 16 + 1)
+    egen = EngineGenerator(GenerationEngine(gen.params, gen.cfg,
+                                            tokenizer=gen.tokenizer,
+                                            config=gcfg))
+    eng = egen.engine
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        sync()
+        t_warm = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 9)
+        t0 = time.perf_counter()
+        storage = _RagStorage(len(texts), rng)
+        db = _RagDB(texts, served["engine"], served["service"], storage,
+                    eng)
+        rag = GraphRAGService(db, config=gcfg)
+        log(f"[phase9] engine warmup {t_warm:.1f}s; graph "
+            f"{storage.src.size} edges over {len(texts)} nodes in "
+            f"{time.perf_counter() - t0:.1f}s")
+        # the prompts the service submits, with their handles, for the dense
+        # check below
+        submitted: list = []
+        mu = threading.Lock()
+        submit = eng.submit
+
+        def recording_submit(prompt_ids, max_new_tokens=64,
+                             deadline_ms=None):
+            h = submit(prompt_ids, max_new_tokens, deadline_ms)
+            with mu:
+                submitted.append((list(prompt_ids), max_new_tokens, h))
+            return h
+
+        eng.submit = recording_submit
+
+        # -- 9.3 the traffic
+        rows = rng.choice(len(texts), size=RAG_QUESTIONS, replace=False)
+        answers: list = [None] * RAG_QUESTIONS
+        lat = np.zeros(RAG_QUESTIONS)
+        errors: list = []
+
+        def client(t: int) -> None:
+            try:
+                for i in range(t, RAG_QUESTIONS, RAG_CLIENTS):
+                    t1 = time.perf_counter()
+                    answers[i] = rag.answer(texts[rows[i]])
+                    lat[i] = time.perf_counter() - t1
+            except Exception as e:  # re-raised on the main thread
+                errors.append(e)
+
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        st0 = dataclasses.replace(eng.stats)
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(RAG_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if errors:
+            raise errors[0]
+        assert not any(th.is_alive() for th in threads), "client thread hung"
+        st = eng.stats
+        gen_tokens = sum(a["generated_tokens"] for a in answers)
+        reused = [a["prefix_reused_tokens"] for a in answers]
+        retrieve = [a["timings_ms"]["retrieve"] for a in answers]
+        prompt_len = [len(p) for p, _, _ in submitted]
+        log(f"[phase9] {RAG_QUESTIONS} GraphRAG answers from {RAG_CLIENTS} "
+            f"clients in {wall:.3f}s: answer p50={np.median(lat) * 1e3:.1f}ms "
+            f"p99={np.percentile(lat, 99) * 1e3:.1f}ms retrieve "
+            f"p50={np.median(retrieve):.2f}ms; {gen_tokens} tokens "
+            f"tok/s={gen_tokens / wall:.1f}; prompt tokens min/p50/max "
+            f"{min(prompt_len)}/{int(np.median(prompt_len))}/"
+            f"{max(prompt_len)}; "
+            f"prefix hits={st.prefix_hits - st0.prefix_hits} reused tokens by "
+            f"answer {reused}; fused steps={st.fused_steps - st0.fused_steps} "
+            f"evictions={st.evictions - st0.evictions} max_memory_allocated="
+            f"{peak / 2**30:.3f}GiB")
+        log(f"[phase9] launches in the traffic: streaming_topk_bf16="
+            f"{counts['streaming_topk_bf16']} ragged_paged_attention="
+            f"{counts['ragged_paged_attention']}")
+        assert len(submitted) == RAG_QUESTIONS
+        for i, a in enumerate(answers):
+            assert a["mode"] == "paged", a["mode"]
+            assert f"t{rows[i]}" in [src["id"] for src in a["sources"]], (
+                "own node not retrieved", i)
+            assert 1 <= a["generated_tokens"] <= gcfg.rag_max_new_tokens, a
+            if i >= RAG_CLIENTS:  # after the first wave: header cached
+                assert a["prefix_reused_tokens"] > 0, ("no prefix reuse", i)
+        assert counts["streaming_topk_bf16"] > 0, "retrieval missed #2"
+        assert counts["ragged_paged_attention"] > 0, "generation missed #5"
+
+        # -- 9.4 tokens of the first answers against the dense path, and a QC
+        # batch through the generator
+        t0 = time.perf_counter()
+        limit = gcfg.max_seq_tokens
+        width = Q.pages_for(limit, gcfg.page_size) * gcfg.page_size
+        equal = n_tok = 0
+        for prompt, max_new, h in submitted[:RAG_CHECKED]:
+            prompt = prompt[-(limit - 1):]  # the engine's own bound
+            max_new = max(1, min(int(max_new), limit - len(prompt)))
+            same, _ = dense_agreement(Q, gen.params, cfg, prompt, h.tokens,
+                                      max_new, tok.eos_id, width)
+            equal += same
+            n_tok += len(h.tokens)
+        qc = egen.generate_many([texts[r] for r in rows[:8]], max_tokens=16)
+        log(f"[phase9] dense reference: {n_tok} tokens of {RAG_CHECKED} "
+            f"answers checked, {equal} equal to its argmax; QC batch of {len(qc)} "
+            f"through EngineGenerator; {time.perf_counter() - t0:.1f}s")
+        assert len(qc) == 8 and eng.stats.completed == (
+            st0.completed + RAG_QUESTIONS + 8), eng.stats.as_dict()
+        return {"streaming_topk_bf16": counts["streaming_topk_bf16"],
+                "ragged_paged_attention": counts["ragged_paged_attention"]}
+    finally:
+        eng.stop()
 
 
 def main() -> int:
@@ -1758,8 +2186,20 @@ def main() -> int:
 
     # -- phase 8: embed serving at full width, then search over it
     t0 = time.perf_counter()
-    phase_embed(K, args.seed, k, out_dir if args.profile else "")
+    served = phase_embed(K, args.seed, k, out_dir if args.profile else "")
     log(f"[phase8] {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 9: a checkpoint and GraphRAG answers over phase 8's corpus
+    t0 = time.perf_counter()
+    try:
+        phase_rag(K, args.seed, served)
+    finally:
+        served["engine"].stop()
+        served["service"].close()
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase9] {time.perf_counter() - t0:.1f}s")
 
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],

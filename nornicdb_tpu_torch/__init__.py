@@ -1,8 +1,11 @@
 """NornicDB's vector-search tier, embed serving and paged-KV generation
 serving in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
 (sm_90a): ``search`` (``SearchService``), ``serving`` (``ServingEngine``
-over ``embed.DeviceEmbedder``, the bge-m3 encoder of ``models``) and
-``genserve`` (``GenerationEngine`` over the Qwen2 decoder of ``models``).
+over ``embed.DeviceEmbedder``, the bge-m3 encoder of ``models``),
+``genserve`` (``GenerationEngine`` over the Qwen2 decoder of ``models``, and
+``GraphRAGService`` answering over search and generation) and ``heimdall``
+(the assistant's generators; ``models.pretrain.load_generator`` mounts a
+checkpoint).
 
 A port of ``nornicdb_tpu`` (JAX on a TPU), kept beside it: the module names
 mirror the JAX package's so each module's counterpart is easy to find, and
@@ -20,6 +23,7 @@ from nornicdb_tpu_torch.errors import (
     ClosedError,
     DeviceUnavailable,
     NornicError,
+    NotFoundError,
     ResourceExhausted,
 )
 
@@ -27,6 +31,7 @@ __all__ = [
     "ClosedError",
     "DeviceUnavailable",
     "NornicError",
+    "NotFoundError",
     "ResourceExhausted",
     "resolve_device",
 ]

@@ -81,16 +81,17 @@ class GenServeConfig:
     (``nornicdb_tpu_torch.genserve``). Env form:
     ``NORNICDB_GENSERVE_<FIELD>`` (:meth:`from_env`).
 
-    ``enabled``, ``fallback``, ``rag_context_nodes`` and
-    ``rag_max_new_tokens`` are read by nothing in the port yet: their
-    readers (Heimdall, GraphRAG) are still to port. Setting them changes
-    nothing; in particular the engine never falls back to the CPU."""
+    ``GraphRAGService`` reads ``rag_context_nodes`` and
+    ``rag_max_new_tokens``. ``enabled`` and ``fallback`` are read by nothing
+    in the port yet: their readers (the DB wiring that fronts Heimdall with
+    the engine, and the backend gate) are still to port. Setting them
+    changes nothing; in particular the engine never falls back to the
+    CPU."""
 
     # master switch: off = Heimdall keeps the synchronous per-request path
     enabled: bool = True
-    # "paged" = paged-KV continuous batching; "dense" (the per-sequence
-    # dense-cache path of the JAX package) is not ported: the engine
-    # refuses it
+    # "paged" = paged-KV continuous batching; "dense" = the escape hatch, a
+    # per-sequence dense KV cache (torch ops, no ragged kernel)
     mode: str = "paged"
     # KV page geometry: slots per page and physical pages in the pool
     # (one page is reserved as the null/scratch page)

@@ -1,10 +1,15 @@
 """Error types of the port: copies of the ones the search and generation
-slices raise (``nornicdb_tpu/errors.py``), kept here so the port imports
-nothing of the JAX package."""
+slices raise or catch (``nornicdb_tpu/errors.py``), kept here so the port
+imports nothing of the JAX package."""
 
 
 class NornicError(Exception):
     """Base class for all framework errors."""
+
+
+class NotFoundError(NornicError):
+    """Entity (node/edge/database/index) does not exist. GraphRAG's graph
+    expansion skips a hit whose node is gone."""
 
 
 class ResourceExhausted(NornicError):

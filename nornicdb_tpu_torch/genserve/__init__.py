@@ -4,11 +4,11 @@ Counterpart of ``nornicdb_tpu.genserve``:
 
 * :class:`GenerationEngine` / :class:`GenHandle` / :class:`GenStats` — the
   continuous batching decode engine over the paged KV cache (engine.py).
+* :class:`GraphRAGService` — graph-context retrieval -> packed prompt ->
+  generation (graphrag.py).
 * :func:`configure` / :func:`current_config` — process-default
   :class:`~nornicdb_tpu_torch.config.GenServeConfig` (a configured one, else
   the ``NORNICDB_GENSERVE_*`` environment over the defaults).
-
-GraphRAG and the Heimdall consumers are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ from nornicdb_tpu_torch.genserve.engine import (
     GenHandle,
     GenStats,
 )
+from nornicdb_tpu_torch.genserve.graphrag import GraphRAGService
 
 __all__ = [
-    "GenerationEngine", "GenHandle", "GenStats", "configure",
-    "current_config",
+    "GenerationEngine", "GenHandle", "GenStats", "GraphRAGService",
+    "configure", "current_config",
 ]
 
 _config: Optional[GenServeConfig] = None

@@ -1,6 +1,6 @@
 """Continuous-batching generation engine over a paged KV cache.
 
-Counterpart of ``nornicdb_tpu/genserve/engine.py`` for the paged mode:
+Counterpart of ``nornicdb_tpu/genserve/engine.py``:
 
 * **Paged KV cache.** One pooled buffer of fixed-size pages shared by every
   sequence, with per-sequence page tables (``models/qwen2.py``
@@ -20,11 +20,18 @@ Counterpart of ``nornicdb_tpu/genserve/engine.py`` for the paged mode:
   refcounted and idle cached pages are reclaimed LRU under pool pressure.
 * **Admission / eviction on page-pool pressure**, **deadline shedding** and
   **per-request streaming**, as in the reference.
+* **``mode="dense"``**, the escape hatch: no pool; each sequence keeps a
+  dense ``(1, Tmax)`` KV cache (``qwen2.prefill`` + ``qwen2.decode_step``,
+  torch ops, no ragged kernel), one prefill and then one decode step per
+  running sequence an iteration. On the card a sequence's decode step is
+  captured as a CUDA graph at its first step and replayed after
+  (``qwen2.DecodeGraph``), as the reference compiles one step program a
+  cache width. It is the numeric reference the paged path is held to.
 
 Not ported (ROADMAP): the backend gate and its DEGRADED_CPU host mirror
 (the engine runs where its ``device`` says and fails a step that raises),
-``mode="dense"``, cost-model predictive admission, tracer spans, device
-profiling and the Prometheus families.
+cost-model predictive admission, tracer spans, device profiling and the
+Prometheus families.
 
 Thread model: caller threads do admission and block on their handle; the
 single scheduler thread owns the page pool, page tables and running set, so
@@ -63,8 +70,8 @@ class GenStats:
     requests: int = 0
     completed: int = 0
     generated_tokens: int = 0
-    # fused steps run; each runs the decode block, and a step that carries
-    # a prefill chunk (prefill_chunks) also runs the chunk block
+    # fused steps run (paged mode); each runs the decode block, and a step
+    # that carries a prefill chunk (prefill_chunks) also runs the chunk block
     fused_steps: int = 0
     prefill_chunks: int = 0
     decode_steps: int = 0
@@ -236,7 +243,8 @@ class _Seq:
     __slots__ = (
         "handle", "prompt", "out", "max_new", "eos_id", "state",
         "prefill_tokens", "prefill_pos", "page_ids", "page_table",
-        "cache_len", "admit_no", "counted",
+        "cache_len", "admit_no", "dense_cache", "dense_graph", "dense_len",
+        "counted",
         "prefix_keys", "re_prefill",
     )
 
@@ -254,6 +262,9 @@ class _Seq:
         self.page_table: Optional[np.ndarray] = None
         self.cache_len = 0
         self.admit_no = -1
+        self.dense_cache = None  # mode="dense": this sequence's KV caches
+        self.dense_graph = None  # its captured decode step (CUDA only)
+        self.dense_len = 0
         self.counted = False
         # chained page-content keys over this admission's prefill tokens
         # (full pages only); registered when the final chunk lands
@@ -275,9 +286,9 @@ class GenerationEngine:
             from nornicdb_tpu_torch.genserve import current_config
 
             config = current_config()
-        if config.mode != "paged":
-            raise ValueError(f"genserve mode {config.mode!r} is not ported; "
-                             "only 'paged' is")
+        if config.mode not in ("paged", "dense"):
+            raise ValueError(f"genserve mode {config.mode!r} is neither "
+                             "'paged' nor 'dense'")
         self.device = resolve_device(device)
         self.params = qwen2.with_f32_logit_weights(
             tree_to(params, self.device))
@@ -287,6 +298,8 @@ class GenerationEngine:
         self.stats = GenStats()
         # (kind, F, Tq, P) step shape classes dispatched so far
         self.programs: set = set()
+        # dense mode on the card: the stream its step graphs are captured on
+        self._capture_stream: Optional[torch.cuda.Stream] = None
         self._page_size = max(1, int(config.page_size))
         self._table_width = qwen2.pages_for(int(config.max_seq_tokens),
                                             self._page_size)
@@ -393,8 +406,13 @@ class GenerationEngine:
         throwaway pool before taking traffic, so every kernel shape, cuBLAS
         plan and allocator block is made before a live request pays for it.
         The scheduler's pool and state are never touched. ``timeout`` is
-        checked between steps."""
+        checked between steps. Dense mode serves one tiny request instead."""
         deadline = time.monotonic() + timeout
+        if self.config.mode == "dense":
+            handle = self.submit([1, 2, 3], max_new_tokens=2, deadline_ms=0)
+            while not handle.done and time.monotonic() < deadline:
+                time.sleep(0.01)
+            return
         w, lmax = self._table_width, self._lmax
         pool = qwen2.init_kv_pages(self.cfg, self._usable_pages + 1,
                                    self._page_size, self.device)
@@ -548,6 +566,7 @@ class GenerationEngine:
         if drop and seq in self._running:
             self._running.remove(seq)
         self._release_pages(seq)
+        seq.dense_cache = seq.dense_graph = None
         if error is None:
             self._count_outcome(seq, "ok")
         elif isinstance(error, ResourceExhausted):
@@ -636,8 +655,8 @@ class GenerationEngine:
             self._prefix_cache[key] = pid
             self._page_hash[pid] = key
 
-    def _ensure_pool(self) -> torch.Tensor:
-        if self._pages is None:
+    def _ensure_pool(self) -> Optional[torch.Tensor]:
+        if self._pages is None and self.config.mode != "dense":
             self._pages = qwen2.init_kv_pages(
                 self.cfg, self._usable_pages + 1, self._page_size,
                 self.device)
@@ -647,26 +666,35 @@ class GenerationEngine:
     def _step(self) -> None:
         self._ensure_pool()
         self._admit()
-        self._fused_step()
+        if self.config.mode == "dense":
+            self._prefill_one()
+            self._decode_step()
+        else:
+            self._fused_step()
 
     def _admit(self) -> None:
+        paged = self.config.mode != "dense"
         while len(self._running) < self._max_seqs:
             hits: list[int] = []
+            keys: list[bytes] = []
             with self._cond:
                 if not self._queue:
                     return
                 seq = self._queue[0]
                 toks = seq.prompt + seq.out
-                need = qwen2.pages_for(len(toks) + 1, self._page_size)
-                keys = self._prefix_page_keys(toks)
-                # cap reuse below the full prompt: the final chunk must
-                # prefill at least one token to produce first-token logits
-                cap = (len(toks) - 1) // self._page_size
-                for idx in range(min(len(keys), cap)):
-                    pid = self._prefix_cache.get(keys[idx])
-                    if pid is None:
-                        break
-                    hits.append(pid)
+                need = (qwen2.pages_for(len(toks) + 1, self._page_size)
+                        if paged else 0)
+                if paged:
+                    keys = self._prefix_page_keys(toks)
+                    # cap reuse below the full prompt: the final chunk must
+                    # prefill at least one token to produce first-token
+                    # logits
+                    cap = (len(toks) - 1) // self._page_size
+                    for idx in range(min(len(keys), cap)):
+                        pid = self._prefix_cache.get(keys[idx])
+                        if pid is None:
+                            break
+                        hits.append(pid)
                 # idle cached hits count as "available" but adopting them
                 # consumes that availability
                 idle_hits = sum(1 for pid in hits
@@ -687,29 +715,30 @@ class GenerationEngine:
             seq.state = _PREFILL
             seq.admit_no = self._admit_counter
             self._admit_counter += 1
-            seq.prefix_keys = keys
-            table = np.zeros((self._table_width,), np.int32)
-            seq.page_ids = []
-            for pid in hits:
-                # shared pages: take a reference, refresh LRU
-                self._page_refs[pid] = self._page_refs.get(pid, 0) + 1
-                self._prefix_cache.move_to_end(self._page_hash[pid])
-                seq.page_ids.append(pid)
-            for _ in range(need - len(hits)):
-                pid = self._alloc_page()  # availability checked above
-                self._page_refs[pid] = 1
-                seq.page_ids.append(pid)
-            table[:len(seq.page_ids)] = seq.page_ids
-            seq.page_table = table
-            if hits:
-                reused = len(hits) * self._page_size
-                # cached pages already hold these tokens' KV: prefill
-                # starts at the novel suffix
-                seq.prefill_pos = reused
-                seq.cache_len = reused
-                seq.handle.prefix_reused_tokens = reused
-                self.stats.prefix_hits += len(hits)
-                self.stats.prefix_reused_tokens += reused
+            if paged:
+                seq.prefix_keys = keys
+                table = np.zeros((self._table_width,), np.int32)
+                seq.page_ids = []
+                for pid in hits:
+                    # shared pages: take a reference, refresh LRU
+                    self._page_refs[pid] = self._page_refs.get(pid, 0) + 1
+                    self._prefix_cache.move_to_end(self._page_hash[pid])
+                    seq.page_ids.append(pid)
+                for _ in range(need - len(hits)):
+                    pid = self._alloc_page()  # availability checked above
+                    self._page_refs[pid] = 1
+                    seq.page_ids.append(pid)
+                table[:len(seq.page_ids)] = seq.page_ids
+                seq.page_table = table
+                if hits:
+                    reused = len(hits) * self._page_size
+                    # cached pages already hold these tokens' KV: prefill
+                    # starts at the novel suffix
+                    seq.prefill_pos = reused
+                    seq.cache_len = reused
+                    seq.handle.prefix_reused_tokens = reused
+                    self.stats.prefix_hits += len(hits)
+                    self.stats.prefix_reused_tokens += reused
             seq.re_prefill = bool(seq.out)
             if seq.out:
                 self.stats.readmissions += 1
@@ -746,6 +775,7 @@ class GenerationEngine:
         self.stats.evictions += 1
         self._running.remove(victim)
         self._release_pages(victim)
+        victim.dense_cache = victim.dense_graph = None
         victim.state = _QUEUED
         with self._cond:
             self._queue.appendleft(victim)
@@ -860,6 +890,82 @@ class GenerationEngine:
                 # the last valid row's logits pick the first token
                 self._register_prefix(chunk_seq)
                 self._emit(chunk_seq, int(host[ndec]))
+
+    # -- prefill and decode (dense mode) ------------------------------------
+    def _prefill_one(self) -> None:
+        """Run ONE prompt prefill for the oldest sequence still waiting
+        (dense mode only; paged mode fuses prefill into
+        :meth:`_fused_step`)."""
+        pre = [s for s in self._running if s.state == _PREFILL]
+        if not pre:
+            return
+        seq = min(pre, key=lambda s: s.admit_no)
+        if self._expired(seq):
+            return
+        self._dense_prefill(seq)
+
+    def _dense_prefill(self, seq: _Seq) -> None:
+        """The per-sequence dense (1, Tmax) cache, Tmax the power-of-two
+        bucket of prompt + budget (at most max_seq_tokens)."""
+        toks = seq.prefill_tokens
+        max_len = qwen2.round_up_pow2(
+            min(len(toks) + seq.max_new, int(self.config.max_seq_tokens)))
+        self.programs.add(("dense_prefill", len(toks), max_len))
+        logits, seq.dense_cache = qwen2.prefill(
+            self.params, self.cfg,
+            torch.tensor([toks], dtype=torch.long, device=self.device),
+            max_len)
+        # one token id crosses to the host: the prefill's output
+        tok = int(torch.argmax(logits[0]))
+        self.stats.prefill_chunks += 1
+        if seq.re_prefill:
+            self.stats.prefill_tokens_re += len(toks)
+        else:
+            self.stats.prefill_tokens_first += len(toks)
+        seq.prefill_pos = len(toks)
+        seq.dense_len = len(toks)
+        seq.cache_len = len(toks)
+        self._emit(seq, tok)
+
+    def _decode_step(self) -> None:
+        active = [s for s in self._running if s.state == _DECODE]
+        active = [s for s in active if not self._expired(s)]
+        for seq in active:
+            self._dense_decode(seq)
+
+    def _dense_decode(self, seq: _Seq) -> None:
+        """One decode step of one sequence: on the card its captured
+        :class:`qwen2.DecodeGraph` (captured at its first step, replayed
+        after), on the CPU ``qwen2.decode_step``."""
+        max_len = seq.dense_cache[0][0].shape[1]
+        self.programs.add(("dense_step", max_len))
+        try:
+            if self.device.type == "cuda":
+                if seq.dense_graph is None:
+                    if self._capture_stream is None:
+                        self._capture_stream = torch.cuda.Stream(self.device)
+                    seq.dense_graph = qwen2.DecodeGraph(
+                        self.params, self.cfg, seq.dense_cache,
+                        self._capture_stream)
+                logits = seq.dense_graph.step(seq.out[-1], seq.dense_len)
+            else:
+                logits, seq.dense_cache = qwen2.decode_step(
+                    self.params, self.cfg,
+                    torch.tensor([seq.out[-1]], dtype=torch.long,
+                                 device=self.device),
+                    seq.dense_cache, seq.dense_len)
+            # one token id crosses to the host: the step's output
+            tok = int(torch.argmax(logits[0]))
+        except Exception:
+            # the step writes the cache in place and may have half-written
+            # it: drop it, so a requeue re-prefills instead of reading it
+            seq.dense_cache = seq.dense_graph = None
+            raise
+        self.stats.decode_steps += 1
+        self.stats.decode_lane_tokens += 1
+        seq.dense_len += 1
+        seq.cache_len += 1
+        self._emit(seq, tok)
 
     def _emit(self, seq: _Seq, tok: int) -> None:
         """Deliver one generated token and advance lifecycle state."""

@@ -6,7 +6,9 @@ the JAX package's pytree as a dict of tensors (dense weights ``(in, out)``),
 so ``convert.qwen2_params_from_jax`` carries them over leaf by leaf.
 
 Where the JAX functions donate a KV buffer, these update it in place
-(``index_put_`` / slice assignment) and return the same tensor.
+(``index_put_`` / slice assignment) and return the same tensor. Where the
+reference compiles one decode-step program a cache width, the port
+captures the step over one dense cache as a CUDA graph (``DecodeGraph``).
 
 Presets: QWEN25_05B (real shape), QWEN_SMALL (tests).
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -131,7 +133,7 @@ def _angles(head_dim: int, max_len: int, theta: float,
 
 
 def _block(cfg: QwenConfig, blk: dict, h, angles, mask, kv_cache=None,
-           pos: int = 0):
+           pos: Union[int, torch.Tensor] = 0):
     b, t, _ = h.shape
     head_dim = cfg.hidden // cfg.heads
     n_rep = cfg.heads // cfg.kv_heads
@@ -143,8 +145,12 @@ def _block(cfg: QwenConfig, blk: dict, h, angles, mask, kv_cache=None,
     k = apply_rope(k, angles)
     if kv_cache is not None:
         ck, cv = kv_cache  # (B, Tmax, Hkv, Dh), written in place
-        ck[:, pos:pos + t] = k
-        cv[:, pos:pos + t] = v
+        if isinstance(pos, torch.Tensor):  # (t,) slots on the device
+            ck.index_copy_(1, pos, k)
+            cv.index_copy_(1, pos, v)
+        else:
+            ck[:, pos:pos + t] = k
+            cv[:, pos:pos + t] = v
         k, v = ck, cv
     o = attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), mask)
     h = h + dense(blk["o"], o.reshape(b, t, cfg.heads * head_dim))
@@ -215,12 +221,18 @@ def prefill(params, cfg: QwenConfig, input_ids: torch.Tensor, max_len: int):
 
 
 def _cached_step(params, cfg: QwenConfig, token: torch.Tensor, caches,
-                 pos: int, full_angles: torch.Tensor):
+                 pos: Union[int, torch.Tensor], full_angles: torch.Tensor):
     """The single-token cached decoder body (the reference's shared
-    implementation behind its decode scan and ``decode_step``)."""
+    implementation behind its decode scan and ``decode_step``). ``pos`` is
+    a host int or a (1,) device tensor; the latter reads no host value, so
+    :class:`DecodeGraph` can capture the step once and replay it at any
+    position."""
     max_len = caches[0][0].shape[1]
     h = params["tok_emb"][token[:, None]]
-    angles = full_angles[pos:pos + 1]
+    if isinstance(pos, torch.Tensor):
+        angles = full_angles.index_select(0, pos)
+    else:
+        angles = full_angles[pos:pos + 1]
     slot = torch.arange(max_len, device=token.device)
     mask = torch.where(slot <= pos, 0.0, -1e30)[None, None, None]
     for blk, cache in zip(params["blocks"], caches):
@@ -241,12 +253,139 @@ def decode_step(params, cfg: QwenConfig, token: torch.Tensor, caches,
     return _cached_step(params, cfg, token, caches, int(pos), full_angles)
 
 
+class DecodeGraph:
+    """``decode_step`` over ONE dense cache as a CUDA graph, the port's
+    counterpart of the reference's compiled step program. A step of the
+    eager body is ~70 kernel launches a layer from Python, so at batch 1 the
+    host, not the card, sets its time; the graph replays them with one
+    launch. The token and the position are device buffers that the graph
+    reads, so one capture serves every later position of this cache.
+
+    The first :meth:`step` runs the body eagerly on ``stream`` (its logits
+    are that step's result, and the run is the warm-up a capture needs:
+    cuBLAS's workspace on that stream), then captures the body there; each
+    later step replays it on the current stream. The caches are updated in
+    place and must outlive the graph, which holds them."""
+
+    def __init__(self, params, cfg: QwenConfig, caches, stream):
+        self._params, self._cfg, self._caches = params, cfg, caches
+        self._stream = stream
+        dev = caches[0][0].device
+        self._angles = _angles(cfg.hidden // cfg.heads, caches[0][0].shape[1],
+                               cfg.rope_theta, dev)
+        self._tok = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._pos = torch.zeros((1,), dtype=torch.long, device=dev)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._logits: Optional[torch.Tensor] = None
+
+    @torch.no_grad()
+    def step(self, token: int, pos: int) -> torch.Tensor:
+        """(1, V) float32 logits of ``token`` at position ``pos``. The
+        tensor is the graph's output buffer: read it before the next
+        step."""
+        self._tok.fill_(int(token))
+        self._pos.fill_(int(pos))
+        if self._graph is not None:
+            self._graph.replay()
+            return self._logits
+        cur = torch.cuda.current_stream(self._tok.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            logits, _ = _cached_step(self._params, self._cfg, self._tok,
+                                     self._caches, self._pos, self._angles)
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: other threads may use the card meanwhile
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._logits, _ = _cached_step(
+                    self._params, self._cfg, self._tok, self._caches,
+                    self._pos, self._angles)
+            finally:
+                graph.capture_end()
+        cur.wait_stream(self._stream)
+        logits.record_stream(cur)
+        self._graph = graph
+        return logits
+
+
 def round_up_pow2(n: int, floor: int = 64) -> int:
     """Bucket a length to a power of two (at least ``floor``), as the
     reference buckets cache lengths and step shapes."""
     out = floor
     while out < n:
         out *= 2
+    return out
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One draw a row from ``softmax(logits / temperature)``: the argmax of
+    ``logits / T`` plus Gumbel noise from ``generator`` (the Gumbel-max draw
+    ``jax.random.categorical`` also makes; the two packages' random streams
+    differ, so one seed draws other tokens). Stays on the logits' device."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp_(tiny, 1.0)))
+    return torch.argmax(logits.float() / temperature + gumbel, dim=-1)
+
+
+@torch.no_grad()
+def decode(params, cfg: QwenConfig, first_token: torch.Tensor, caches,
+           start_pos: int, steps: int, temperature: float = 0.0,
+           generator: Optional[torch.Generator] = None, eos_id: int = -1
+           ) -> torch.Tensor:
+    """Greedy (``temperature == 0``) or sampled decode of ``steps`` tokens
+    after ``first_token`` (B,) at position ``start_pos`` (the prompt length)
+    with the dense KV cache, updated in place. Returns (B, steps) tokens on
+    the device; once a row emits ``eos_id`` every later token of it is
+    ``eos_id``. Nothing leaves the device: the caller syncs once, for the
+    result."""
+    b = first_token.shape[0]
+    dev = first_token.device
+    max_len = caches[0][0].shape[1]
+    full_angles = _angles(cfg.hidden // cfg.heads, max_len, cfg.rope_theta,
+                          dev)
+    if temperature > 0 and generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    toks = torch.empty((b, steps), dtype=torch.long, device=dev)
+    tok = first_token.long()
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i in range(steps):
+        logits, caches = _cached_step(params, cfg, tok, caches,
+                                      int(start_pos) + i, full_angles)
+        if temperature > 0:
+            nxt = sample_tokens(logits, temperature, generator)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        nxt = torch.where(done, eos_id, nxt)
+        done = done | (nxt == eos_id)
+        toks[:, i] = nxt
+        tok = nxt
+    return toks
+
+
+@torch.no_grad()
+def generate(params, cfg: QwenConfig, prompt_ids: list[int],
+             max_new_tokens: int = 32, temperature: float = 0.0,
+             eos_id: int = -1, seed: int = 0) -> list[int]:
+    """Prefill + decode on the parameters' device; the generated ids, cut
+    before the first ``eos_id``. The first token is the prefill's argmax;
+    at ``temperature > 0`` the rest are drawn with a ``torch.Generator`` on
+    that device seeded from ``seed``."""
+    dev = params["tok_emb"].device
+    ids = torch.tensor([list(prompt_ids)], dtype=torch.long, device=dev)
+    max_len = ids.shape[1] + max_new_tokens
+    logits, caches = prefill(params, cfg, ids, max_len)
+    first = torch.argmax(logits, dim=-1)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(int(seed))
+    toks = decode(params, cfg, first, caches, ids.shape[1],
+                  steps=max_new_tokens - 1, temperature=temperature,
+                  generator=generator, eos_id=eos_id)
+    out = torch.cat([first[:, None], toks], dim=1)[0].tolist()
+    if eos_id >= 0 and eos_id in out:
+        out = out[: out.index(eos_id)]
     return out
 
 

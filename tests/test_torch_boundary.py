@@ -16,7 +16,10 @@ import nornicdb_tpu_torch
 from nornicdb_tpu_torch import DeviceUnavailable, resolve_device
 from nornicdb_tpu_torch.config import ServingConfig
 from nornicdb_tpu_torch.embed import DeviceEmbedder
-from nornicdb_tpu_torch.models import BGE_SMALL
+from nornicdb_tpu_torch.heimdall import QwenGenerator
+from nornicdb_tpu_torch.models import BGE_SMALL, QWEN_SMALL, init_params
+from nornicdb_tpu_torch.models import weights
+from nornicdb_tpu_torch.models.pretrain import load_generator
 from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
 from nornicdb_tpu_torch.search import SearchService
 from nornicdb_tpu_torch.serving import ServingEngine
@@ -74,8 +77,13 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.models.qwen2",
                      "nornicdb_tpu_torch.models.tokenizer",
                      "nornicdb_tpu_torch.models.bge_m3",
+                     "nornicdb_tpu_torch.models.weights",
+                     "nornicdb_tpu_torch.models.pretrain",
+                     "nornicdb_tpu_torch.heimdall",
+                     "nornicdb_tpu_torch.heimdall.manager",
                      "nornicdb_tpu_torch.genserve",
                      "nornicdb_tpu_torch.genserve.engine",
+                     "nornicdb_tpu_torch.genserve.graphrag",
                      "nornicdb_tpu_torch.embed",
                      "nornicdb_tpu_torch.embed.base",
                      "nornicdb_tpu_torch.serving",
@@ -108,6 +116,30 @@ class TestDevicePolicy:
             ServingEngine(DeviceEmbedder(cfg=BGE_SMALL), ServingConfig())
         emb = DeviceEmbedder(cfg=BGE_SMALL, device="cpu")
         assert emb.params["tok_emb"].device.type == "cpu"
+
+    def test_generators_and_checkpoints_default_to_cuda(self, tmp_path):
+        path = str(tmp_path / "model.safetensors")
+        weights.save_params(path, init_params(QWEN_SMALL, 0, "cpu"))
+        template = init_params(QWEN_SMALL, 1, "cpu")
+        if torch.cuda.is_available():
+            gen = QwenGenerator()
+            assert gen.device.type == "cuda"
+            assert gen.params["tok_emb"].device.type == "cuda"
+            loaded = weights.load_params(path, template)
+            assert loaded["tok_emb"].device.type == "cuda"
+            return
+        with pytest.raises(DeviceUnavailable, match="device='cpu'"):
+            QwenGenerator()
+        with pytest.raises(DeviceUnavailable):
+            QwenGenerator(params=template)
+        with pytest.raises(DeviceUnavailable):
+            weights.load_params(path, template)
+        # the device is resolved before the directory is read
+        with pytest.raises(DeviceUnavailable):
+            load_generator(str(tmp_path))
+        loaded = weights.load_params(path, template, device="cpu")
+        assert loaded["tok_emb"].device.type == "cpu"
+        assert QwenGenerator(device="cpu").device.type == "cpu"
 
     def test_cpu_only_when_named(self):
         assert resolve_device("cpu") == torch.device("cpu")

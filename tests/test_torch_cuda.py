@@ -709,3 +709,72 @@ def test_serving_engine_round_trip_on_the_card(card):
         assert a.shape == (TB.BGE_SMALL.dims,) and np.isfinite(a).all()
         assert float(np.dot(a, b)) > 1.0 - 1e-5
     assert eng.stats.packed_batches >= 1 and emb.stats["packed_dispatches"] >= 1
+
+
+def test_decode_graph_replays_decode_step(card):
+    """qwen2.DecodeGraph on the card against eager decode_step over the
+    same prefill at QWEN_SMALL float32: the first (eager) step and every
+    replay give decode_step's logits within 1e-5 and its tokens."""
+    import dataclasses
+
+    from nornicdb_tpu_torch.models import qwen2 as TQ
+
+    cfg = dataclasses.replace(TQ.QWEN_SMALL, dtype="float32")
+    params = TQ.init_params(cfg, 0, card)
+    prompt = torch.tensor([[5, 17, 42, 99, 7]], device=card)
+    logits, ref = TQ.prefill(params, cfg, prompt, 64)
+    _, cur = TQ.prefill(params, cfg, prompt, 64)
+    graph = TQ.DecodeGraph(params, cfg, cur, torch.cuda.Stream(card))
+    tok = int(torch.argmax(logits[0]))
+    for pos in range(5, 25):
+        want, ref = TQ.decode_step(
+            params, cfg, torch.tensor([tok], device=card), ref, pos)
+        got = graph.step(tok, pos)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert int(torch.argmax(got[0])) == int(torch.argmax(want[0]))
+        tok = int(torch.argmax(want[0]))
+    for (ck, cv), (rk, rv) in zip(cur, ref):
+        torch.testing.assert_close(ck, rk, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(cv, rv, rtol=1e-5, atol=1e-5)
+
+
+def test_dense_engine_on_the_card_gives_the_cpu_tokens(card):
+    """GenerationEngine(mode="dense") on the card, its decode steps replayed
+    from captured graphs, serves QWEN_SMALL float32 requests with the CPU
+    engine's tokens, launches no ragged kernel and drops each graph with its
+    sequence. Where the two part, the card's token must be a near-tie
+    (within 1e-4) of the CPU dense path's largest logit, teacher-forced on
+    the card's tokens."""
+    import dataclasses
+
+    from nornicdb_tpu_torch.config import GenServeConfig
+    from nornicdb_tpu_torch.genserve import GenerationEngine
+    from nornicdb_tpu_torch.models import qwen2 as TQ
+
+    cfg = dataclasses.replace(TQ.QWEN_SMALL, dtype="float32")
+    params = TQ.init_params(cfg, 0, "cpu")
+    gcfg = GenServeConfig(mode="dense")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(4, cfg.vocab_size, int(n)).tolist()
+               for n in (3, 20, 41, 70)]
+    outs = {}
+    for dev in ("cpu", card):
+        eng = GenerationEngine(params, cfg, config=gcfg, device=dev)
+        before = K.launch_counts()["ragged_paged_attention"]
+        try:
+            handles = [eng.submit(p, max_new_tokens=12) for p in prompts]
+            outs[str(dev)] = [h.result() for h in handles]
+        finally:
+            eng.stop()
+        assert K.launch_counts()["ragged_paged_attention"] == before
+        assert eng.stats.decode_steps == 4 * 11
+        assert all(s.dense_graph is None for s in eng._running)
+    for prompt, got, want in zip(prompts, outs["cuda"], outs["cpu"]):
+        if got == want:
+            continue
+        logits, caches = TQ.prefill(params, cfg, torch.tensor([prompt]),
+                                    TQ.round_up_pow2(len(prompt) + 12))
+        for j, tok in enumerate(got):
+            assert float(logits[0].max() - logits[0, tok]) <= 1e-4, (j, tok)
+            logits, caches = TQ.decode_step(params, cfg, torch.tensor([tok]),
+                                            caches, len(prompt) + j)

@@ -185,6 +185,83 @@ class TestPrefixCacheAndEviction:
         assert pid not in eng._free_pages and pid not in eng._page_refs
 
 
+class TestDenseMode:
+    """``mode="dense"``: the escape hatch of per-sequence dense caches (the
+    JAX suite's dense-mode cases, and eviction in dense mode)."""
+
+    def test_dense_mode_fallback_equivalence(self):
+        prompts = [_prompt(n, seed=3) for n in (5, 17)]
+        outs = {}
+        for key, eng in (("jax", _jax_engine(mode="dense")),
+                         ("port", _engine(mode="dense"))):
+            handles = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            outs[key] = [h.result() for h in handles]
+        assert outs["port"] == outs["jax"] == [_dense_ref(p, 8)
+                                               for p in prompts]
+
+    def test_dense_serves_without_pool_or_chunks(self):
+        eng = _engine(mode="dense")
+        eng.warmup()
+        assert ("dense_prefill", 3, 64) in eng.programs  # the tiny request
+        prompts = [_prompt(n, seed=6) for n in (4, 30, 70)]
+        handles = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        assert [h.result() for h in handles] == [
+            _dense_ref(p, 12, max_len=TQ.round_up_pow2(len(p) + 12))
+            for p in prompts]
+        assert eng._pages is None and eng.stats.fused_steps == 0
+        assert not eng._prefix_cache and eng.stats.prefix_hits == 0
+        assert {p[0] for p in eng.programs} == {"dense_prefill", "dense_step"}
+        assert ("dense_step", 128) in eng.programs  # 70 + 12 -> 128
+        snap = eng.stats_snapshot()
+        assert snap["mode"] == "dense" and snap["completed"] == 4
+        assert snap["prefill_chunks"] == 4 and snap["decode_steps"] == 3 * 11 + 1
+        assert all(s.dense_cache is None for s in eng._running)
+
+    def test_dense_decode_failure_drops_donated_cache(self, monkeypatch):
+        """A failing step may have half-written the sequence's cache (written
+        in place): it is dropped at the step, so a requeue re-prefills."""
+        eng = _engine(mode="dense")
+        monkeypatch.setattr(GenerationEngine, "start", lambda self: None)
+        eng.submit([1, 2, 3], max_new_tokens=4)
+
+        def boom(*a, **k):
+            raise RuntimeError("injected dispatch failure")
+
+        monkeypatch.setattr(TQ, "decode_step", boom)
+        with pytest.raises(RuntimeError, match="injected"):
+            eng._step()  # admits, prefills (first token), then decodes
+        seq = eng._running[0]
+        assert seq.out and seq.dense_cache is None
+
+    def test_dense_eviction_and_readmission_stay_exact(self, monkeypatch):
+        """An evicted dense sequence drops its cache, is requeued at the
+        head, and re-prefills from prompt + emitted tokens: the output is
+        unchanged."""
+        eng = _engine(mode="dense", max_seqs=2)
+        real = GenerationEngine._decode_step
+        evicted = []
+
+        def evicting(self):
+            running = [s for s in self._running if s.state == "decode"]
+            if not evicted and running and len(running[0].out) == 4:
+                victim = running[0]
+                assert victim.dense_cache is not None
+                self._evict(victim)
+                evicted.append(victim)
+                assert victim.dense_cache is None
+                assert self._queue[0] is victim
+            real(self)
+
+        monkeypatch.setattr(GenerationEngine, "_decode_step", evicting)
+        prompts = [_prompt(n, seed=8) for n in (6, 19)]
+        handles = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        outs = [h.result() for h in handles]
+        assert evicted and eng.stats.evictions == 1
+        assert eng.stats.readmissions == 1
+        assert eng.stats.prefill_tokens_re == len(evicted[0].prompt) + 4
+        assert outs == [_dense_ref(p, 10, max_len=64) for p in prompts]
+
+
 class TestScheduling:
     def test_queue_full_sheds(self):
         eng = _engine(max_seqs=1, max_queue=2)
@@ -303,8 +380,13 @@ class TestConstructionAndConfig:
         assert eng.params["tok_emb_f32"].dtype == torch.float32
 
     def test_refuses_dense_mode_and_a_pool_too_small(self):
+        """Dense mode is ported and serves; an unknown mode and a pool too
+        small for one sequence are refused."""
+        prompt = _prompt(9, seed=2)
+        assert _engine(mode="dense").generate(
+            prompt, max_new_tokens=5) == _dense_ref(prompt, 5, max_len=64)
         with pytest.raises(ValueError, match="dense"):
-            _engine(mode="dense")
+            _engine(mode="ragged")
         with pytest.raises(ValueError, match="pool_pages"):
             _engine(pool_pages=4, max_seq_tokens=128)
 
