@@ -66,22 +66,44 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    against an exact float32 scan, each text's own id in its top-100
    within 0.02 of the best, the bf16 streaming kernel launched (its count
    on a log line of its own; the ``kernels`` line keeps its five
-   entries), fused dispatches. The embed engine and the search service
-   stay up for phase 9.
+   entries), fused dispatches. The embed engine stays up for phases 10
+   and 9.
 
+10. hybrid search, run after phase 8 and before phase 9: a port
+   ``MemoryEngine`` holds phase 8's 65,536 texts as nodes (``content`` and
+   the phase-8 embedding) with 2-4 seeded edges a node; a
+   ``SearchService(storage, embedder=CachedEmbedder(<phase 8's engine>))``
+   (the ``cli serve`` stack) with write-behind and batching on is attached
+   and indexed by ``build_indexes``. 32 clients
+   x 8 ``search(query, limit=10)`` calls (40 candidates a leg; half stored
+   texts, half their last two words) while 4 writers make 256 create /
+   update / delete calls through the storage. Checks: each ranking equals
+   ``fuse_rrf`` of its BM25 and vector legs; the vector leg's recall@40
+   >= 0.95 against an exact float32 scan on the card; every stored text
+   finds its node in the top 10 (>= 0.99 asserted); every acknowledged write
+   is read back (an update through a cached ranking made before it) and a
+   deleted node is never served; 64 repeats are cache hits with 0 launches
+   of #2, one text update makes them miss, a recall's touches change
+   neither the generation nor the corpus; 32 two-word searches reranked by
+   a ``BGE_M3``-width cross-encoder (bf16) whose scores are within
+   RERANK_TOL of the same forward in float32 and order the head; 32 with
+   MMR equal to the host ``apply_mmr``. Logged: client p50/p99 and qps, the share of a
+   search in embed, vector leg, BM25, fusion and enrich (spans taken in
+   this script), the rerank forward, the uploader's runs and the query
+   stall, #2's launches (a log line of their own), peak device memory.
 9. a checkpoint and GraphRAG answers: a ``QWEN25_05B`` checkpoint directory
    (weights from ``--seed``, a ``VocabTokenizer`` over phase 8's texts and
    the prompt header) written to a temporary directory and mounted with
    ``load_generator``, every tensor bit for bit; an ``EngineGenerator``
    over a ``GenerationEngine`` on it (sequences of 1,024 tokens); then
    ``GraphRAGService`` answers 32 stored phase-8 texts from 8 clients over
-   a stand-in db: ``recall`` embeds the question with phase 8's engine and
-   serves it through ``SearchService.vector_candidates`` (#2), the vector
-   leg of ``DB.recall`` only, and the storage holds 2-4 seeded edges a
-   node. Every answer is paged, retrieves its own node and generates 1-64
-   tokens; answers after the first wave reuse the cached header pages; #2
-   and #5 both launch (their counts on a log line of their own); 4
-   answers' tokens pass the dense reference.
+   phase 10's storage and hybrid service: ``recall`` is ``DB.recall`` (a
+   hybrid ``search``, then a touch of each hit's access count through
+   ``storage.update_node``, which leaves the index as it was). Every answer
+   is paged, retrieves its own node and generates 1-64 tokens; answers
+   after the first wave reuse the cached header pages; #2 and #5 both
+   launch (their counts on a log line of their own); 4 answers' tokens
+   pass the dense reference.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -192,6 +214,24 @@ RAG_QUESTIONS, RAG_CLIENTS = 32, 8
 RAG_EDGES = (2, 4)
 RAG_SEQ_TOKENS = 1024
 RAG_CHECKED = 4  # answers whose tokens are held against the dense path
+# phase 10: hybrid search over phase 8's texts in a MemoryEngine: 32
+# clients x 8 searches of limit 10 (40 candidates a leg), half stored texts,
+# half their last two words, while 4 writers make 256 create / update /
+# delete calls; 64 repeats for the rank cache; 32 two-word searches
+# reranked by a BGE_M3-width cross-encoder (20 candidates) and 32 with MMR
+HYBRID_CLIENTS, HYBRID_PER_CLIENT, HYBRID_LIMIT = 32, 8, 10
+HYBRID_WRITERS, HYBRID_WRITES = 4, 256
+HYBRID_REPEATS, HYBRID_RERANK, HYBRID_MMR = 64, 32, 32
+# a phase-10 client retries a shed embed (ResourceExhausted) with backoff:
+# 32 clients' BM25 holds the interpreter lock, so the embed engine's
+# dispatcher can miss ServingConfig's 2 s deadline under this load
+BACKOFF_TRIES = 8
+# cross-encoder scores with bf16 weights against the same forward with the
+# weights in float32, both on the card: the bound of the port's bf16 bge-m3
+# against the JAX one (tests/test_torch_bge_m3.py); the head's weights are
+# normal * 0.02 over unit embeddings, so a score moves by at most
+# 0.02 * sqrt(1024) * |d embedding|. Phase 10 logs the gap it measured.
+RERANK_TOL = 0.0035
 # fused cosine kernel vs plain version: both float32 (no TF32); the kernel
 # scales the dot product by the row's inverse norm where the plain version
 # scales the row first, and sums in another order
@@ -1480,8 +1520,8 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
     (ServingConfig defaults) embeds EMBED_TEXTS texts from EMBED_CLIENTS
     clients, checked against the padded per-request path; then a
     SearchService over the embeddings serves EMBED_QUERIES stored texts
-    embedded again. Returns what phase 9 serves from: the texts, the
-    embed engine and the search service, both still running."""
+    embedded again. Returns what phases 10 and 9 serve from: the texts,
+    their embeddings and the embed engine, still running."""
     import torch
 
     from nornicdb_tpu_torch._device import map_tree
@@ -1675,64 +1715,587 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
         "own text", own_rank.min(), own_gap.max())
     assert launches > 0, "the search missed the bf16 streaming kernel"
     assert dispatches < EMBED_QUERIES, ("no fusion", dispatches)
-    return {"texts": texts, "engine": eng, "service": svc}
+    svc.shutdown()
+    return {"texts": texts, "embs": embs, "engine": eng}
 
 
-class _RagNode:
-    def __init__(self, content: str):
-        self.properties = {"content": content}
+def build_graph(texts: list, embs: np.ndarray, seed: int):
+    """Phase 10.1: a port MemoryEngine holding each phase-8 text as node
+    ``t<i>`` (property ``content``, its phase-8 embedding) with
+    RAG_EDGES[0]..RAG_EDGES[1] outgoing edges to seeded random nodes."""
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    storage = MemoryEngine()
+    t0 = time.perf_counter()
+    for i, text in enumerate(texts):
+        storage.create_node(Node(id=f"t{i}", labels=["Doc"],
+                                 properties={"content": text},
+                                 embedding=embs[i]))
+    t_nodes = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 10)
+    deg = rng.integers(RAG_EDGES[0], RAG_EDGES[1] + 1, len(texts))
+    src = np.repeat(np.arange(len(texts)), deg)
+    dst = rng.integers(0, len(texts), src.size)
+    t0 = time.perf_counter()
+    for k, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        storage.create_edge(Edge(id=f"e{k}", start_node=f"t{a}",
+                                 end_node=f"t{b}"))
+    log(f"[phase10] storage: {storage.node_count()} nodes in {t_nodes:.1f}s, "
+        f"{storage.edge_count()} edges in {time.perf_counter() - t0:.1f}s")
+    return storage
 
 
-class _RagEdge:
-    __slots__ = ("id", "start_node", "end_node", "type")
+class _Spans:
+    """perf_counter spans of the search a client thread runs, taken by
+    wrapping the service's stages in this script (the package has no
+    timers): each wrapped stage adds its seconds, arguments and result to
+    the thread's record while one is open."""
 
-    def __init__(self, k: int, start: int, end: int):
-        self.id, self.start_node, self.end_node, self.type = (
-            f"e{k}", f"t{start}", f"t{end}", "RELATED_TO")
+    def __init__(self):
+        self.local = threading.local()
+
+    def begin(self) -> dict:
+        self.local.rec = {}
+        return self.local.rec
+
+    def end(self) -> None:
+        self.local.rec = None
+
+    def wrap(self, name: str, fn):
+        local = self.local
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            rec = getattr(local, "rec", None)
+            if rec is not None:
+                rec[name] = rec.get(name, 0.0) + time.perf_counter() - t
+                rec[name + "_in"], rec[name + "_out"] = a, out
+            return out
+
+        return timed
 
 
-class _RagStorage:
-    """The graph of phase 9: node ``t<i>`` has RAG_EDGES[0]..RAG_EDGES[1]
-    outgoing edges to seeded random nodes, held as CSR arrays (edge k runs
-    src[k] -> dst[k]; edges made on demand)."""
+class _SpanEmbedder:
+    """The service's embedder with its ``embed`` timed."""
 
-    def __init__(self, n: int, rng):
-        deg = rng.integers(RAG_EDGES[0], RAG_EDGES[1] + 1, n)
-        self.src = np.repeat(np.arange(n), deg)
-        self.dst = rng.integers(0, n, self.src.size)
-        self.out_ptr = np.concatenate([[0], np.cumsum(deg)])
-        self.in_order = np.argsort(self.dst, kind="stable")
-        self.in_ptr = np.searchsorted(self.dst[self.in_order],
-                                      np.arange(n + 1))
+    def __init__(self, inner, spans: _Spans):
+        self.inner = inner
+        self.embed = spans.wrap("embed", inner.embed)
 
-    def get_outgoing_edges(self, nid: str) -> list:
-        i = int(nid[1:])
-        return [_RagEdge(k, i, int(self.dst[k]))
-                for k in range(self.out_ptr[i], self.out_ptr[i + 1])]
+    def dimensions(self) -> int:
+        return self.inner.dimensions()
 
-    def get_incoming_edges(self, nid: str) -> list:
-        i = int(nid[1:])
-        ks = self.in_order[self.in_ptr[i]:self.in_ptr[i + 1]]
-        return [_RagEdge(int(k), int(self.src[k]), i) for k in ks]
+
+class _Backoff:
+    """How a client answers the embed engine's load shedding: a
+    ResourceExhausted (the 429 of the HTTP edge) is retried after a backoff
+    that doubles from 50 ms, at most BACKOFF_TRIES times. Counts the sheds,
+    which the phase logs."""
+
+    def __init__(self):
+        self.sheds = 0
+        self._mu = threading.Lock()
+
+    def __call__(self, fn, *a, **kw):
+        from nornicdb_tpu_torch.errors import ResourceExhausted
+
+        delay = 0.05
+        for _ in range(BACKOFF_TRIES - 1):
+            try:
+                return fn(*a, **kw)
+            except ResourceExhausted:
+                with self._mu:
+                    self.sheds += 1
+                time.sleep(delay)
+                delay = min(2 * delay, 1.0)
+        return fn(*a, **kw)
+
+
+def recorded_search(svc, spans: _Spans, query: str) -> tuple:
+    """``search(query)`` and the record of its stages' spans."""
+    rec = spans.begin()
+    return svc.search(query, limit=HYBRID_LIMIT), rec
+
+
+def two_words(text: str) -> str:
+    """A keyword-like query: the last two words of a stored text (its last
+    word is unique to it)."""
+    return " ".join(text.split()[-2:])
+
+
+def _fused_head(rec: dict, query: str, cfg) -> list:
+    """The ranking ``_rank`` must give for one search, computed here from
+    the legs it recorded: fuse_rrf with the adaptive weights, cut to the
+    service's head."""
+    from nornicdb_tpu_torch.search.fusion import adaptive_rrf_weights, fuse_rrf
+
+    ranked = {}
+    if rec.get("vector_out") is not None:
+        ranked["vector"] = [i for i, _ in rec["vector_out"]]
+    if rec.get("bm25_out"):
+        ranked["fulltext"] = [i for i, _ in rec["bm25_out"]]
+    return fuse_rrf(ranked, adaptive_rrf_weights(query), cfg.rrf_k)
+
+
+def drive_hybrid(svc, spans: _Spans, queries: list, storage, embedder,
+                 seed: int, retry: _Backoff) -> dict:
+    """Phase 10.3: HYBRID_CLIENTS closed-loop clients run ``search`` over
+    ``queries`` while HYBRID_WRITERS threads make HYBRID_WRITES
+    create/update/delete calls through the storage. Each acknowledged write
+    is read back: after a create or an update a search for the written text
+    returns the node (a search for the new text just before the update
+    cached a ranking without it, so a stale cache would fail), after a
+    delete it never does. Every call goes through ``retry``."""
+    from nornicdb_tpu_torch.storage import Node
+
+    n = len(queries)
+    results: list = [None] * n
+    recs: list = [None] * n
+    lat = np.zeros(n)
+    errors: list = []
+    deleted: set = set()
+    acks = {"writes": 0, "rank1": 0, "stale_guarded": 0}
+    mu = threading.Lock()
+
+    def client(t: int) -> None:
+        try:
+            for i in range(t, n, HYBRID_CLIENTS):
+                t1 = time.perf_counter()
+                results[i], recs[i] = retry(recorded_search, svc, spans,
+                                            queries[i])
+                lat[i] = time.perf_counter() - t1
+                spans.end()
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    def written(w: int, c: int, v: int, wrng) -> str:
+        return f"{wrng.choice(EMBED_WORDS)} wr{w}c{c}v{v} note{w}x{c}x{v}"
+
+    def found(text: str) -> list:
+        return [r["id"] for r in retry(svc.search, text, limit=HYBRID_LIMIT)]
+
+    def writer(w: int) -> None:
+        wrng = np.random.default_rng(seed + 100 + w)
+        try:
+            for c in range(HYBRID_WRITES // HYBRID_WRITERS // 4):
+                nid = f"w{w}_{c}"
+                text = written(w, c, 0, wrng)
+                storage.create_node(Node(
+                    id=nid, labels=["Note"], properties={"content": text},
+                    embedding=retry(embedder.embed, text)))
+                ids = found(text)
+                assert nid in ids, ("created node not served", nid, ids)
+                with mu:
+                    acks["writes"] += 1
+                    acks["rank1"] += ids[0] == nid
+                for v in (1, 2):
+                    new = written(w, c, v, wrng)
+                    before = found(new)  # cached: a ranking without it
+                    node = storage.get_node(nid)
+                    node.properties["content"] = new
+                    node.embedding = retry(embedder.embed, new)
+                    storage.update_node(node)
+                    ids = found(new)
+                    assert nid in ids, ("updated node not served", nid, ids)
+                    text = new
+                    with mu:
+                        acks["writes"] += 1
+                        acks["rank1"] += ids[0] == nid
+                        acks["stale_guarded"] += nid not in before
+                with mu:
+                    deleted.add(nid)
+                storage.delete_node(nid)
+                ids = found(text)
+                assert nid not in ids, ("deleted node served", nid)
+                with mu:
+                    acks["writes"] += 1
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = ([threading.Thread(target=client, args=(t,))
+                for t in range(HYBRID_CLIENTS)]
+               + [threading.Thread(target=writer, args=(w,))
+                  for w in range(HYBRID_WRITERS)])
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads[:HYBRID_CLIENTS]:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for th in threads[HYBRID_CLIENTS:]:
+        th.join(timeout=600)
+    wall_writes = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads), "hybrid thread hung"
+    assert acks["writes"] == HYBRID_WRITES, acks
+    return dict(results=results, recs=recs, lat=lat, wall=wall,
+                wall_writes=wall_writes, deleted=deleted, acks=acks)
+
+
+def in_threads(fn, items: list, n_threads: int = 16) -> None:
+    """``fn`` over ``items`` from ``n_threads`` threads; errors re-raised."""
+    errors: list = []
+
+    def worker(t: int) -> None:
+        try:
+            for item in items[t::n_threads]:
+                fn(item)
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(n_threads)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads), "thread hung"
+
+
+def wait_drained(corpus, timeout: float = 30.0) -> None:
+    """Until the write-behind uploader has patched every dirty block."""
+    deadline = time.perf_counter() + timeout
+    while corpus._dirty_blocks or corpus._full_dirty:
+        assert time.perf_counter() < deadline, "uploader did not drain"
+        time.sleep(0.002)
+
+
+def phase_hybrid(K, seed: int, served: dict) -> dict:
+    """Phase 10: hybrid search over phase 8's corpus in a port MemoryEngine
+    (graph of build_graph): a SearchService(storage, embedder=phase 8's
+    engine behind a CachedEmbedder, the ``cli serve`` stack) attached and
+    indexed by build_indexes, with write-behind and batching on and
+    candidates_multiplier 4; the writers embed their texts through the same
+    cached embedder, as the EmbedWorker would. Then the traffic of
+    drive_hybrid, and the checks of fusion, vector-leg recall, own nodes,
+    the rank cache, the cross-encoder rerank and MMR. Returns the storage
+    and the service (phase 9 retrieves through them) and #2's launches in
+    the traffic."""
+    import dataclasses as dc
+
+    import torch
+
+    from nornicdb_tpu_torch._device import map_tree
+    from nornicdb_tpu_torch.embed import CachedEmbedder
+    from nornicdb_tpu_torch.models import bge_m3 as B
+    from nornicdb_tpu_torch.search import SearchConfig, SearchService
+    from nornicdb_tpu_torch.search import service as SV
+    from nornicdb_tpu_torch.search.fusion import apply_mmr
+    from nornicdb_tpu_torch.search.rerank import CrossEncoderReranker
+    from nornicdb_tpu_torch.storage import Node
+
+    texts, embs = served["texts"], served["embs"]
+    eng = CachedEmbedder(served["engine"])
+    torch.cuda.reset_peak_memory_stats()
+    storage = build_graph(texts, embs, seed)
+
+    # -- 10.2 the service, attached and indexed from storage
+    cfg = SearchConfig(candidates_multiplier=4, write_behind=True,
+                       batching_enabled=True)
+    svc = SearchService(storage, embedder=eng, config=cfg, device="cuda")
+    svc.attach(storage)
+    spans = _Spans()
+    retry = _Backoff()
+    sheds0 = served["engine"].stats.sheds_deadline
+    bm25_index = svc._bm25.index
+    bm25_s = [0.0]
+
+    def timed_index(doc_id, text):
+        t = time.perf_counter()
+        bm25_index(doc_id, text)
+        bm25_s[0] += time.perf_counter() - t
+
+    svc._bm25.index = timed_index
+    t0 = time.perf_counter()
+    n_indexed = svc.build_indexes()
+    t_build = time.perf_counter() - t0
+    corpus = svc.corpus()
+    wait_drained(corpus)
+    t_drain = time.perf_counter() - t0 - t_build
+    svc._bm25.index = bm25_index
+    sync0 = corpus.sync_stats.as_dict()
+    log(f"[phase10] build_indexes {n_indexed} nodes in {t_build:.2f}s (BM25 "
+        f"index {bm25_s[0]:.2f}s, fingerprints + corpus adds + locks "
+        f"{t_build - bm25_s[0]:.2f}s), uploader drained {t_drain:.3f}s "
+        f"later; BM25 docs {len(svc._bm25)}, corpus rows {len(corpus)} "
+        f"capacity {corpus.capacity}; sync {json.dumps(sync0)}")
+    assert n_indexed == len(texts) == len(svc._bm25) == len(corpus)
+    assert corpus._uploader is not None and sync0["uploader_runs"] > 0
+
+    # -- 10.3 the traffic: half stored texts, half their last two words
+    rng = np.random.default_rng(seed + 11)
+    n_q = HYBRID_CLIENTS * HYBRID_PER_CLIENT
+    rows = rng.choice(len(texts), size=n_q + HYBRID_RERANK + HYBRID_MMR,
+                      replace=False)
+    q_rows = rows[:n_q]
+    queries = [texts[r] if i % 2 == 0 else two_words(texts[r])
+               for i, r in enumerate(q_rows)]
+    svc.embedder = _SpanEmbedder(eng, spans)
+    svc.vector_candidates = spans.wrap("vector", svc.vector_candidates)
+    svc._bm25.search = spans.wrap("bm25", svc._bm25.search)
+    svc._enrich = spans.wrap("enrich", svc._enrich)
+    svc._rank = spans.wrap("rank", svc._rank)
+    fuse = SV.fuse_rrf
+    SV.fuse_rrf = spans.wrap("fusion", fuse)
+    try:
+        K.reset_launch_counts()
+        s0 = dc.replace(corpus.sync_stats)
+        run = drive_hybrid(svc, spans, queries, storage, eng, seed, retry)
+        launches = K.launch_counts()["streaming_topk_bf16"]
+        s1 = dc.replace(corpus.sync_stats)
+        wait_drained(corpus)
+        deleted = run["deleted"]
+
+        # fusion: each ranking is fuse_rrf of its two legs
+        ranked, hits_in_traffic = 0, 0
+        for q, res, rec in zip(queries, run["results"], run["recs"]):
+            if "rank" not in rec:
+                hits_in_traffic += 1
+                continue
+            ranked += 1
+            head = _fused_head(rec, q, cfg)[:max(HYBRID_LIMIT,
+                                                 cfg.rerank_candidates)]
+            got_ids = {r["id"] for r in res}
+            want = [(i, sc) for i, sc in head
+                    if i in got_ids or i not in deleted][:HYBRID_LIMIT]
+            assert [(r["id"], r["score"]) for r in res] == want, (
+                "fusion", q)
+        # the vector leg against an exact float32 scan of the same rows
+        legs = [(rec["vector_in"][0], rec["vector_out"])
+                for rec in run["recs"] if "rank" in rec]
+        qv = np.stack([np.asarray(e, np.float32) for e, _ in legs])
+        qv /= np.linalg.norm(qv, axis=1, keepdims=True)
+        n_cand = HYBRID_LIMIT * cfg.candidates_multiplier
+        with corpus._borrow_device() as (dev, valid, _, slot_ids, _):
+            gt = ground_truth(qv, dev, valid, n_cand)
+            gt_ids = [{slot_ids[s] for s in g} for g in gt]
+        del dev, valid
+        rec_leg = recall([leg for _, leg in legs], gt_ids)
+        writer_hits = sum(1 for _, leg in legs for i, _ in leg
+                          if i.startswith("w"))
+        # own node: rank 1 and top-10 shares by half
+        own = np.array([[r["id"] for r in res].index(f"t{row}")
+                        if f"t{row}" in [r["id"] for r in res] else -1
+                        for res, row in zip(run["results"], q_rows)])
+        top_stored = float((own[0::2] >= 0).mean())
+        top_words = float((own[1::2] >= 0).mean())
+        # the share of a search in each stage
+        span = {k: sum(rec.get(k, 0.0) for rec in run["recs"])
+                for k in ("embed", "vector", "bm25", "fusion", "enrich")}
+        total = float(run["lat"].sum())
+        lat = run["lat"]
+        embed_ms = np.array([rec.get("embed", 0.0) for rec in run["recs"]
+                             if "rank" in rec]) * 1e3
+        log(f"[phase10] {n_q} searches from {HYBRID_CLIENTS} clients in "
+            f"{run['wall']:.3f}s qps={n_q / run['wall']:.1f} client "
+            f"p50={np.median(lat) * 1e3:.2f}ms "
+            f"p99={np.percentile(lat, 99) * 1e3:.2f}ms "
+            f"(stored-text half p50 {np.median(lat[0::2]) * 1e3:.2f}ms, "
+            f"two-word half {np.median(lat[1::2]) * 1e3:.2f}ms); "
+            f"{HYBRID_WRITES} writes from {HYBRID_WRITERS} writers done at "
+            f"{run['wall_writes']:.3f}s, {run['acks']['rank1']} of "
+            f"{HYBRID_WRITES * 3 // 4} written texts served their node first, "
+            f"{run['acks']['stale_guarded']} updates read back through a "
+            f"cached ranking made before them; share of search time: "
+            + ", ".join(f"{k} {v / total:.4f}" for k, v in span.items())
+            + f", other {1 - sum(span.values()) / total:.4f} (of "
+            f"{total:.3f}s summed over the searches); the embed span p50 "
+            f"{np.median(embed_ms):.2f}ms p99 {np.percentile(embed_ms, 99):.2f}"
+            f"ms max {embed_ms.max():.2f}ms (the engine sheds past "
+            f"{served['engine'].config.deadline_ms:.0f}ms: "
+            f"{served['engine'].stats.sheds_deadline - sheds0} embed sheds, "
+            f"{retry.sheds} calls retried)")
+        log(f"[phase10] fusion equal to fuse_rrf of the legs on {ranked} "
+            f"ranked searches ({hits_in_traffic} cache hits); vector leg "
+            f"recall@{n_cand}={rec_leg:.4f} against an exact float32 scan "
+            f"({writer_hits} writer nodes in the legs); own node first "
+            f"{float((own[0::2] == 0).mean()):.4f} / "
+            f"{float((own[1::2] == 0).mean()):.4f}, in the top "
+            f"{HYBRID_LIMIT} {top_stored:.4f} / {top_words:.4f} (stored text / "
+            f"two words); uploader runs "
+            f"{s1.uploader_runs - s0.uploader_runs} patches "
+            f"{s1.patches - s0.patches} full uploads "
+            f"{s1.full_uploads - s0.full_uploads} errors "
+            f"{s1.uploader_errors}, query stall "
+            f"{(s1.query_stall_s - s0.query_stall_s) * 1e3:.2f}ms")
+        log(f"[phase10] streaming_topk_bf16 launches in the traffic: "
+            f"{launches}")
+        assert ranked + hits_in_traffic == n_q
+        assert rec_leg >= 0.95, ("vector leg recall", rec_leg)
+        assert top_stored >= 0.99, ("own node", top_stored)
+        assert launches > 0, "the vector leg missed the bf16 kernel"
+        assert s1.uploader_errors == 0
+
+        # -- 10.4 the rank cache: repeats hit, a text change misses, a
+        # recall's touches change nothing
+        t0 = time.perf_counter()
+        x_text = "cache probe node uniqx"
+        storage.create_node(Node(id="x0", properties={"content": x_text},
+                                 embedding=retry(eng.embed, x_text)))
+        repeat = queries[1::2][:HYBRID_REPEATS]  # two-word queries
+        in_threads(lambda q: retry(svc.search, q, limit=HYBRID_LIMIT), repeat)
+        searches0 = svc.stats.searches
+        rank_calls: list = []
+        rank = svc._rank
+
+        def counted_rank(*a, **kw):
+            out = rank(*a, **kw)
+            rank_calls.append(a[0])
+            return out
+
+        svc._rank = counted_rank
+        K.reset_launch_counts()
+        hit_lat = []
+        for q in repeat:
+            t1 = time.perf_counter()
+            svc.search(q, limit=HYBRID_LIMIT)
+            hit_lat.append(time.perf_counter() - t1)
+        hit_launches = K.launch_counts()["streaming_topk_bf16"]
+        assert not rank_calls and hit_launches == 0, (
+            "repeats not served from the cache", len(rank_calls),
+            hit_launches)
+        node = storage.get_node("x0")
+        node.properties["content"] = x_text + " changed"
+        storage.update_node(node)
+        in_threads(lambda q: retry(svc.search, q, limit=HYBRID_LIMIT), repeat)
+        assert len(rank_calls) == HYBRID_REPEATS, (
+            "an update left cached rankings alive", len(rank_calls))
+        wait_drained(corpus)
+        gen, epoch = svc._generation, corpus.stats()["epoch"]
+        touched = retry(svc.search, queries[0], limit=HYBRID_LIMIT)
+        for r in touched:  # DB.recall's touch
+            node = storage.get_node(r["id"])
+            node.access_count += 1
+            node.last_accessed = time.time()
+            storage.update_node(node)
+        n_rank = len(rank_calls)
+        svc.search(queries[0], limit=HYBRID_LIMIT)
+        assert svc._generation == gen and corpus.stats()["epoch"] == epoch
+        assert not corpus._dirty_blocks and len(rank_calls) == n_rank, (
+            "a touch dirtied the index")
+        log(f"[phase10] rank cache: {HYBRID_REPEATS} repeats all hits "
+            f"(0 ranks, 0 launches of #2), hit p50 "
+            f"{np.median(hit_lat) * 1e3:.3f}ms; one update_node of a text: "
+            f"all {HYBRID_REPEATS} repeats ranked again; {len(touched)} "
+            f"touches (access count) left generation {gen}, corpus epoch "
+            f"{epoch} and the dirty blocks as they were; "
+            f"{svc.stats.searches - searches0} searches, "
+            f"{time.perf_counter() - t0:.1f}s")
+        svc._rank = rank
+
+        # -- 10.5 the cross-encoder at bge-m3's width, against float32
+        t0 = time.perf_counter()
+        rr = CrossEncoderReranker(cfg=B.BGE_M3, seed=seed + 10,
+                                  device="cuda")
+        rr.score_pairs(texts[0], texts[1:1 + cfg.rerank_candidates])  # warm
+        sync()
+        t_init = time.perf_counter() - t0
+        rr_log: list = []
+        rerank = rr.rerank
+
+        def recorded_rerank(query, candidates, limit=0):
+            t1 = time.perf_counter()
+            out = rerank(query, candidates, limit)
+            rr_log.append((query, candidates, out,
+                           time.perf_counter() - t1))
+            return out
+
+        rr.rerank = recorded_rerank
+        svc.set_reranker(rr)
+        svc.config.rerank_enabled = True
+        rr_rows = rows[n_q:n_q + HYBRID_RERANK]
+        rr_res = [retry(svc.search, two_words(texts[r]), limit=HYBRID_LIMIT)
+                  for r in rr_rows]
+        svc.config.rerank_enabled = False
+        assert len(rr_log) == HYBRID_RERANK
+        params32 = map_tree(lambda t: t.float(), rr.params)
+        ref = CrossEncoderReranker(cfg=dc.replace(B.BGE_M3, dtype="float32"),
+                                   params=params32, head=rr.head,
+                                   tokenizer=rr.tokenizer,
+                                   max_len=rr.max_len, device="cuda")
+        err = 0.0
+        widths = []
+        for (q, cands, out, _), res in zip(rr_log, rr_res):
+            assert len(cands) == cfg.rerank_candidates
+            scores = [sc for _, sc in out]
+            assert scores == sorted(scores, reverse=True)
+            assert [r["id"] for r in res] == [i for i, _ in out][
+                :HYBRID_LIMIT], ("reranked head", q)
+            want = ref.score_pairs(q, [t for _, t in cands])
+            got = dict(out)
+            err = max(err, max(abs(got[c[0]] - float(w))
+                               for c, w in zip(cands, want)))
+            widths.append(len(rr.tokenizer.encode_batch(
+                [f"{q} [SEP] {t}" for _, t in cands],
+                max_len=rr.max_len)[0][0]))
+        del ref, params32
+        torch.cuda.empty_cache()
+        rr_ms = np.array([dt for *_, dt in rr_log]) * 1e3
+        log(f"[phase10] rerank: BGE_M3 cross-encoder (bf16, seed "
+            f"{seed + 10}) built and warmed in {t_init:.2f}s; "
+            f"{HYBRID_RERANK} searches with {cfg.rerank_candidates} "
+            f"candidates, forward p50 {np.median(rr_ms):.2f}ms p99 "
+            f"{np.percentile(rr_ms, 99):.2f}ms at (20, {int(np.min(widths))}"
+            f"-{int(np.max(widths))}) tokens; the head ordered by its "
+            f"scores; max |bf16 - float32| {err:.6f} (at most {RERANK_TOL})")
+        assert err <= RERANK_TOL, ("rerank vs float32", err)
+
+        # -- 10.6 MMR against the host apply_mmr on the same inputs
+        svc.config.mmr_enabled = True
+        mmr_rows = rows[n_q + HYBRID_RERANK:]
+        changed = 0
+        for r in mmr_rows:
+            q = two_words(texts[r])
+            res, rec = retry(recorded_search, svc, spans, q)
+            spans.end()
+            fused = _fused_head(rec, q, cfg)
+            order = [i for i, _ in fused]
+            vecs = {}
+            for i in order:
+                e = np.asarray(storage.get_node(i).embedding, np.float32)
+                vecs[i] = e / np.linalg.norm(e)
+            want = apply_mmr(order, dict(fused), vecs, HYBRID_LIMIT,
+                             cfg.mmr_lambda)
+            assert [x["id"] for x in res] == want, ("mmr", r)
+            changed += want != order[:HYBRID_LIMIT]
+        svc.config.mmr_enabled = False
+        log(f"[phase10] MMR (lambda {cfg.mmr_lambda}): {HYBRID_MMR} "
+            f"searches equal to the host apply_mmr over storage's vectors, "
+            f"{changed} of them reordered against plain fusion; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f}GiB")
+    finally:
+        SV.fuse_rrf = fuse
+        svc.embedder = eng
+        for name in ("vector_candidates", "_enrich", "_rank"):
+            svc.__dict__.pop(name, None)
+        svc._bm25.__dict__.pop("search", None)
+        svc.set_reranker(None)
+    return {"storage": storage, "service": svc,
+            "streaming_topk_bf16": launches}
 
 
 class _RagDB:
-    """A stand-in for the JAX package's ``DB`` as ``GraphRAGService`` reads
-    it: ``recall`` is the vector leg of ``DB.recall`` only (the question
-    embedded by phase 8's engine, then ``SearchService.vector_candidates``;
-    the BM25 leg and its fusion are not ported), ``storage`` the seeded
-    graph, ``genserve_engine()`` the engine behind the generator."""
+    """The JAX package's ``DB`` as ``GraphRAGService`` reads it, over phase
+    10's storage and hybrid service: ``recall`` is ``DB.recall`` (a hybrid
+    ``search``, then a touch of each hit: its access count through
+    ``storage.update_node``), ``genserve_engine()`` the engine behind the
+    generator."""
 
-    def __init__(self, texts, embed_engine, service, storage, gen_engine):
-        self.texts, self.embed, self.service = texts, embed_engine, service
-        self.storage, self._engine = storage, gen_engine
+    def __init__(self, storage, service, gen_engine):
+        self.storage, self.service, self._engine = storage, service, gen_engine
 
     def recall(self, question: str, limit: int = 10) -> list:
-        vec = self.embed.embed_batch([question])[0]
-        return [{"id": i, "score": float(sc),
-                 "content": self.texts[int(i[1:])],
-                 "node": _RagNode(self.texts[int(i[1:])])}
-                for i, sc in self.service.vector_candidates(vec, k=limit)]
+        results = self.service.search(question, limit=limit)
+        for r in results:
+            node = self.storage.get_node(r["id"])
+            node.access_count += 1
+            node.last_accessed = time.time()
+            self.storage.update_node(node)
+        return results
 
     def genserve_engine(self):
         return self._engine
@@ -1802,12 +2365,13 @@ def mount_checkpoint(seed: int, texts: list):
     return gen
 
 
-def phase_rag(K, seed: int, served: dict) -> dict:
+def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
     """Phase 9: the checkpoint of ``mount_checkpoint`` served through an
     ``EngineGenerator`` over a ``GenerationEngine``; ``GraphRAGService``
-    answers RAG_QUESTIONS stored phase-8 texts from RAG_CLIENTS clients
-    over phase 8's embed engine and search service. Returns the launches
-    of #2 and #5 in the traffic."""
+    answers RAG_QUESTIONS stored phase-8 texts from RAG_CLIENTS clients,
+    retrieving through phase 10's storage and hybrid service (which embeds
+    with phase 8's engine). Returns the launches of #2 and #5 in the
+    traffic."""
     import torch
 
     from nornicdb_tpu_torch.config import GenServeConfig
@@ -1831,14 +2395,12 @@ def phase_rag(K, seed: int, served: dict) -> dict:
         sync()
         t_warm = time.perf_counter() - t0
         rng = np.random.default_rng(seed + 9)
-        t0 = time.perf_counter()
-        storage = _RagStorage(len(texts), rng)
-        db = _RagDB(texts, served["engine"], served["service"], storage,
-                    eng)
+        storage, svc = hybrid["storage"], hybrid["service"]
+        db = _RagDB(storage, svc, eng)
         rag = GraphRAGService(db, config=gcfg)
         log(f"[phase9] engine warmup {t_warm:.1f}s; graph "
-            f"{storage.src.size} edges over {len(texts)} nodes in "
-            f"{time.perf_counter() - t0:.1f}s")
+            f"{storage.edge_count()} edges over {storage.node_count()} "
+            f"nodes (phase 10's storage)")
         # the prompts the service submits, with their handles, for the dense
         # check below
         submitted: list = []
@@ -1870,6 +2432,8 @@ def phase_rag(K, seed: int, served: dict) -> dict:
                 errors.append(e)
 
         torch.cuda.reset_peak_memory_stats()
+        gen0 = svc._generation
+        epoch0 = svc.corpus().stats()["epoch"]
         K.reset_launch_counts()
         st0 = dataclasses.replace(eng.stats)
         threads = [threading.Thread(target=client, args=(t,))
@@ -1903,7 +2467,12 @@ def phase_rag(K, seed: int, served: dict) -> dict:
             f"{peak / 2**30:.3f}GiB")
         log(f"[phase9] launches in the traffic: streaming_topk_bf16="
             f"{counts['streaming_topk_bf16']} ragged_paged_attention="
-            f"{counts['ragged_paged_attention']}")
+            f"{counts['ragged_paged_attention']}; retrieve p99="
+            f"{np.percentile(retrieve, 99):.2f}ms; the recalls' touches left "
+            f"the search generation ({svc._generation}) and corpus epoch "
+            f"as they were")
+        assert svc._generation == gen0, "a recall's touch re-indexed"
+        assert svc.corpus().stats()["epoch"] == epoch0
         assert len(submitted) == RAG_QUESTIONS
         for i, a in enumerate(answers):
             assert a["mode"] == "paged", a["mode"]
@@ -1970,6 +2539,7 @@ def main() -> int:
         from nornicdb_tpu_torch.ops import kernels_ref as R
         from nornicdb_tpu_torch.ops import similarity as S
         from nornicdb_tpu_torch.search import SearchConfig, SearchService
+        from nornicdb_tpu_torch.storage import Node
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -2055,16 +2625,12 @@ def main() -> int:
     for rid in removed:
         svc.remove_node(rid)
 
-    class _Node:
-        def __init__(self, id_, emb):
-            self.id, self.embedding = id_, emb
-
     extra = rng.standard_normal((48, DIMS), dtype=np.float32)
 
     def writes() -> None:
         # random rows score ~0 against every query: never in a top-k
         for i in range(48):
-            svc.index_node(_Node(f"new{i}", extra[i]))
+            svc.index_node(Node(id=f"new{i}", embedding=extra[i]))
             if i % 8 == 7:
                 svc.remove_node(f"new{i - 4}")
             time.sleep(0.002)
@@ -2103,7 +2669,7 @@ def main() -> int:
     assert rec2 >= 0.95, ("serving recall", rec2)
     if args.profile:
         profile_search(corpus, qs_serve, k, 16, out_dir)
-    svc.close()
+    svc.shutdown()
     # `inner` is a bound method of the service: while it lives, so do the
     # service and its 3.8 GiB corpus buffer
     del svc, corpus, dev, valid, inner, timed_batch
@@ -2178,7 +2744,7 @@ def main() -> int:
     log(f"[phase6] {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     phase_ivf(svc, corpus, qs_serve, k, phase2)
-    svc.close()
+    svc.shutdown()
     del svc, corpus
     gc.collect()
     torch.cuda.empty_cache()
@@ -2189,17 +2755,23 @@ def main() -> int:
     served = phase_embed(K, args.seed, k, out_dir if args.profile else "")
     log(f"[phase8] {time.perf_counter() - t0:.1f}s")
 
-    # -- phase 9: a checkpoint and GraphRAG answers over phase 8's corpus
-    t0 = time.perf_counter()
+    # -- phase 10: hybrid search over phase 8's corpus in a MemoryEngine;
+    # phase 9: a checkpoint and GraphRAG answers retrieving through it
     try:
-        phase_rag(K, args.seed, served)
+        t0 = time.perf_counter()
+        hybrid = phase_hybrid(K, args.seed, served)
+        log(f"[phase10] {time.perf_counter() - t0:.1f}s")
+        try:
+            t0 = time.perf_counter()
+            phase_rag(K, args.seed, served, hybrid)
+            log(f"[phase9] {time.perf_counter() - t0:.1f}s")
+        finally:
+            hybrid["service"].shutdown()
     finally:
         served["engine"].stop()
-        served["service"].close()
-    del served
+    del served, hybrid
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[phase9] {time.perf_counter() - t0:.1f}s")
 
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],

@@ -1,7 +1,9 @@
 """NornicDB's vector-search tier, embed serving and paged-KV generation
 serving in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
-(sm_90a): ``search`` (``SearchService``), ``serving`` (``ServingEngine``
-over ``embed.DeviceEmbedder``, the bge-m3 encoder of ``models``),
+(sm_90a): ``search`` (the hybrid ``SearchService``: device vector search,
+BM25, RRF fusion, rerank, MMR, over a ``storage.MemoryEngine``),
+``serving`` (``ServingEngine`` over ``embed.DeviceEmbedder``, the bge-m3
+encoder of ``models``),
 ``genserve`` (``GenerationEngine`` over the Qwen2 decoder of ``models``, and
 ``GraphRAGService`` answering over search and generation) and ``heimdall``
 (the assistant's generators; ``models.pretrain.load_generator`` mounts a

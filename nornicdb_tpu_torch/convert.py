@@ -1,5 +1,6 @@
 """Carry state from the JAX package into the port: corpus state (search),
-Qwen2 parameters (generation) and bge-m3 parameters (embedding).
+Qwen2 parameters (generation), bge-m3 parameters (embedding) and the
+cross-encoder's parameters and head (rerank).
 
 For the search tier the state takes the place of a model's weights: the rows,
 their validity and the id -> slot layout. Indices must mean the same thing
@@ -74,3 +75,12 @@ def bge_params_from_jax(params, device: DeviceLike = None) -> dict:
     """The port's bge-m3 parameters from the JAX ones
     (``_params_from_jax``)."""
     return _params_from_jax(params, device)
+
+
+def reranker_params_from_jax(params, head, device: DeviceLike = None
+                             ) -> tuple[dict, dict]:
+    """The port's cross-encoder weights from the JAX ``CrossEncoderReranker``'s
+    ``params`` and ``head`` given as numpy arrays: ``(params, head)`` for
+    ``search.rerank.CrossEncoderReranker(params=..., head=...)``, every leaf
+    with the same dtype and bits."""
+    return _params_from_jax(params, device), _params_from_jax(head, device)

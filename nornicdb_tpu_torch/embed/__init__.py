@@ -2,8 +2,9 @@
 encoder on the card (``DeviceEmbedder``), the deterministic
 ``HashEmbedder`` and the content-hash LRU ``CachedEmbedder``.
 
-The HTTP embedders and ``embed/queue.py``'s background EmbedWorker are not
-ported yet (ROADMAP)."""
+``embed/queue.py`` holds ``build_embedding_text`` (which text of a node is
+embedded and indexed); its background EmbedWorker and the HTTP embedders
+are not ported yet (ROADMAP)."""
 
 from nornicdb_tpu_torch.embed.base import (
     CachedEmbedder,

@@ -1,6 +1,6 @@
-"""Error types of the port: copies of the ones the search and generation
-slices raise or catch (``nornicdb_tpu/errors.py``), kept here so the port
-imports nothing of the JAX package."""
+"""Error types of the port: copies of the ones the search, storage and
+generation slices raise or catch (``nornicdb_tpu/errors.py``), kept here so
+the port imports nothing of the JAX package."""
 
 
 class NornicError(Exception):
@@ -10,6 +10,11 @@ class NornicError(Exception):
 class NotFoundError(NornicError):
     """Entity (node/edge/database/index) does not exist. GraphRAG's graph
     expansion skips a hit whose node is gone."""
+
+
+class AlreadyExistsError(NornicError):
+    """Entity with this id already exists (``MemoryEngine.create_node`` /
+    ``create_edge``)."""
 
 
 class ResourceExhausted(NornicError):

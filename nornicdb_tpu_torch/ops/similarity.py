@@ -17,16 +17,21 @@ cluster-contiguous layout (``ops/ivf.py``) and ``search(n_probe=...)``
 scores only the probed clusters, while the layout epoch says the layout
 still describes the rows.
 
+Write-behind: ``HostCorpus.start_uploader`` runs the reference's uploader
+thread, which patches dirty blocks between queries so a query after a write
+burst waits for a bounded patch.
+
 Deferred to later slices: the BackendManager lifecycle gate and the
 DEGRADED_CPU host serving (with it the stash of a cluster fit delivered
-while degraded), the write-behind uploader, and the device-memory
-accounting of the telemetry plane. Here the device gate is a plain device
-check: the port never falls back to the CPU on its own.
+while degraded), and the device-memory accounting of the telemetry plane.
+Here the device gate is a plain device check: the port never falls back to
+the CPU on its own.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import threading
 import time
@@ -48,6 +53,8 @@ from nornicdb_tpu_torch.ops.kernels import (
     streaming_rows_for,
     topk_lowest_index,
 )
+
+logger = logging.getLogger(__name__)
 
 LANE = 128  # row alignment of corpus capacities (and the kernels' tile unit)
 
@@ -286,6 +293,8 @@ class SyncStats:
     bytes_uploaded: int = 0   # total host bytes shipped to the device
     patch_bytes: int = 0      # subset of bytes_uploaded moved by patching
     rows_patched: int = 0
+    uploader_runs: int = 0    # write-behind background sync cycles
+    uploader_errors: int = 0  # of them, the ones that raised (logged)
     query_stall_s: float = 0.0  # time the query path spent blocked in sync
     # device search programs launched (one per fused batch when queries go
     # through the QueryBatcher): the one-program-per-fused-batch counter
@@ -322,8 +331,8 @@ class HostCorpus:
     row matrix, tombstone removal, deferred ratio-triggered compaction,
     capacity growth, plus the block-granular dirty tracking and incremental
     host-to-device sync engine (subclasses supply _upload_full/_apply_patch
-    for their device layout). The sync runs on the query path; the JAX
-    package's write-behind uploader thread is still to be ported. `align`
+    for their device layout). The sync runs on the query path, and with
+    ``start_uploader`` also on a write-behind thread between queries. `align`
     keeps the row count a multiple of the kernels' tile unit."""
 
     def __init__(
@@ -366,6 +375,12 @@ class HostCorpus:
         # block, and removed slots filter out at result time.
         self._layout_epoch = 0
         self._layout_slots: Optional[np.ndarray] = None  # bool per slot
+        # write-behind uploader (start_uploader): coalesces dirty blocks in
+        # the background so the query path rarely stalls on a sync
+        self._uploader: Optional[threading.Thread] = None
+        self._uploader_stop = threading.Event()
+        self._uploader_wake = threading.Event()
+        self._uploader_interval = 0.002
 
     def __len__(self) -> int:
         return len(self._slot_of)
@@ -415,6 +430,7 @@ class HostCorpus:
             self._valid[slot] = True
             self._mark_rows_dirty(slot, slot + 1)
             self._epoch += 1
+        self._wake_uploader()
 
     def add_batch(self, ids: list[str], vectors: np.ndarray) -> None:
         if not ids:
@@ -465,6 +481,7 @@ class HostCorpus:
                     self._valid[slot] = True
                     self._mark_rows_dirty(slot, slot + 1)
             self._epoch += 1
+        self._wake_uploader()
 
     def remove(self, id_: str) -> bool:
         with self._sync_lock:
@@ -481,8 +498,10 @@ class HostCorpus:
                 and self._tombstones / len(self._ids) > self.compact_ratio
             ):
                 # deferred: the rewrite + full re-upload runs coalesced on
-                # the next sync
+                # the write-behind uploader (or the next sync), never on the
+                # caller's write path
                 self._compact_pending = True
+        self._wake_uploader()
         return True
 
     # -- inspection / lifecycle --------------------------------------------
@@ -619,7 +638,7 @@ class HostCorpus:
     ) -> None:
         raise NotImplementedError
 
-    def _sync(self) -> None:
+    def _sync(self, _record_stall: bool = True) -> None:
         """Bring the resident device buffer up to date with the host.
 
         Incremental path: dirty blocks coalesce into contiguous runs patched
@@ -628,7 +647,8 @@ class HostCorpus:
         is dirty. In-flight searches see either the pre-patch or the
         post-patch buffer, never a half-patched one: while a search borrows
         the buffer the patch writes a new one, and it patches in place only
-        when nobody borrows it (the JAX package's buffer donation)."""
+        when nobody borrows it (the JAX package's buffer donation). The
+        uploader's passes (``_record_stall=False``) are not query stall."""
         with self._sync_lock:
             if self._compact_pending:
                 self._compact()  # coalesced: one rewrite for the whole burst
@@ -664,7 +684,8 @@ class HostCorpus:
                 s.patches += 1
             self._full_dirty = False
             self._dirty_blocks.clear()
-            s.query_stall_s += time.perf_counter() - t0
+            if _record_stall:
+                s.query_stall_s += time.perf_counter() - t0
 
     @contextlib.contextmanager
     def _borrow_device(self):
@@ -692,6 +713,61 @@ class HostCorpus:
         finally:
             with self._sync_lock:
                 self._readers -= 1
+
+    # -- write-behind uploader ---------------------------------------------
+    def start_uploader(self, interval: float = 0.002) -> None:
+        """Start the write-behind host-to-device sync thread: it coalesces
+        dirty blocks and patches them between queries, so a query arriving
+        after a write burst waits only for what the uploader has not patched
+        yet. `interval` is the coalescing window after the first write of a
+        burst. The thread shares ``_sync_lock`` with the query path's sync,
+        so a search never reads a half-patched buffer."""
+        with self._sync_lock:
+            if self._uploader is not None:
+                return
+            self._uploader_interval = interval
+            self._uploader_stop = threading.Event()
+            self._uploader_wake = threading.Event()
+            self._uploader = threading.Thread(
+                target=self._uploader_loop, name="nornicdb-uploader",
+                daemon=True,
+            )
+            self._uploader.start()
+
+    def stop_uploader(self) -> None:
+        with self._sync_lock:
+            t, self._uploader = self._uploader, None
+            # capture THIS thread's events under the lock: a concurrent
+            # start_uploader() swaps in fresh ones, and signalling those
+            # would stop the new thread while the old one runs on
+            stop, wake = self._uploader_stop, self._uploader_wake
+        if t is None:
+            return
+        stop.set()
+        wake.set()
+        t.join(timeout=5.0)
+
+    def _wake_uploader(self) -> None:
+        if self._uploader is not None:
+            self._uploader_wake.set()
+
+    def _uploader_loop(self) -> None:
+        stop, wake = self._uploader_stop, self._uploader_wake
+        while not stop.is_set():
+            if not wake.wait(timeout=0.25):
+                continue
+            wake.clear()
+            # coalescing window: let the write burst accumulate so one patch
+            # covers it, instead of one patch per row
+            if stop.wait(self._uploader_interval):
+                break
+            try:
+                self._sync(_record_stall=False)
+                self.sync_stats.uploader_runs += 1
+            except Exception:  # noqa: BLE001 - the thread must outlive a
+                # failed pass; the next query's sync retries on its path
+                self.sync_stats.uploader_errors += 1
+                logger.exception("write-behind device sync failed")
 
     def _format_results(
         self,

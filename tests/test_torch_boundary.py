@@ -21,8 +21,10 @@ from nornicdb_tpu_torch.models import BGE_SMALL, QWEN_SMALL, init_params
 from nornicdb_tpu_torch.models import weights
 from nornicdb_tpu_torch.models.pretrain import load_generator
 from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
-from nornicdb_tpu_torch.search import SearchService
+from nornicdb_tpu_torch.embed import HashEmbedder
+from nornicdb_tpu_torch.search import CrossEncoderReranker, SearchService
 from nornicdb_tpu_torch.serving import ServingEngine
+from nornicdb_tpu_torch.storage import MemoryEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,8 +70,14 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.ops.kmeans",
                      "nornicdb_tpu_torch.ops.ivf",
                      "nornicdb_tpu_torch.search.batcher",
+                     "nornicdb_tpu_torch.search.bm25",
+                     "nornicdb_tpu_torch.search.fusion",
+                     "nornicdb_tpu_torch.search.hnsw",
+                     "nornicdb_tpu_torch.search.rerank",
                      "nornicdb_tpu_torch.search.service",
                      "nornicdb_tpu_torch.search.tuner",
+                     "nornicdb_tpu_torch.storage",
+                     "nornicdb_tpu_torch.storage.types",
                      "nornicdb_tpu_torch.convert",
                      "nornicdb_tpu_torch.config",
                      "nornicdb_tpu_torch.models",
@@ -86,6 +94,7 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.genserve.graphrag",
                      "nornicdb_tpu_torch.embed",
                      "nornicdb_tpu_torch.embed.base",
+                     "nornicdb_tpu_torch.embed.queue",
                      "nornicdb_tpu_torch.serving",
                      "nornicdb_tpu_torch.serving.engine",
                      "nornicdb_tpu_torch.serving.ragged"):
@@ -101,6 +110,10 @@ class TestDevicePolicy:
             DeviceCorpus(dims=8)
         with pytest.raises(DeviceUnavailable):
             SearchService(dims=8)
+        with pytest.raises(DeviceUnavailable):
+            SearchService(MemoryEngine(), HashEmbedder(8))
+        with pytest.raises(DeviceUnavailable):
+            CrossEncoderReranker()
         with pytest.raises(DeviceUnavailable):
             resolve_device(None)
 

@@ -15,6 +15,8 @@ the plain version, so decoded values may differ by one packed-bin step
 (2**(tile_bits - 21)) and ids only where two scores are that close.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -778,3 +780,79 @@ def test_dense_engine_on_the_card_gives_the_cpu_tokens(card):
             assert float(logits[0].max() - logits[0, tok]) <= 1e-4, (j, tok)
             logits, caches = TQ.decode_step(params, cfg, torch.tensor([tok]),
                                             caches, len(prompt) + j)
+
+
+def test_uploader_patches_the_card_without_a_query(card):
+    """The write-behind uploader brings the resident buffer on the card up
+    to date with no search: dirty blocks drain, the patched rows and the
+    validity mask equal the host's, and none of it is query stall."""
+    from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
+
+    rng = np.random.default_rng(12)
+    vecs = _unit(rng, 2000, 64)
+    c = DeviceCorpus(dims=64, device=card)
+    c.add_batch([f"u{i}" for i in range(2000)], vecs)
+    c.search(vecs[:1], k=1)  # first (full) upload on the query path
+    c.start_uploader(interval=0.001)
+    try:
+        stall = c.sync_stats.query_stall_s
+        for i in range(0, 2000, 97):
+            c.add(f"u{i}", vecs[(i + 1) % 2000])
+        c.remove("u1500")
+        deadline = time.monotonic() + 20
+        while c._dirty_blocks and time.monotonic() < deadline:
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        assert not c._dirty_blocks and c.sync_stats.uploader_runs >= 1
+        assert c.sync_stats.uploader_errors == 0
+        assert c.sync_stats.query_stall_s == stall
+        assert torch.equal(c._dev.cpu(), torch.from_numpy(c._host))
+        assert torch.equal(c._dev_valid.cpu(), torch.from_numpy(c._valid))
+    finally:
+        c.stop_uploader()
+
+
+def test_hybrid_service_on_the_card_ranks_as_on_the_cpu(card):
+    """SearchService.search over one small MemoryEngine graph on the card
+    and on the CPU: the same ranked ids and fused scores, vector scores
+    within the bf16 kernel's tolerance (2**-14 + 1e-5: the score decoding
+    step at this size), with the uploader on and a write in between."""
+    from nornicdb_tpu_torch.embed import HashEmbedder
+    from nornicdb_tpu_torch.search import SearchConfig, SearchService
+    from nornicdb_tpu_torch.storage import MemoryEngine, Node
+
+    words = "graph node edge vector search index memory storage".split()
+    rng = np.random.default_rng(8)
+    hasher = HashEmbedder(48)
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(2, 7))))
+             + f" uniq{i}" for i in range(300)]
+    services = []
+    for dev in ("cpu", card):
+        eng = MemoryEngine()
+        svc = SearchService(eng, HashEmbedder(48),
+                            config=SearchConfig(write_behind=True),
+                            device=dev)
+        svc.attach(eng)
+        for i, t in enumerate(texts):
+            eng.create_node(Node(id=f"n{i}", properties={"content": t},
+                                 embedding=hasher.embed(t)))
+        services.append((eng, svc))
+    try:
+        for step in range(2):
+            if step:
+                for eng, _ in services:
+                    node = eng.get_node("n7")
+                    node.properties["content"] = "rewritten uniqR graph"
+                    node.embedding = hasher.embed("rewritten uniqR graph")
+                    eng.update_node(node)
+            for q in texts[:20] + ["graph node", "rewritten uniqR graph"]:
+                want, got = (svc.search(q) for _, svc in services)
+                assert [r["id"] for r in got] == [r["id"] for r in want], q
+                for g, w in zip(got, want):
+                    assert g["score"] == w["score"]
+                    if w["vector_score"] is not None:
+                        assert abs(g["vector_score"] - w["vector_score"]) \
+                            <= 2.0 ** -14 + 1e-5
+    finally:
+        for _, svc in services:
+            svc.shutdown()

@@ -66,7 +66,7 @@ def test_vector_candidates_match_jax(batching):
                 _assert_same(a, b)
                 assert not {"n3", "n77", "n150"} & {i for i, _ in b}
     finally:
-        port_svc.close()
+        port_svc.shutdown()
 
 
 def test_unchanged_reindex_keeps_corpus_clean():
@@ -126,7 +126,7 @@ def test_fused_batches_take_fewer_dispatches_than_queries():
         assert dispatches == stats.batches < n
         assert stats.queries == n and stats.max_batch > 1
     finally:
-        svc.close()
+        svc.shutdown()
 
 
 def test_max_queue_sheds_with_resource_exhausted():

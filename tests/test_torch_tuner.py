@@ -11,8 +11,6 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
-from typing import Optional
 
 import numpy as np
 import pytest
@@ -25,12 +23,7 @@ from nornicdb_tpu.storage.types import Node as JaxNode
 from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
 from nornicdb_tpu_torch.search import IVFTuner, SearchConfig, SearchService
 from nornicdb_tpu_torch.search.tuner import TUNE_OUTCOMES, _probe_ladder
-
-
-@dataclass
-class Node:
-    id: str
-    embedding: Optional[np.ndarray]
+from nornicdb_tpu_torch.storage import Node
 
 
 def _clustered(n, d, n_centers, seed=0, spread=0.2):
@@ -154,7 +147,7 @@ class TestServiceTuning:
             svc.config.exact = True
             assert svc._corpus_search_kwargs(corpus) == {"exact": True}
         finally:
-            svc.close()
+            svc.shutdown()
 
     def test_served_through_the_batcher_in_fused_dispatches(self):
         svc = _service(batching_enabled=True, batch_window=0.05)
@@ -181,7 +174,7 @@ class TestServiceTuning:
             assert all(g and g[0][0] == f"n{i}" for i, g in enumerate(got))
             assert corpus.sync_stats.device_dispatches - d0 < 12
         finally:
-            svc.close()
+            svc.shutdown()
 
     def test_explicit_n_probe_overrides_tuner(self):
         svc = _service(n_probe=3)
@@ -192,7 +185,7 @@ class TestServiceTuning:
             kwargs = svc._corpus_search_kwargs(svc.corpus())
             assert kwargs.get("n_probe") == 3  # the operator's escape hatch
         finally:
-            svc.close()
+            svc.shutdown()
 
     def test_too_small_corpus_skips_tuning(self):
         svc = _service(tune_min_rows=10_000)
@@ -205,7 +198,7 @@ class TestServiceTuning:
             assert svc._corpus_search_kwargs(svc.corpus()) == {}
             assert svc.tune_counts["too_small"] == 1
         finally:
-            svc.close()
+            svc.shutdown()
 
     def test_tuning_disabled_leaves_no_plan(self):
         svc = _service(tune_enabled=False)
@@ -216,7 +209,7 @@ class TestServiceTuning:
             assert svc._tune_state is None and svc.corpus()._ivf is not None
             assert svc._corpus_search_kwargs(svc.corpus()) == {}
         finally:
-            svc.close()
+            svc.shutdown()
 
     @pytest.mark.parametrize(
         "field", ["n_probe", "recall_target", "tune_enabled", "tune_sample",
@@ -266,7 +259,7 @@ class TestDriftRetune:
             tuned = corpus.search(eval_rows, k=10, **kwargs)
             assert _recall(tuned, exact) >= 0.9
         finally:
-            svc.close()
+            svc.shutdown()
 
     def test_no_retune_below_threshold(self):
         svc = _service(drift_threshold=0.9)
@@ -280,7 +273,7 @@ class TestDriftRetune:
             assert sum(svc.tune_counts.values()) == tunes_before
             assert svc._churn_since_tune == 100
         finally:
-            svc.close()
+            svc.shutdown()
 
 
 @pytest.mark.parametrize("recall_target,outcome", [(0.9, "ok"),
@@ -328,4 +321,4 @@ def test_slice_matches_jax_from_the_same_fit(recall_target, outcome):
                                atol=1e-5, rtol=0)
     finally:
         jsvc.shutdown()
-        tsvc.close()
+        tsvc.shutdown()
