@@ -104,6 +104,26 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    after the first wave reuse the cached header pages; #2 and #5 both
    launch (their counts on a log line of their own); 4 answers' tokens
    pass the dense reference.
+11. training, after phase 9 with the earlier phases' models released
+   (no kernel: torch ops, autograd and fused AdamW, as the JAX package
+   trains through XLA). 11a: ``QWEN25_05B`` (494,032,768 bf16 parameters
+   from ``--seed``) through ``training.make_lm_train_step`` at lr 1e-4 on
+   8 x 513-token windows of a seeded token stream; 11b: ``BGE_M3``
+   (566,705,152) through ``make_train_step`` on 32 phase-8 texts and their
+   ``_augment`` views (``HashTokenizer``, 128 tokens). Each: 3 warm-up
+   steps, 20 timed (tokens/s, step p50/p99, the forward / backward /
+   optimizer split by CUDA events, peak memory, model-FLOPs utilization
+   against 989 TFLOP/s), 10 on one fixed batch whose loss must fall; the
+   first step's loss and per-leaf gradients against a float32 copy of the
+   parameters on the card; every parameter and optimizer-state tensor on
+   the card. 11c: 11b's encoder written as a teacher checkpoint in
+   ``train_encoder``'s layout, ``distill_encoder`` to 6 layers,
+   ``load_embedder``, ``gate_student`` on the builtin suite (MRR - 0.1
+   admits, MRR + 0.1 rejects), 4,096 texts through ``ServingEngine``
+   beside phase 8's embeddings/s. 11d: ``train assistant`` and ``train
+   encoder`` at the presets through the command line on the card, held
+   to tests/test_pretrain.py's learning checks (capitals >= 8 of 12, loss
+   below 0.3 of the first; top-1 for >= 2 of 3 queries).
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -251,6 +271,40 @@ FIRST_VERSION_MS = {"extract_topk": {1024: 0.2008, 16: 0.0588},
                     "streaming_topk_int8": {1024: 7.271, 16: 1.342},
                     "ragged_paged_attention": {"decode": 0.03270,
                                                "chunk": 0.03495}}
+
+
+# phase 11: training at full width. 11a: QWEN25_05B LM steps over LM_BATCH
+# windows of LM_WINDOW tokens of a seeded token stream (4,096 predicted
+# tokens a step); 11b: BGE_M3 InfoNCE over ENC_PAIRS phase-8 texts and their
+# _augment views, HashTokenizer, padded to ENC_LEN tokens. Each runs
+# TRAIN_WARMUP steps, TRAIN_TIMED timed ones, then TRAIN_FIXED on one fixed
+# batch, AdamW at LM_LR / ENC_LR. The 24-layer post-LN encoder collapses
+# under AdamW at 1e-4 with no warm-up (every embedding the same, the loss
+# at ln 32 from the fifth step on an H100; neither package's optimizer has
+# a warm-up), and trains at 3e-5 and 1e-5, so 11b runs at 1e-5
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_FIXED = 3, 20, 10
+LM_LR, ENC_LR = 1e-4, 1e-5
+LM_BATCH, LM_WINDOW = 8, 513
+ENC_PAIRS, ENC_LEN = 32, 128
+# over its TRAIN_FIXED steps the fixed batch's LM loss falls by at least
+# LM_FIXED_DROP nats, and its InfoNCE loss to at most ENC_FIXED_RATIO of
+# its first value: a model that does not learn moves either by rounding
+LM_FIXED_DROP, ENC_FIXED_RATIO = 0.5, 0.5
+# --profile traces this many more steps of each (profile_train)
+TRAIN_PROFILED = 2
+# the first step in bf16 against the same step on a float32 copy of the
+# parameters on the card: the loss's relative gap, each leaf's gradient
+# cosine. A leaf whose float32 gradient norm is below SIGNAL_FLOOR of the
+# largest leaf's is held by its gap's norm instead: bge-m3's key biases
+# have an exact gradient of zero (softmax is invariant to adding q.b_k to
+# a row), and at random init its deep post-LN stack's attention sees
+# near-identical keys, so the q/k gradients of many layers are within a
+# few 1e-4 of zero too: there the cosine compares bf16 rounding noise
+FIRST_LOSS_RTOL, FIRST_GRAD_COS, SIGNAL_FLOOR = 1e-2, 0.98, 1e-3
+# 11c: a DISTILL_LAYERS student of 11b's encoder, DISTILL_STEPS steps over
+# DISTILL_CORPUS phase-8 texts, then STUDENT_TEXTS texts served
+DISTILL_LAYERS, DISTILL_STEPS, DISTILL_CORPUS = 6, 30, 4096
+STUDENT_TEXTS = 4096
 
 
 def log(*a) -> None:
@@ -1716,7 +1770,8 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
     assert launches > 0, "the search missed the bf16 streaming kernel"
     assert dispatches < EMBED_QUERIES, ("no fusion", dispatches)
     svc.shutdown()
-    return {"texts": texts, "embs": embs, "engine": eng}
+    return {"texts": texts, "embs": embs, "engine": eng,
+            "embeddings_per_s": EMBED_TEXTS / run["wall"]}
 
 
 def build_graph(texts: list, embs: np.ndarray, seed: int):
@@ -2509,13 +2564,515 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
         eng.stop()
 
 
+def train_flops(cfg, rows: int, t: int, tokens: int) -> float:
+    """Model FLOPs of one train step: 6 x the parameters used in products
+    (every block weight; the tied logits for a decoder) x tokens, plus the
+    attention products (QK^T and PV, 4 B H T^2 Dh forward, twice that
+    backward, over the full T x T scores the port computes)."""
+    from nornicdb_tpu_torch.models import qwen2 as Q
+
+    decoder = isinstance(cfg, Q.QwenConfig)
+    h, hd = cfg.hidden, cfg.hidden // cfg.heads
+    if decoder:
+        kv = cfg.kv_heads * hd
+        per_layer = h * h * 2 + h * kv * 2 + 3 * h * cfg.intermediate
+        n = cfg.layers * per_layer + cfg.vocab_size * h
+    else:
+        per_layer = 4 * h * h + 2 * h * cfg.intermediate
+        n = cfg.layers * per_layer + (h * cfg.dims if cfg.dims != h else 0)
+    attn = 12 * cfg.layers * rows * cfg.heads * t * t * hd
+    return 6.0 * n * tokens + attn
+
+
+def state_on_card(state) -> int:
+    """Assert every parameter and optimizer-state tensor lies on the card;
+    returns the count of state tensors."""
+    from nornicdb_tpu_torch.models import training as TT
+
+    leaves = TT.param_leaves(state.params)
+    assert all(p.is_cuda for p in leaves), "a parameter off the card"
+    assert len(state.opt_state.state) == len(leaves), "leaf without state"
+    n = 0
+    for slot in state.opt_state.state.values():
+        for t in slot.values():
+            assert t.is_cuda, ("optimizer state off the card", t.device)
+            n += 1
+    return n
+
+
+def first_step_vs_f32(loss_fn, params, cfg, batch) -> dict:
+    """The first step's loss and gradients of the bf16 model against the
+    same on a float32 copy of its parameters, both on the card: the loss's
+    relative gap and, for each leaf, the gradients' cosine, the float32
+    gradient's norm and the gap's norm, both over the largest leaf's
+    float32 gradient norm."""
+    import torch
+
+    from nornicdb_tpu_torch._device import map_tree
+    from nornicdb_tpu_torch.models import training as TT
+    from nornicdb_tpu_torch.models import weights as W
+
+    def grads(p, c):
+        leaves = TT.param_leaves(p)
+        loss = loss_fn(p, c, batch)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    names = list(W.flatten_params(params))  # param_leaves' order
+    l16, g16 = grads(params, cfg)
+    g16 = [g.float() for g in g16]
+    p32 = map_tree(lambda t: t.detach().float().requires_grad_(True), params)
+    l32, g32 = grads(p32, dataclasses.replace(cfg, dtype="float32"))
+    del p32
+    top = max(float(g.norm()) for g in g32)
+    leaves = {name: (float((a * b).sum() / (a.norm() * b.norm())),
+                     float(b.norm()) / top, float((a - b).norm()) / top)
+              for name, a, b in zip(names, g16, g32)}
+    del g16, g32
+    torch.cuda.empty_cache()
+    return {"loss_bf16": l16, "loss_f32": l32,
+            "loss_rel": abs(l16 - l32) / abs(l32), "leaves": leaves}
+
+
+def profile_train(tag: str, step, state, batch: dict, out_dir: str) -> None:
+    """Device busy share of TRAIN_PROFILED train steps from torch.profiler:
+    device time of every kernel over the host wall time, device ops a
+    step, the GEMM rows' share of device time split into float32 and bf16
+    (``dense`` beside a bias, the tied logits and attention are float32),
+    and the top device ops. The per-op table goes to
+    ``chiprun_out/profile_train_<tag>.txt``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILED):
+            state, _ = step(state, batch)
+        sync()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    # cuBLAS's float32 GEMMs run sm80 xmma / cutlass SIMT kernels
+    # ("f32f32", "sgemm"); its bf16 tensor-core GEMMs on Hopper "nvjet"
+    gemm = [e for e in kernels
+            if "gemm" in e.key.lower() or e.key.startswith("nvjet")]
+    f32 = [e for e in gemm if "f32f32" in e.key or "sgemm" in e.key]
+    gemm_us = sum(e.self_device_time_total for e in gemm)
+    f32_us = sum(e.self_device_time_total for e in f32)
+    with open(os.path.join(out_dir, f"profile_train_{tag}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=40))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[profile] train {tag}: {TRAIN_PROFILED} steps, wall "
+        f"{wall * 1e3:.2f}ms; device {dev_us / 1e3:.2f}ms busy share "
+        f"{dev_us / 1e6 / wall:.4f}; "
+        f"{sum(e.count for e in kernels) / TRAIN_PROFILED:.1f} device ops "
+        f"a step; GEMM rows {gemm_us / max(dev_us, 1e-9):.4f} of device "
+        f"time (float32 {f32_us / max(dev_us, 1e-9):.4f}, bf16 "
+        f"{(gemm_us - f32_us) / max(dev_us, 1e-9):.4f}); top device ops: "
+        + "; ".join(f"{e.key[:60]}={e.self_device_time_total / 1e3:.3f}ms"
+                    f"/{e.count}" for e in top))
+
+
+def run_training(tag: str, step, state, batches: list, fixed: dict,
+                 tokens: int, flops: float, profile_dir: str = "") -> dict:
+    """TRAIN_WARMUP steps, TRAIN_TIMED steps timed (CUDA events at each
+    step's start and its forward / backward / optimizer boundaries; the
+    wall of the window by the host clock between syncs), then TRAIN_FIXED
+    steps on one fixed batch. Logs tokens/s, step p50/p99, the split,
+    peak memory, utilization and the losses; with ``profile_dir``, then
+    traces TRAIN_PROFILED more steps (profile_train)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses = []
+    for b in batches[:TRAIN_WARMUP]:
+        state, loss = step(state, b)
+        losses.append(loss)
+    sync()
+    marks: list = []
+
+    def on_phase(_name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1].append(ev)
+
+    t0 = time.perf_counter()
+    for b in batches[TRAIN_WARMUP:]:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append([ev])
+        state, loss = step(state, b, on_phase)
+        losses.append(loss)
+    sync()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fixed_losses = []
+    for _ in range(TRAIN_FIXED):
+        state, loss = step(state, fixed)
+        fixed_losses.append(loss)
+    sync()
+    losses = [float(x) for x in losses]
+    fixed_losses = [float(x) for x in fixed_losses]
+    split = np.array([[a.elapsed_time(b) for a, b in zip(m, m[1:])]
+                      for m in marks])  # (steps, 3) ms
+    step_ms = split.sum(axis=1)
+    n = len(marks)
+    mfu = flops / (wall / n) / H100_BF16_OPS
+    out = {"tokens_per_s": n * tokens / wall, "wall": wall,
+           "step_p50": float(np.median(step_ms)),
+           "step_p99": float(np.percentile(step_ms, 99)),
+           "split_p50": np.median(split, axis=0).tolist(),
+           "peak": peak, "held": held, "mfu": mfu, "flops": flops,
+           "losses": losses, "fixed": fixed_losses, "state": state}
+    log(f"[phase11] {tag}: {n} timed steps of {tokens} tokens in "
+        f"{wall:.3f}s: tokens/s={out['tokens_per_s']:.1f} step "
+        f"p50={out['step_p50']:.2f}ms p99={out['step_p99']:.2f}ms (mean "
+        f"{wall / n * 1e3:.2f}ms); split p50 forward / backward / optimizer "
+        f"{np.median(split[:, 0]):.2f} / "
+        f"{np.median(split[:, 1]):.2f} / {np.median(split[:, 2]):.2f} ms; "
+        f"max_memory_allocated={peak / 2**30:.3f}GiB ({held / 2**30:.3f}GiB "
+        f"held before); model FLOPs a step {flops:.4e}, utilization "
+        f"{mfu:.4f} of {H100_BF16_OPS / 1e12:.0f} TFLOP/s; loss first step "
+        f"{losses[0]:.4f} last timed step {losses[-1]:.4f}; fixed batch "
+        f"{fixed_losses[0]:.4f} -> {fixed_losses[-1]:.4f}")
+    assert all(np.isfinite(losses + fixed_losses)), "non-finite loss"
+    if profile_dir:
+        profile_train(tag.split()[0], step, state, batches[-1], profile_dir)
+    return out
+
+
+def lm_batches(rng, cfg, n: int) -> list:
+    """n batches of LM_BATCH windows of LM_WINDOW tokens of a seeded token
+    stream, on the card."""
+    import torch
+
+    stream = rng.integers(0, cfg.vocab_size, size=1 << 20).astype(np.int32)
+    out = []
+    for _ in range(n):
+        starts = rng.integers(0, len(stream) - LM_WINDOW, size=LM_BATCH)
+        wins = torch.from_numpy(np.stack(
+            [stream[s:s + LM_WINDOW] for s in starts])).cuda()
+        out.append({"ids": wins, "mask": torch.ones_like(wins)})
+    return out
+
+
+def pair_batches(rng, texts: list, tok, n: int) -> list:
+    """n batches of ENC_PAIRS phase-8 texts and their ``_augment`` views,
+    tokenized with ``tok`` and padded to ENC_LEN tokens, on the card."""
+    import torch
+
+    from nornicdb_tpu_torch.models import pretrain as P
+
+    def side(docs):
+        ids, masks = tok.encode_batch(docs, max_len=ENC_LEN)
+        ids = [s + [tok.pad_id] * (ENC_LEN - len(s)) for s in ids]
+        masks = [m + [0] * (ENC_LEN - len(m)) for m in masks]
+        return (torch.tensor(ids, dtype=torch.int32).cuda(),
+                torch.tensor(masks, dtype=torch.int32).cuda())
+
+    out = []
+    for _ in range(n):
+        docs = [texts[i] for i in rng.integers(0, len(texts), ENC_PAIRS)]
+        ids_a, mask_a = side(docs)
+        ids_b, mask_b = side([P._augment(d, rng) for d in docs])
+        out.append({"ids_a": ids_a, "mask_a": mask_a,
+                    "ids_b": ids_b, "mask_b": mask_b})
+    return out
+
+
+def check_first_step(tag: str, res: dict) -> None:
+    """The loss within FIRST_LOSS_RTOL; each leaf's gradient within cosine
+    FIRST_GRAD_COS of the float32 copy's, or, for a leaf whose float32
+    gradient norm is below SIGNAL_FLOOR of the largest leaf's (an exact
+    zero, or nearly: there the cosine compares rounding noise), a gap
+    below SIGNAL_FLOOR of the largest leaf's norm."""
+    leaves = res["leaves"]
+    signal = {n: v for n, v in leaves.items() if v[1] >= SIGNAL_FLOOR}
+    quiet = {n: v for n, v in leaves.items() if v[1] < SIGNAL_FLOOR}
+    worst = min(signal, key=lambda n: signal[n][0])
+    log(f"[phase11] {tag} first step, bf16 against a float32 copy on the "
+        f"card: loss {res['loss_bf16']:.6f} / {res['loss_f32']:.6f} "
+        f"(relative gap {res['loss_rel']:.3e}, at most {FIRST_LOSS_RTOL}); "
+        f"gradient cosine min {signal[worst][0]:.6f} ({worst}, norm "
+        f"{signal[worst][1]:.3e} of the largest leaf's) median "
+        f"{np.median([v[0] for v in signal.values()]):.6f} over "
+        f"{len(signal)} leaves (at least {FIRST_GRAD_COS}); {len(quiet)} "
+        f"leaves below {SIGNAL_FLOOR} of the largest norm"
+        + (f" ({', '.join(sorted(quiet)[:6])}{', ...' if len(quiet) > 6 else ''}"
+           f"; norm max {max(v[1] for v in quiet.values()):.3e}, gap max "
+           f"{max(v[2] for v in quiet.values()):.3e}, cosine min "
+           f"{min(v[0] for v in quiet.values()):.4f})" if quiet else ""))
+    assert res["loss_rel"] <= FIRST_LOSS_RTOL, (tag, res["loss_rel"])
+    assert signal[worst][0] >= FIRST_GRAD_COS, (tag, worst, signal[worst])
+    assert all(v[2] <= SIGNAL_FLOOR for v in quiet.values()), quiet
+
+
+def phase_train_lm(seed: int, profile_dir: str) -> None:
+    """Phase 11a: QWEN25_05B at full width, LM train steps."""
+    import torch
+
+    from nornicdb_tpu_torch.models import qwen2 as Q
+    from nornicdb_tpu_torch.models import training as TT
+
+    cfg = Q.QWEN25_05B
+    t0 = time.perf_counter()
+    opt = TT.make_optimizer(lr=LM_LR)
+    state = TT.init_lm_train_state(cfg, opt, seed=seed)
+    n_params = sum(p.numel() for p in TT.param_leaves(state.params))
+    step = TT.make_lm_train_step(cfg, opt)
+    rng = np.random.default_rng(seed + 11)
+    batches = lm_batches(rng, cfg, TRAIN_WARMUP + TRAIN_TIMED + 1)
+    fixed = batches.pop()
+    sync()
+    log(f"[phase11] 11a QWEN25_05B bf16: {n_params} parameters from seed "
+        f"{seed}, {len(batches)} batches of {LM_BATCH} x {LM_WINDOW} tokens "
+        f"in {time.perf_counter() - t0:.1f}s")
+    # every leaf, final_norm's 896 scales included (phase 5's count of
+    # 494,031,872 leaves them out)
+    assert n_params == 494_032_768, n_params
+    check_first_step("11a", first_step_vs_f32(TT.lm_loss, state.params, cfg,
+                                              batches[0]))
+    tokens = LM_BATCH * (LM_WINDOW - 1)
+    res = run_training("11a QWEN25_05B LM", step, state, batches, fixed,
+                       tokens, train_flops(cfg, LM_BATCH, LM_WINDOW - 1,
+                                           tokens), profile_dir)
+    n_state = state_on_card(res["state"])
+    log(f"[phase11] 11a {n_params} parameters and {n_state} optimizer-state "
+        f"tensors on the card; fixed-batch drop "
+        f"{res['fixed'][0] - res['fixed'][-1]:.4f} (at least {LM_FIXED_DROP})")
+    assert res["fixed"][0] - res["fixed"][-1] >= LM_FIXED_DROP, res["fixed"]
+    del state, res, batches, fixed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_encoder(seed: int, texts: list, profile_dir: str) -> dict:
+    """Phase 11b: BGE_M3 at full width, InfoNCE train steps over phase 8's
+    texts. Returns the trained parameters and config for 11c."""
+    from nornicdb_tpu_torch.models import bge_m3 as B
+    from nornicdb_tpu_torch.models import training as TT
+    from nornicdb_tpu_torch.models.tokenizer import HashTokenizer
+
+    cfg = B.BGE_M3
+    t0 = time.perf_counter()
+    opt = TT.make_optimizer(lr=ENC_LR)
+    state = TT.init_train_state(cfg, opt, seed=seed)
+    n_params = sum(p.numel() for p in TT.param_leaves(state.params))
+    step = TT.make_train_step(cfg, opt)
+    rng = np.random.default_rng(seed + 12)
+    batches = pair_batches(rng, texts, HashTokenizer(cfg.vocab_size),
+                           TRAIN_WARMUP + TRAIN_TIMED + 1)
+    fixed = batches.pop()
+    sync()
+    log(f"[phase11] 11b BGE_M3 bf16: {n_params} parameters from seed {seed},"
+        f" {len(batches)} batches of {ENC_PAIRS} pairs x {ENC_LEN} tokens in "
+        f"{time.perf_counter() - t0:.1f}s")
+    assert n_params == 566_705_152, n_params
+    check_first_step("11b", first_step_vs_f32(TT.embedder_loss, state.params,
+                                              cfg, batches[0]))
+    tokens = 2 * ENC_PAIRS * ENC_LEN
+    res = run_training("11b BGE_M3 InfoNCE", step, state, batches, fixed,
+                       tokens, train_flops(cfg, 2 * ENC_PAIRS, ENC_LEN,
+                                           tokens), profile_dir)
+    n_state = state_on_card(res["state"])
+    ratio = res["fixed"][-1] / res["fixed"][0]
+    log(f"[phase11] 11b {n_params} parameters and {n_state} optimizer-state "
+        f"tensors on the card; fixed-batch loss ratio last / first "
+        f"{ratio:.4f} (at most {ENC_FIXED_RATIO}); losses of the 23 steps "
+        + " ".join(f"{x:.4f}" for x in res["losses"]))
+    assert ratio <= ENC_FIXED_RATIO, res["fixed"]
+    return {"params": res["state"].params, "cfg": cfg}
+
+
+def phase_distill(trained: dict, texts: list, phase8_rate: float,
+                  work: str) -> None:
+    """Phase 11c: 11b's encoder written as a teacher checkpoint in
+    train_encoder's layout, distilled into a DISTILL_LAYERS student, the
+    student mounted, gated and served."""
+    import torch
+
+    from nornicdb_tpu_torch.config import ServingConfig
+    from nornicdb_tpu_torch.errors import StudentGateError
+    from nornicdb_tpu_torch.models import pretrain as P
+    from nornicdb_tpu_torch.models import weights as W
+    from nornicdb_tpu_torch.serving import ServingEngine, gate_student
+
+    # -- 11c.1 the teacher: train_encoder's layout, the vocabulary of a
+    # VocabTokenizer over phase 8's texts (the table cut to its padded
+    # size) and positions for ENC_LEN tokens
+    t0 = time.perf_counter()
+    tok = P.VocabTokenizer.from_corpus(texts)
+    cfg = dataclasses.replace(
+        trained["cfg"], vocab_size=((tok.vocab_size + 63) // 64) * 64,
+        max_positions=ENC_LEN + 8, pad_token_id=tok.pad_id)
+    params = dict(trained["params"])
+    params["tok_emb"] = params["tok_emb"][:cfg.vocab_size]
+    params["pos_emb"] = params["pos_emb"][:cfg.max_positions]
+    teacher = os.path.join(work, "teacher")
+    os.makedirs(teacher)
+    W.save_params(os.path.join(teacher, "model.safetensors"), params)
+    tok.save(os.path.join(teacher, "vocab.json"))
+    with open(os.path.join(teacher, "config.json"), "w") as f:
+        json.dump({"kind": "bge", **{k: getattr(cfg, k) for k in (
+            "vocab_size", "hidden", "layers", "heads", "intermediate",
+            "max_positions", "dims", "pad_token_id")}}, f)
+    t_write = time.perf_counter() - t0
+    del params, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 11c.2 distill, mount, gate
+    t0 = time.perf_counter()
+    student_dir = os.path.join(work, "student")
+    stats = P.distill_encoder(teacher, student_dir, layers=DISTILL_LAYERS,
+                              steps=DISTILL_STEPS,
+                              corpus=texts[:DISTILL_CORPUS])
+    t_distill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    student = P.load_embedder(student_dir)
+    sync()
+    t_load = time.perf_counter() - t0
+    n_student = sum(t.numel() for t in W.flatten_params(
+        student.params).values())
+    report = gate_student(student, 0.0)
+    mrr = report.metrics.mrr
+    gate_student(student, max(0.0, mrr - 0.1))
+    try:
+        gate_student(student, mrr + 0.1)
+        raise AssertionError("a threshold above the MRR admitted the student")
+    except StudentGateError:
+        pass
+    log(f"[phase11] 11c teacher ({cfg.layers} layers, vocab "
+        f"{cfg.vocab_size}, max_positions {cfg.max_positions}) written in "
+        f"{t_write:.2f}s; distill_encoder(layers={DISTILL_LAYERS}, "
+        f"steps={DISTILL_STEPS}) over {DISTILL_CORPUS} texts in "
+        f"{t_distill:.2f}s: loss {stats['loss_first']:.4f} -> "
+        f"{stats['loss_last']:.4f}, agreement {stats['agreement']:.4f}; "
+        f"student ({student.cfg.layers} layers, hidden {student.cfg.hidden},"
+        f" intermediate {student.cfg.intermediate}, {n_student} parameters) "
+        f"loaded in {t_load:.2f}s on {student.device}; builtin-suite MRR "
+        f"{mrr:.4f}: admitted at {max(0.0, mrr - 0.1):.4f}, rejected at "
+        f"{mrr + 0.1:.4f}")
+    assert student.device.type == "cuda"
+    assert stats["student_layers"] == DISTILL_LAYERS
+    assert np.isfinite([stats["loss_first"], stats["loss_last"],
+                        stats["agreement"]]).all()
+
+    # -- 11c.3 the student behind ServingEngine
+    eng = ServingEngine(student, ServingConfig())
+    try:
+        few = texts[:STUDENT_TEXTS]
+        drive_embed(eng, few[:EMBED_CALL * EMBED_CLIENTS], EMBED_CLIENTS,
+                    EMBED_CALL)  # warm each class the mix reaches
+        run = drive_embed(eng, few, EMBED_CLIENTS, EMBED_CALL)
+    finally:
+        eng.stop()
+    embs = np.stack(run["out"])
+    rate = STUDENT_TEXTS / run["wall"]
+    log(f"[phase11] 11c student behind ServingEngine: {STUDENT_TEXTS} "
+        f"phase-8 texts from {EMBED_CLIENTS} clients in {run['wall']:.3f}s: "
+        f"embeddings/s={rate:.1f} (phase 8, 24 layers, this run: "
+        f"{phase8_rate:.1f}); client p50="
+        f"{np.median(run['lat']) * 1e3:.2f}ms")
+    assert embs.shape == (STUDENT_TEXTS, student.cfg.dims)
+    assert np.isfinite(embs).all()
+    assert np.abs(np.linalg.norm(embs, axis=1) - 1.0).max() <= 1e-3
+
+
+def phase_train_cli(work: str) -> None:
+    """Phase 11d: ``train assistant`` and ``train encoder`` at the JAX
+    presets through the port's command line, on the card, then the learning
+    checks of tests/test_pretrain.py."""
+    import contextlib
+    import io
+
+    from nornicdb_tpu_torch.cli import main as cli_main
+    from nornicdb_tpu_torch.models import pretrain as P
+
+    runs = {}
+    for model in ("assistant", "encoder"):
+        out = os.path.join(work, model)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["train", model, "--out", out])
+        secs = time.perf_counter() - t0
+        assert rc == 0
+        runs[model] = (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                       secs, out)
+    stats, secs, out = runs["assistant"]
+    gen = P.load_generator(out)
+    correct, answers = 0, {}
+    for country, capital in P._CAPITALS.items():
+        ids = gen.tokenizer.encode(f"the capital of {country} is",
+                                   add_special=False)
+        toks = gen.qwen2.generate(gen.params, gen.cfg, ids, max_new_tokens=4,
+                                  eos_id=gen.tokenizer.eos_id)
+        answers[country] = gen.tokenizer.decode(toks)
+        correct += capital in answers[country]
+    log(f"[phase11] 11d train assistant: {stats['steps']} steps in "
+        f"{secs:.2f}s ({stats['steps'] / secs:.1f} steps/s), loss "
+        f"{stats['loss_first']:.4f} -> {stats['loss_last']:.4f}; capitals "
+        f"{correct}/{len(P._CAPITALS)} on {gen.device}")
+    assert gen.device.type == "cuda"
+    assert stats["loss_last"] < 0.3 * stats["loss_first"], stats
+    assert correct >= 8, answers
+    stats, secs, out = runs["encoder"]
+    emb = P.load_embedder(out)
+    docs = ["the capital of norway is oslo.",
+            "match finds nodes and return sends them back.",
+            "memory decay lowers the score of unused memories over time."]
+    queries = ["capital norway oslo", "match return nodes",
+               "decay unused memories"]
+    top1 = (np.stack(emb.embed_batch(queries))
+            @ np.stack(emb.embed_batch(docs)).T).argmax(axis=1)
+    hits = int((top1 == np.arange(3)).sum())
+    log(f"[phase11] 11d train encoder: {stats['steps']} steps in "
+        f"{secs:.2f}s ({stats['steps'] / secs:.1f} steps/s), loss "
+        f"{stats['loss_first']:.4f} -> {stats['loss_last']:.4f}; top-1 "
+        f"right for {hits}/3 queries on {emb.device}")
+    assert emb.device.type == "cuda"
+    assert stats["loss_last"] < stats["loss_first"], stats
+    assert hits >= 2, top1
+
+
+def phase_train(seed: int, texts: list, phase8_rate: float,
+                profile_dir: str = "") -> None:
+    """Phase 11: training at full width (11a, 11b), distill + gate + serve
+    (11c), the train command at its presets (11d)."""
+    import tempfile
+
+    import torch
+
+    log(f"[phase11] held on the card before 11a: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f}GiB")
+    t0 = time.perf_counter()
+    phase_train_lm(seed, profile_dir)
+    log(f"[phase11] 11a {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    trained = phase_train_encoder(seed, texts, profile_dir)
+    log(f"[phase11] 11b {time.perf_counter() - t0:.1f}s")
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        phase_distill(trained, texts, phase8_rate, work)
+        del trained
+        log(f"[phase11] 11c {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_train_cli(work)
+        log(f"[phase11] 11d {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after phase 2, trace 16 batches of 16 queries, "
-                    "after phase 5 eight generation requests, and in phase 8 "
-                    "about 32 embed packs, with torch.profiler (device busy "
+                    "after phase 5 eight generation requests, in phase 8 "
+                    "about 32 embed packs, and in phase 11 two train steps "
+                    "of each model, with torch.profiler (device busy "
                     "share, per-op tables)")
     args = ap.parse_args()
 
@@ -2769,9 +3326,15 @@ def main() -> int:
             hybrid["service"].shutdown()
     finally:
         served["engine"].stop()
+    texts8, rate8 = served["texts"], served["embeddings_per_s"]
     del served, hybrid
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- phase 11: training, distillation and the train command
+    t0 = time.perf_counter()
+    phase_train(args.seed, texts8, rate8, out_dir if args.profile else "")
+    log(f"[phase11] {time.perf_counter() - t0:.1f}s")
 
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],

@@ -27,6 +27,7 @@ from nornicdb_tpu_torch.errors import (
     NornicError,
     NotFoundError,
     ResourceExhausted,
+    StudentGateError,
 )
 
 __all__ = [
@@ -35,5 +36,6 @@ __all__ = [
     "NornicError",
     "NotFoundError",
     "ResourceExhausted",
+    "StudentGateError",
     "resolve_device",
 ]

@@ -38,9 +38,11 @@ class ServingConfig:
     ``NORNICDB_SERVING_<FIELD>`` (:meth:`from_env`).
 
     ``enabled``, ``embedder`` and the ``student_*`` fields are read by
-    nothing in the port yet: their readers (the server's embedder
-    selection and the distilled-student gate) are still to port. Setting
-    them changes nothing."""
+    nothing in the port yet. The distilled-student gate they feed is
+    ported (``serving.gate_student``: a student and ``student_min_mrr``,
+    ``student_eval_suite``); the server's embedder selection that reads
+    them (``cli serve`` of the JAX package, ``cli.py:85-125``) is not, so
+    setting them changes nothing."""
 
     # master switch for the continuous batching engine
     enabled: bool = True

@@ -1,6 +1,6 @@
-"""Error types of the port: copies of the ones the search, storage and
-generation slices raise or catch (``nornicdb_tpu/errors.py``), kept here so
-the port imports nothing of the JAX package."""
+"""Error types of the port: copies of the ones the search, storage,
+generation and training slices raise or catch (``nornicdb_tpu/errors.py``),
+kept here so the port imports nothing of the JAX package."""
 
 
 class NornicError(Exception):
@@ -30,6 +30,12 @@ class ResourceExhausted(NornicError):
 class ClosedError(NornicError):
     """Operation on a closed engine (the generation engine raises it on
     stop)."""
+
+
+class StudentGateError(NornicError):
+    """A distilled student embedder failed its eval gate (eval.py MRR below
+    the configured threshold) — the serving config is rejected at startup
+    rather than silently serving lower-quality embeddings."""
 
 
 class DeviceUnavailable(NornicError):

@@ -10,8 +10,10 @@ Counterpart of ``nornicdb_tpu.serving``:
   token-concatenated variable-length packing over static shape classes
   (ragged.py).
 
-The distilled-student gate (``student_gate.py``) and the Prometheus
-families (``stats.py``) are not ported yet (ROADMAP). Knobs:
+* :func:`gate_student` — the eval-gated distilled-embedder admission
+  check, with :func:`evaluate_embedder` and the suites (student_gate.py).
+
+The Prometheus families (``stats.py``) are not ported yet (ROADMAP). Knobs:
 :class:`~nornicdb_tpu_torch.config.ServingConfig` (``NORNICDB_SERVING_*``).
 """
 
@@ -22,6 +24,12 @@ from nornicdb_tpu_torch.serving.ragged import (
     RaggedPacker,
     unpack_results,
 )
+from nornicdb_tpu_torch.serving.student_gate import (
+    builtin_eval_suite,
+    evaluate_embedder,
+    gate_student,
+    load_eval_suite,
+)
 
 __all__ = [
     "CAPACITY_CLASSES",
@@ -29,5 +37,9 @@ __all__ = [
     "PackedBatch",
     "RaggedPacker",
     "ServingEngine",
+    "builtin_eval_suite",
+    "evaluate_embedder",
+    "gate_student",
+    "load_eval_suite",
     "unpack_results",
 ]

@@ -97,7 +97,12 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.embed.queue",
                      "nornicdb_tpu_torch.serving",
                      "nornicdb_tpu_torch.serving.engine",
-                     "nornicdb_tpu_torch.serving.ragged"):
+                     "nornicdb_tpu_torch.serving.ragged",
+                     "nornicdb_tpu_torch.serving.student_gate",
+                     "nornicdb_tpu_torch.models.training",
+                     "nornicdb_tpu_torch.eval",
+                     "nornicdb_tpu_torch.cli",
+                     "nornicdb_tpu_torch.__main__"):
             assert name in imported
 
 
@@ -153,6 +158,32 @@ class TestDevicePolicy:
         loaded = weights.load_params(path, template, device="cpu")
         assert loaded["tok_emb"].device.type == "cpu"
         assert QwenGenerator(device="cpu").device.type == "cpu"
+
+    def test_training_defaults_to_cuda(self, tmp_path):
+        from nornicdb_tpu_torch.models import pretrain, training
+
+        opt = training.make_optimizer()
+        if torch.cuda.is_available():
+            state = training.init_train_state(BGE_SMALL, opt)
+            assert state.params["tok_emb"].device.type == "cuda"
+            return
+        with pytest.raises(DeviceUnavailable, match="device='cpu'"):
+            training.init_lm_train_state(QWEN_SMALL, opt)
+        with pytest.raises(DeviceUnavailable):
+            training.init_train_state(BGE_SMALL, opt)
+        # the device is resolved before any corpus is built or file read
+        out = str(tmp_path / "out")
+        with pytest.raises(DeviceUnavailable):
+            pretrain.train_assistant(out, steps=1)
+        with pytest.raises(DeviceUnavailable):
+            pretrain.train_encoder(out, steps=1)
+        with pytest.raises(DeviceUnavailable):
+            pretrain.distill_encoder(str(tmp_path), out, steps=1)
+        with pytest.raises(DeviceUnavailable):
+            pretrain.load_embedder(str(tmp_path))
+        assert not (tmp_path / "out").exists()
+        state = training.init_train_state(BGE_SMALL, opt, device="cpu")
+        assert state.params["tok_emb"].device.type == "cpu"
 
     def test_cpu_only_when_named(self):
         assert resolve_device("cpu") == torch.device("cpu")

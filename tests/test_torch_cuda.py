@@ -856,3 +856,61 @@ def test_hybrid_service_on_the_card_ranks_as_on_the_cpu(card):
     finally:
         for _, svc in services:
             svc.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["lm", "infonce"])
+def test_train_step_on_the_card_gives_the_cpu_step(card, kind):
+    """One train step (forward, backward, fused AdamW) of QWEN_SMALL /
+    BGE_SMALL in float32 on the card against the same step on the CPU from
+    the same parameters and batch: the loss within 1e-4 relative and every
+    updated parameter within 2e-6 + 1e-3 lr of the CPU's (the gradients sum
+    in another order; a gradient near zero may flip Adam's near-sign update,
+    so at most 0.1% of the elements may sit up to 2 lr apart; bge-m3's key
+    biases have an exact gradient of zero, so Adam's step there normalizes
+    rounding noise and only the 2 lr bound holds). Every parameter and
+    optimizer-state tensor stays on the card."""
+    import dataclasses
+
+    from nornicdb_tpu_torch._device import tree_to
+    from nornicdb_tpu_torch.models import bge_m3 as TB
+    from nornicdb_tpu_torch.models import qwen2 as TQ
+    from nornicdb_tpu_torch.models import training as TT
+    from nornicdb_tpu_torch.models import weights
+
+    rng = np.random.default_rng(0)
+    lr = 1e-3
+    if kind == "lm":
+        cfg = dataclasses.replace(TQ.QWEN_SMALL, dtype="float32")
+        params = TQ.init_params(cfg, 0, "cpu")
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 33))
+                               .astype(np.int32))
+        batch = {"ids": ids, "mask": torch.ones_like(ids)}
+        make = TT.make_lm_train_step
+    else:
+        cfg = dataclasses.replace(TB.BGE_SMALL, dtype="float32")
+        params = TB.init_params(cfg, 0, "cpu")
+        ids = torch.from_numpy(rng.integers(4, cfg.vocab_size, (2, 8, 24))
+                               .astype(np.int32))
+        mask = torch.ones_like(ids[0])
+        mask[:, 20:] = 0
+        batch = {"ids_a": ids[0], "mask_a": mask, "ids_b": ids[1],
+                 "mask_b": torch.ones_like(mask)}
+        make = TT.make_train_step
+    opt = TT.make_optimizer(lr)
+    on_card = TT.TrainState.create(tree_to(params, card), opt)
+    on_cpu = TT.TrainState.create(params, opt)
+    step = make(cfg, opt)
+    _, l_card = step(on_card, {k: v.to(card) for k, v in batch.items()})
+    _, l_cpu = step(on_cpu, batch)
+    assert abs(float(l_card) - float(l_cpu)) <= 1e-4 * abs(float(l_cpu))
+    card_leaves = weights.flatten_params(on_card.params)
+    cpu_leaves = weights.flatten_params(on_cpu.params)
+    for name, got in card_leaves.items():
+        assert got.device.type == "cuda"
+        d = (got.detach().cpu() - cpu_leaves[name].detach()).abs()
+        assert float(d.max()) <= 2 * lr + 1e-5, name
+        if kind == "infonce" and name.endswith("k.b"):
+            continue  # an exact zero gradient: Adam normalizes noise
+        assert float((d > 2e-6 + 1e-3 * lr).float().mean()) <= 1e-3, name
+    for slot in on_card.opt_state.state.values():
+        assert all(t.device.type == "cuda" for t in slot.values())
