@@ -91,6 +91,12 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    search in embed, vector leg, BM25, fusion and enrich (spans taken in
    this script), the rerank forward, the uploader's runs and the query
    stall, #2's launches (a log line of their own), peak device memory.
+   Then the telemetry plane over the live service: after ``refresh_hbm``
+   ``nornicdb_hbm_bytes`` equals the bytes of every live corpus's tensors
+   by component and is at most ``torch.cuda.memory_allocated()``; a
+   ``deviceprof.capture_profile(2.0)`` while 8 threads search holds #2's
+   launches (made on the batcher's thread); the tracer's ``search.embed``,
+   ``search.rank`` and ``search.vector`` span p50s beside the script's.
 9. a checkpoint and GraphRAG answers: a ``QWEN25_05B`` checkpoint directory
    (weights from ``--seed``, a ``VocabTokenizer`` over phase 8's texts and
    the prompt header) written to a temporary directory and mounted with
@@ -124,6 +130,29 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    encoder`` at the presets through the command line on the card, held
    to tests/test_pretrain.py's learning checks (capitals >= 8 of 12, loss
    below 0.3 of the first; top-1 for >= 2 of 3 queries).
+12. graph offloads, after phase 11 with its models released (no kernel:
+   ``index_add_``, ``scatter_reduce_`` and float32 ``torch.matmul``, as
+   the JAX package leaves them to XLA). 12a: a Graph500 Kronecker graph
+   (SCALE 22, edgefactor 16: 4,194,304 vertices, 67,108,864 edges with
+   self-loops and duplicates, from ``--seed`` on the card) and
+   ``graph_algos.pagerank`` at its defaults, numpy in and out: end-to-end
+   and device ms, ms an iteration against its bytes bound, the copies'
+   share, held to a float64 numpy power iteration (L1 and the top 1,000
+   ranks' relative error under stated bounds). 12b: ``connected_components``
+   equal to scipy's components (each labelled by its smallest member),
+   rounds and ms. 12c: a SCALE-13 Kronecker graph (8,192 nodes, 131,072
+   edges) in a port ``MemoryEngine``, ``build_graph``, ``batch_scores``
+   of all five methods on the card against ``use_device=False`` and
+   ``top_candidates(adamicAdar, 20)`` against the CPU's.
+13. the registry, last: the port's ``REGISTRY`` rendered and parsed
+   strictly (a parser of this script's); non-zero program-ledger samples
+   for search/dense, search/ivf, serving/embed and genserve/ragged, the
+   program-time histogram, serving batches, search batch sizes, device
+   syncs, IVF tunes and cost-model observations; the generated-token
+   counter equal to the engines' own counts (phases 5, 5d and 9); the cost
+   model's median relative error, every phase's predicted-deadline sheds
+   (phases 5, 8 and 10 retry a shed call with backoff) and the tracer's
+   cost a span on this host.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -166,6 +195,10 @@ H100_BF16_OPS = 989e12   # dense tensor-core bf16, per second
 H100_INT8_OPS = 1979e12  # dense tensor-core int8
 H100_FP32_OPS = 67e12    # outside the tensor cores
 H100_BYTES = 3.35e12     # HBM3 bytes per second
+
+# the Graph500 Kronecker initiator (graph500.org, "Graph 500 Benchmarks",
+# section 3); D = 1 - A - B - C = 0.05
+GRAPH500_A, GRAPH500_B, GRAPH500_C = 0.57, 0.19, 0.19
 
 # the main path's size: bench.py's headline search (1M x 1024, top-100)
 N, DIMS, K_TOP = 1_000_000, 1024, 100
@@ -305,6 +338,29 @@ FIRST_LOSS_RTOL, FIRST_GRAD_COS, SIGNAL_FLOOR = 1e-2, 0.98, 1e-3
 # DISTILL_CORPUS phase-8 texts, then STUDENT_TEXTS texts served
 DISTILL_LAYERS, DISTILL_STEPS, DISTILL_CORPUS = 6, 30, 4096
 STUDENT_TEXTS = 4096
+# phase 12: graph offloads. 12a and 12b over a Graph500 Kronecker graph of
+# GRAPH_SCALE and GRAPH_EDGEFACTOR (4,194,304 vertices, 67,108,864 directed
+# edges): PageRank at the JAX defaults (0.85, 20 iterations), one warm-up
+# call and GRAPH_CALLS timed ones, held to a float64 numpy power iteration
+# over the same edges: the L1 distance at most PR_L1_TOL, the largest
+# relative error of the PR_TOP highest ranks at most PR_TOP_REL_TOL (the
+# card adds a hub's ~1e5-1e6 float32 contributions by atomics in no fixed
+# order, ~sqrt(K) x 6e-8 relative); WCC equal to scipy's components
+# exactly. 12c: link prediction over a port MemoryEngine holding a
+# Kronecker graph of LINK_SCALE (8,192 nodes, 131,072 edges; at 65,536
+# nodes the dense adjacency would take 17 GB on the host): on the card
+# against use_device=False, the integer methods exactly, the weighted ones
+# within LINK_TOL (relative and absolute: float32 sums in another order)
+GRAPH_SCALE, GRAPH_EDGEFACTOR, GRAPH_CALLS = 22, 16, 5
+PR_L1_TOL, PR_TOP, PR_TOP_REL_TOL = 2e-4, 1000, 1e-3
+LINK_SCALE, LINK_LIMIT, LINK_TOL = 13, 20, 1e-5
+# phase 10's profile capture: seconds, and the threads searching meanwhile
+CAPTURE_SECONDS, CAPTURE_THREADS = 2.0, 8
+# tokens each generation engine of the run generated, by phase (phase 13
+# holds nornicdb_genserve_generated_tokens_total to their sum), and the
+# predicted-deadline sheds each phase's clients retried
+GEN_COUNTED: dict = {}
+PREDICTED_SHEDS: dict = {}
 
 
 def log(*a) -> None:
@@ -415,6 +471,38 @@ def ptxas_summary(report: str) -> list[str]:
             out.append(f"{fn}: {line.split(':', 1)[1].strip()}; {spill}")
             fn = ""
     return out
+
+
+def kronecker_edges(scale: int, edgefactor: int, seed: int,
+                    device: str = "cpu"):
+    """The Graph500 Kronecker generator (graph500.org, "Graph 500
+    Benchmarks", section 3): 2**scale vertices and edgefactor * 2**scale
+    directed edges, each edge's endpoint bits drawn from the initiator
+    A = 0.57, B = 0.19, C = 0.19 (D = 0.05), then the vertex labels and
+    the edge order permuted; self-loops and duplicate edges are kept, as
+    the specification keeps them. Seeded ``torch.Generator`` on
+    ``device``. Returns (src, dst) int32 tensors on ``device``."""
+    import torch
+
+    n, m = 1 << scale, edgefactor << scale
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ab = GRAPH500_A + GRAPH500_B
+    c_norm = GRAPH500_C / (1.0 - ab)
+    a_norm = GRAPH500_A / ab
+    src = torch.zeros(m, dtype=torch.int32, device=device)
+    dst = torch.zeros(m, dtype=torch.int32, device=device)
+    for bit in range(scale):
+        i_bit = torch.rand(m, generator=gen, device=device) > ab
+        thresh = torch.where(i_bit, c_norm, a_norm)
+        j_bit = torch.rand(m, generator=gen, device=device) > thresh
+        src |= i_bit.to(torch.int32) << bit
+        dst |= j_bit.to(torch.int32) << bit
+    del i_bit, j_bit, thresh
+    perm = torch.randperm(n, generator=gen, device=device).to(torch.int32)
+    src, dst = perm[src.long()], perm[dst.long()]
+    order = torch.randperm(m, generator=gen, device=device)
+    return src[order], dst[order]
 
 
 def make_data(rng, n: int, d: int, per: int = 100) -> np.ndarray:
@@ -948,10 +1036,12 @@ def phase_attention(K, R, captured, logit_diffs, reps):
     return entries
 
 
-def drive_engine(eng, requests: list, n_threads: int) -> dict:
+def drive_engine(eng, requests: list, n_threads: int, retry=None) -> dict:
     """n_threads closed-loop clients, request i on thread i % n_threads:
-    submit, stream every token (time to first token, gaps between
-    tokens, the whole request), next request."""
+    submit (through ``retry``, a _Backoff, when given: the cost model may
+    shed a submit it predicts past the deadline), stream every token (time
+    to first token, gaps between tokens, the whole request), next
+    request."""
     n = len(requests)
     outs: list = [None] * n
     ttft = np.zeros(n)
@@ -965,7 +1055,8 @@ def drive_engine(eng, requests: list, n_threads: int) -> dict:
             for i in range(t, n, n_threads):
                 prompt, max_new = requests[i]
                 t0 = time.perf_counter()
-                h = eng.submit(prompt, max_new_tokens=max_new)
+                h = (retry(eng.submit, prompt, max_new_tokens=max_new)
+                     if retry else eng.submit(prompt, max_new_tokens=max_new))
                 last, mine = None, []
                 for _ in h.stream_tokens():
                     now = time.perf_counter()
@@ -1067,17 +1158,20 @@ def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict
     from nornicdb_tpu_torch.config import GenServeConfig
     from nornicdb_tpu_torch.genserve import GenerationEngine
     from nornicdb_tpu_torch.models import qwen2 as Q
+    from nornicdb_tpu_torch.models import training as TT
     from nornicdb_tpu_torch.models.tokenizer import HashTokenizer
 
     cfg = Q.QWEN25_05B
     gcfg = GenServeConfig()
     t0 = time.perf_counter()
     params = Q.with_f32_logit_weights(Q.init_params(cfg, seed, "cuda"))
-    n_params = sum(t.numel() for t in [params["tok_emb"]] + [
-        x for blk in params["blocks"] for p in blk.values() for x in p.values()])
+    # every leaf of the tree, final_norm's included (the float32 copy of
+    # the tied table is derived, not a parameter)
+    n_params = sum(t.numel() for t in TT.param_leaves(params))
     sync()
     log(f"[phase5] QWEN25_05B bf16: {n_params} parameters in "
         f"{time.perf_counter() - t0:.1f}s")
+    assert n_params == 494_032_768, n_params
 
     # -- 5a: the kernel on a real step's inputs; the fused step's logits
     # against the dense path's over GEN_PROBES prompt sets
@@ -1107,13 +1201,16 @@ def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     K.reset_launch_counts()
-    run = drive_engine(eng, requests, GEN_CLIENTS)
+    retry = _Backoff()
+    run = drive_engine(eng, requests, GEN_CLIENTS, retry)
     launches = K.launch_counts()["ragged_paged_attention"]
     st = dataclasses.replace(eng.stats)
     peak = torch.cuda.max_memory_allocated()
     if profile_dir:
         profile_generation(eng, requests[:GEN_CLIENTS], profile_dir)
     eng.stop()
+    GEN_COUNTED["5b"] = eng.stats.generated_tokens
+    PREDICTED_SHEDS["5b"] = (eng.stats.sheds_predicted, retry.sheds)
     tokens = sum(len(o) for o in run["outs"])
     paged = serve_summary(run)
     log(f"[phase5] {GEN_REQUESTS} requests from {GEN_CLIENTS} clients: "
@@ -1125,7 +1222,9 @@ def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict
         f"mean decode lanes={st.decode_lane_tokens / max(1, st.decode_steps):.2f} "
         f"prefix hits={st.prefix_hits} reused tokens={st.prefix_reused_tokens} "
         f"launches={launches} max_memory_allocated={peak / 2**30:.3f}GiB "
-        f"({held / 2**30:.3f}GiB held before the run) stats={st.as_dict()}")
+        f"({held / 2**30:.3f}GiB held before the run) predicted-deadline "
+        f"sheds={st.sheds_predicted} ({retry.sheds} submits retried) "
+        f"stats={st.as_dict()}")
     assert st.completed == GEN_REQUESTS and all(
         o for o in run["outs"]), ("requests not completed", st.as_dict())
     assert st.prefix_hits > 0, "the prefix cache never hit"
@@ -1189,12 +1288,15 @@ def phase_dense_mode(K, Q, params, cfg, gcfg, tok, requests, paged) -> None:
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     st0 = dataclasses.replace(eng.stats)
-    run = drive_engine(eng, sub, GEN_CLIENTS)
+    retry = _Backoff()
+    run = drive_engine(eng, sub, GEN_CLIENTS, retry)
     launches = K.launch_counts()["ragged_paged_attention"]
     st = dataclasses.replace(eng.stats)
     programs = sorted(eng.programs)
     peak = torch.cuda.max_memory_allocated()
     eng.stop()
+    GEN_COUNTED["5d"] = eng.stats.generated_tokens
+    PREDICTED_SHEDS["5d"] = (eng.stats.sheds_predicted, retry.sheds)
     dense = serve_summary(run)
     tokens = sum(len(o) for o in run["outs"])
     log(f"[phase5d] dense mode, {len(sub)} requests from {GEN_CLIENTS} "
@@ -1209,7 +1311,8 @@ def phase_dense_mode(K, Q, params, cfg, gcfg, tok, requests, paged) -> None:
         f"{run['lat'].max():.3f}s (deadline {dcfg.deadline_ms / 1e3:g}s) "
         f"cache widths "
         f"{sorted({p[-1] for p in programs})} max_memory_allocated="
-        f"{peak / 2**30:.3f}GiB")
+        f"{peak / 2**30:.3f}GiB; predicted-deadline sheds "
+        f"{st.sheds_predicted} ({retry.sheds} submits retried)")
     assert st.completed - st0.completed == len(sub) and all(run["outs"]), (
         st.as_dict())
     assert launches == 0 and st.fused_steps == 0, ("dense mode ran the "
@@ -1497,10 +1600,13 @@ def build_texts(n: int, seed: int) -> tuple[list, np.ndarray]:
     return texts, kinds
 
 
-def drive_embed(eng, texts: list, n_threads: int, per_call: int) -> dict:
+def drive_embed(eng, texts: list, n_threads: int, per_call: int,
+                retry=None) -> dict:
     """n_threads closed-loop clients, each embedding its contiguous share
     of ``texts`` in calls of ``per_call``, as the EmbedWorker and HTTP
-    /nornicdb/embed call ``embed_batch``."""
+    /nornicdb/embed call ``embed_batch`` (through ``retry``, a _Backoff,
+    when given: the cost model may shed a call it predicts past the
+    deadline)."""
     share = len(texts) // n_threads
     out: list = [None] * len(texts)
     lat: list = []
@@ -1511,7 +1617,9 @@ def drive_embed(eng, texts: list, n_threads: int, per_call: int) -> dict:
         try:
             for i in range(t * share, (t + 1) * share, per_call):
                 t0 = time.perf_counter()
-                out[i:i + per_call] = eng.embed_batch(texts[i:i + per_call])
+                batch = texts[i:i + per_call]
+                out[i:i + per_call] = (retry(eng.embed_batch, batch) if retry
+                                       else eng.embed_batch(batch))
                 with lock:
                     lat.append(time.perf_counter() - t0)
         except Exception as e:  # reported and re-raised on the main thread
@@ -1646,7 +1754,8 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
     # -- 8.2 the timed window
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    run = drive_embed(eng, texts, EMBED_CLIENTS, EMBED_CALL)
+    retry = _Backoff()
+    run = drive_embed(eng, texts, EMBED_CLIENTS, EMBED_CALL, retry)
     peak = torch.cuda.max_memory_allocated()
     snap = eng.stats_snapshot()
     st = dataclasses.replace(eng.stats)
@@ -1668,11 +1777,14 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
         f"{st.device_seconds:.3f} of {run['wall']:.3f}; "
         f"pack_efficiency={snap['pack_efficiency']} staging_overlap_ratio="
         f"{snap['staging_overlap_ratio']} (R, C, S) classes used {classes}; "
-        f"sheds queue_full={st.sheds_queue_full} deadline={st.sheds_deadline}; "
+        f"sheds queue_full={st.sheds_queue_full} deadline={st.sheds_deadline} "
+        f"predicted_deadline={st.sheds_predicted} ({retry.sheds} calls "
+        f"retried); "
         f"peak device memory {peak / 2**30:.3f}GiB ({held / 2**30:.3f}GiB held "
         f"before)")
     assert st.texts == EMBED_TEXTS and st.packed_batches == len(window)
     assert st.sheds_queue_full == 0 and st.sheds_deadline == 0, snap
+    PREDICTED_SHEDS["8"] = (st.sheds_predicted, retry.sheds)
     assert embs.shape == (EMBED_TEXTS, cfg.dims) and np.isfinite(embs).all()
     norms = np.linalg.norm(embs, axis=1)
     assert np.abs(norms - 1.0).max() <= 1e-3, ("norms", norms.min(), norms.max())
@@ -1843,10 +1955,11 @@ class _SpanEmbedder:
 
 
 class _Backoff:
-    """How a client answers the embed engine's load shedding: a
-    ResourceExhausted (the 429 of the HTTP edge) is retried after a backoff
-    that doubles from 50 ms, at most BACKOFF_TRIES times. Counts the sheds,
-    which the phase logs."""
+    """How a client answers the serving engines' load shedding: a
+    ResourceExhausted (the 429 of the HTTP edge; a queue-full, deadline or
+    predicted-deadline shed) is retried after a backoff that doubles from
+    50 ms, at most BACKOFF_TRIES times. Counts the sheds, which the phase
+    logs."""
 
     def __init__(self):
         self.sheds = 0
@@ -1868,9 +1981,126 @@ class _Backoff:
 
 
 def recorded_search(svc, spans: _Spans, query: str) -> tuple:
-    """``search(query)`` and the record of its stages' spans."""
+    """``search(query)`` and the record of its stages' spans, inside the
+    trace root an HTTP request would start (the service's tracer spans
+    land in it)."""
+    from nornicdb_tpu_torch.telemetry.tracing import tracer
+
     rec = spans.begin()
-    return svc.search(query, limit=HYBRID_LIMIT), rec
+    with tracer.start_trace("chip_smoke.search"):
+        return svc.search(query, limit=HYBRID_LIMIT), rec
+
+
+def tracer_p50s(names: tuple) -> dict:
+    """name -> (spans, p50 ms) over every trace in the tracer's ring."""
+    from nornicdb_tpu_torch.telemetry.tracing import tracer
+
+    durations: dict = {n: [] for n in names}
+    for summary in tracer.traces(limit=tracer.count()):
+        entry = tracer.trace(summary["trace_id"]) or {"spans": []}
+        for rec in entry["spans"]:
+            if rec["name"] in durations:
+                durations[rec["name"]].append(rec["duration_ms"])
+    return {n: (len(d), float(np.median(d)) if d else float("nan"))
+            for n, d in durations.items()}
+
+
+def phase10_telemetry(svc, texts: list, retry: _Backoff,
+                      script_p50: dict) -> None:
+    """Phase 10.7, the telemetry plane over the live hybrid service: the
+    device-residency gauge against the corpus tensors, a profile capture
+    while CAPTURE_THREADS threads search (the capture must hold #2's
+    launches, made on the batcher's thread), and the tracer's span p50s
+    beside the script's own."""
+    import io
+    import tarfile
+
+    import torch
+
+    from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
+    from nornicdb_tpu_torch.telemetry import deviceprof
+
+    # -- the device-residency gauge: every live corpus's tensors
+    deviceprof.PROFILER.refresh_hbm()
+    hbm = deviceprof.snapshot()["hbm_bytes"]
+    owners = [ref() for ref, _ in list(
+        deviceprof.PROFILER._hbm_providers.values())]
+    corpora = [c for c in owners if isinstance(c, DeviceCorpus)]
+    assert svc.corpus() in corpora
+
+    def nbytes(*ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    want = {"corpus_f32": sum(nbytes(c._dev, c._dev_valid) for c in corpora),
+            "corpus_int8": sum(nbytes(*(c._dev_i8 or ())) for c in corpora),
+            "ivf": sum(nbytes(c._ivf.blocks, c._ivf.counts,
+                              c._ivf.centroids, c._ivf.residual,
+                              c._ivf.residual_valid)
+                       for c in corpora if c._ivf is not None)}
+    allocated = torch.cuda.memory_allocated()
+    log(f"[phase10] hbm gauge {json.dumps(hbm)} against the tensors of "
+        f"{len(corpora)} live corpora {json.dumps(want)}; "
+        f"memory_allocated {allocated}")
+    for comp, b in want.items():
+        assert hbm[comp] == b, ("nornicdb_hbm_bytes", comp, hbm[comp], b)
+    assert hbm["corpus_f32"] > 0
+    assert sum(hbm[c] for c in want) <= allocated
+
+    # -- a profile capture while the clients search (fresh queries: a
+    # cached ranking would launch nothing)
+    stop = threading.Event()
+    served = [0]
+
+    def client(t: int) -> None:
+        j = 0
+        while not stop.is_set():
+            q = f"{two_words(texts[(t * 7919 + j * 104729) % len(texts)])} " \
+                f"capture{t}x{j}"
+            retry(svc.search, q, limit=HYBRID_LIMIT)
+            served[0] += 1
+            j += 1
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(CAPTURE_THREADS)]
+    for th in threads:
+        th.start()
+    time.sleep(0.5)  # the clients are searching before the window opens
+    try:
+        t0 = time.perf_counter()
+        blob = deviceprof.capture_profile(CAPTURE_SECONDS)
+        t_cap = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+    with tarfile.open(fileobj=io.BytesIO(blob), mode="r:gz") as tar:
+        names = tar.getnames()
+        trace = json.load(tar.extractfile(
+            next(n for n in names if n.endswith(".json"))))
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    topk = [e for e in kernels if "streaming_topk_bf16" in e.get("name", "")]
+    corr = {e.get("args", {}).get("correlation") for e in topk}
+    launch_tids = sorted({e.get("tid") for e in trace["traceEvents"]
+                          if e.get("cat") == "cuda_runtime"
+                          and e.get("args", {}).get("correlation") in corr})
+    log(f"[phase10] profile capture {CAPTURE_SECONDS:g}s while "
+        f"{CAPTURE_THREADS} threads searched ({served[0]} searches): "
+        f"{len(blob)} bytes in {t_cap:.2f}s, files {names}, "
+        f"{len(trace['traceEvents'])} events, {len(kernels)} kernels, "
+        f"{len(topk)} launches of #2; their launching host threads {launch_tids} "
+        f"(the capturing thread {threading.get_native_id()} only slept)")
+    assert topk, "the capture holds no launch of the bf16 kernel"
+
+    # -- the tracer's spans beside the script's
+    tp = tracer_p50s(("search.embed", "search.rank", "search.vector",
+                      "search.queue_wait", "search.batch"))
+    log("[phase10] tracer span p50s: " + ", ".join(
+        f"{n} {p:.2f}ms ({k} spans)" for n, (k, p) in tp.items())
+        + "; the script's spans: " + ", ".join(
+        f"{n} {p:.2f}ms" for n, p in script_p50.items())
+        + " (batching on: the vector leg records search.queue_wait and "
+        "search.batch, search.vector only when unbatched)")
+    assert tp["search.rank"][0] > 0 and tp["search.embed"][0] > 0
 
 
 def two_words(text: str) -> str:
@@ -2089,6 +2319,11 @@ def phase_hybrid(K, seed: int, served: dict) -> dict:
     q_rows = rows[:n_q]
     queries = [texts[r] if i % 2 == 0 else two_words(texts[r])
                for i, r in enumerate(q_rows)]
+    from nornicdb_tpu_torch.telemetry.tracing import tracer
+
+    # every traced search of the phase stays in the ring
+    tracer.configure(capacity=4096)
+    tracer.clear()
     svc.embedder = _SpanEmbedder(eng, spans)
     svc.vector_candidates = spans.wrap("vector", svc.vector_candidates)
     svc._bm25.search = spans.wrap("bm25", svc._bm25.search)
@@ -2145,6 +2380,9 @@ def phase_hybrid(K, seed: int, served: dict) -> dict:
         lat = run["lat"]
         embed_ms = np.array([rec.get("embed", 0.0) for rec in run["recs"]
                              if "rank" in rec]) * 1e3
+        script_p50 = {k: float(np.median([rec[k] for rec in run["recs"]
+                                          if k in rec])) * 1e3
+                      for k in ("embed", "rank", "vector")}
         log(f"[phase10] {n_q} searches from {HYBRID_CLIENTS} clients in "
             f"{run['wall']:.3f}s qps={n_q / run['wall']:.1f} client "
             f"p50={np.median(lat) * 1e3:.2f}ms "
@@ -2329,6 +2567,11 @@ def phase_hybrid(K, seed: int, served: dict) -> dict:
             svc.__dict__.pop(name, None)
         svc._bm25.__dict__.pop("search", None)
         svc.set_reranker(None)
+    t0 = time.perf_counter()
+    phase10_telemetry(svc, texts, retry, script_p50)
+    log(f"[phase10] telemetry checks {time.perf_counter() - t0:.1f}s")
+    PREDICTED_SHEDS["10"] = (served["engine"].stats.sheds_predicted
+                             - PREDICTED_SHEDS["8"][0], retry.sheds)
     return {"storage": storage, "service": svc,
             "streaming_topk_bf16": launches}
 
@@ -2444,6 +2687,10 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
                                             tokenizer=gen.tokenizer,
                                             config=gcfg))
     eng = egen.engine
+    # a question the serving engines shed (the retrieval's embed or the
+    # generation's submit) is asked again with backoff, as a client of the
+    # HTTP edge would
+    retry = _Backoff()
     try:
         t0 = time.perf_counter()
         eng.warmup()
@@ -2481,7 +2728,7 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
             try:
                 for i in range(t, RAG_QUESTIONS, RAG_CLIENTS):
                     t1 = time.perf_counter()
-                    answers[i] = rag.answer(texts[rows[i]])
+                    answers[i] = retry(rag.answer, texts[rows[i]])
                     lat[i] = time.perf_counter() - t1
             except Exception as e:  # re-raised on the main thread
                 errors.append(e)
@@ -2519,7 +2766,9 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
             f"prefix hits={st.prefix_hits - st0.prefix_hits} reused tokens by "
             f"answer {reused}; fused steps={st.fused_steps - st0.fused_steps} "
             f"evictions={st.evictions - st0.evictions} max_memory_allocated="
-            f"{peak / 2**30:.3f}GiB")
+            f"{peak / 2**30:.3f}GiB; predicted-deadline sheds of the "
+            f"generation engine {st.sheds_predicted - st0.sheds_predicted}, "
+            f"questions asked again {retry.sheds}")
         log(f"[phase9] launches in the traffic: streaming_topk_bf16="
             f"{counts['streaming_topk_bf16']} ragged_paged_attention="
             f"{counts['ragged_paged_attention']}; retrieve p99="
@@ -2562,6 +2811,8 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
                 "ragged_paged_attention": counts["ragged_paged_attention"]}
     finally:
         eng.stop()
+        GEN_COUNTED["9"] = eng.stats.generated_tokens
+        PREDICTED_SHEDS["9"] = (eng.stats.sheds_predicted, retry.sheds)
 
 
 def train_flops(cfg, rows: int, t: int, tokens: int) -> float:
@@ -2962,21 +3213,31 @@ def phase_distill(trained: dict, texts: list, phase8_rate: float,
                         stats["agreement"]]).all()
 
     # -- 11c.3 the student behind ServingEngine
+    # the process-wide cost model keys the embed path by (serving, embed),
+    # not by model: it comes here with what phases 8 and 10 taught it about
+    # the 24-layer encoder, and sheds at submit until the student's packs
+    # teach it otherwise (half-open probes admit every 8th); the clients
+    # retry with backoff, as a client of the HTTP edge would
     eng = ServingEngine(student, ServingConfig())
+    warm_retry, retry = _Backoff(), _Backoff()
     try:
         few = texts[:STUDENT_TEXTS]
         drive_embed(eng, few[:EMBED_CALL * EMBED_CLIENTS], EMBED_CLIENTS,
-                    EMBED_CALL)  # warm each class the mix reaches
-        run = drive_embed(eng, few, EMBED_CLIENTS, EMBED_CALL)
+                    EMBED_CALL, warm_retry)  # each class the mix reaches
+        run = drive_embed(eng, few, EMBED_CLIENTS, EMBED_CALL, retry)
     finally:
         eng.stop()
+    PREDICTED_SHEDS["11c"] = (eng.stats.sheds_predicted,
+                              warm_retry.sheds + retry.sheds)
     embs = np.stack(run["out"])
     rate = STUDENT_TEXTS / run["wall"]
     log(f"[phase11] 11c student behind ServingEngine: {STUDENT_TEXTS} "
         f"phase-8 texts from {EMBED_CLIENTS} clients in {run['wall']:.3f}s: "
         f"embeddings/s={rate:.1f} (phase 8, 24 layers, this run: "
         f"{phase8_rate:.1f}); client p50="
-        f"{np.median(run['lat']) * 1e3:.2f}ms")
+        f"{np.median(run['lat']) * 1e3:.2f}ms; predicted-deadline sheds "
+        f"{eng.stats.sheds_predicted} (calls retried: {warm_retry.sheds} in "
+        f"the warm-up, {retry.sheds} in the timed run)")
     assert embs.shape == (STUDENT_TEXTS, student.cfg.dims)
     assert np.isfinite(embs).all()
     assert np.abs(np.linalg.norm(embs, axis=1) - 1.0).max() <= 1e-3
@@ -3063,6 +3324,401 @@ def phase_train(seed: int, texts: list, phase8_rate: float,
         t0 = time.perf_counter()
         phase_train_cli(work)
         log(f"[phase11] 11d {time.perf_counter() - t0:.1f}s")
+
+
+def pagerank_f64(src: np.ndarray, dst: np.ndarray, n: int,
+                 damping: float = 0.85, iters: int = 20) -> np.ndarray:
+    """The float64 reference of ``graph_algos.pagerank``: the same damped
+    power iteration (dangling mass spread uniformly) with ``np.bincount``
+    over the same edges."""
+    # numpy indexes and bins with intp: convert once, not every iteration
+    src, dst = src.astype(np.intp), dst.astype(np.intp)
+    deg = np.bincount(src, minlength=n).astype(np.float64)
+    safe = np.maximum(deg, 1.0)
+    dangling = deg == 0
+    rank = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        incoming = np.bincount(dst, weights=(rank / safe)[src], minlength=n)
+        rank = (1.0 - damping) / n + damping * (
+            incoming + rank[dangling].sum() / n)
+    return rank
+
+
+def phase_graph(seed: int) -> None:
+    """Phase 12: the graph offloads. 12a PageRank and 12b WCC over a
+    Graph500 Kronecker graph at GRAPH_SCALE, numpy in and numpy out as a
+    caller passes them, held to a float64 numpy power iteration and to
+    scipy's components; 12c link prediction over a port MemoryEngine of a
+    LINK_SCALE Kronecker graph, on the card against the CPU path."""
+    import scipy.sparse as sp
+    import torch
+    from scipy.sparse.csgraph import connected_components as scipy_cc
+
+    from nornicdb_tpu_torch.linkpredict import (
+        batch_scores,
+        build_graph,
+        top_candidates,
+    )
+    from nornicdb_tpu_torch.ops import graph_algos as GA
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    # -- 12a the graph, then PageRank
+    n = 1 << GRAPH_SCALE
+    t0 = time.perf_counter()
+    s_dev, d_dev = kronecker_edges(GRAPH_SCALE, GRAPH_EDGEFACTOR, seed, "cuda")
+    sync()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src, dst = s_dev.cpu().numpy(), d_dev.cpu().numpy()
+    t_host = time.perf_counter() - t0
+    m = len(src)
+    out_deg = np.bincount(src, minlength=n)
+    in_deg = np.bincount(dst, minlength=n)
+    hubs = np.argsort(-in_deg)[:PR_TOP]
+    log(f"[phase12] Graph500 Kronecker SCALE {GRAPH_SCALE} edgefactor "
+        f"{GRAPH_EDGEFACTOR} (A, B, C = {GRAPH500_A}, {GRAPH500_B}, "
+        f"{GRAPH500_C}), seed {seed}: {n} vertices, {m} edges, "
+        f"{int((src == dst).sum())} self-loops, "
+        f"{int(((out_deg + in_deg) == 0).sum())} isolated vertices, max "
+        f"out-degree {int(out_deg.max())} in-degree {int(in_deg.max())}, "
+        f"the {PR_TOP} largest in-degrees take "
+        f"{in_deg[hubs].sum() / m:.4f} of the edges; made on the card in "
+        f"{t_gen:.2f}s, copied to the host in {t_host:.2f}s "
+        f"({(src.nbytes + dst.nbytes) / 1e9:.3f} GB as int32)")
+    assert m == GRAPH_EDGEFACTOR << GRAPH_SCALE and src.dtype == np.int32
+
+    GA.pagerank(src, dst, n)  # warm-up
+    e2e, runs = [], []
+    for _ in range(GRAPH_CALLS):
+        t0 = time.perf_counter()
+        runs.append(GA.pagerank(src, dst, n))  # device=None: the card
+        e2e.append(time.perf_counter() - t0)
+    ranks = runs[-1]
+    iters = 20
+    dev_ms = cuda_ms(lambda: GA.pagerank_device(s_dev, d_dev, n),
+                     GRAPH_CALLS)
+    setup_ms = cuda_ms(lambda: GA.pagerank_device(s_dev, d_dev, n, iters=0),
+                       GRAPH_CALLS)
+    iter_ms = (dev_ms - setup_ms) / iters
+    copy_ms = cuda_ms(lambda: (torch.from_numpy(src).to("cuda"),
+                               torch.from_numpy(dst).to("cuda")), 3)
+    back_ms = cuda_ms(lambda: GA.pagerank_device(s_dev, d_dev, n,
+                                                 iters=0).cpu(), 3) - setup_ms
+    # per iteration the code moves: the gather kernel reads src and the
+    # n-sized quotient at src and writes the contributions (3 x 4m), the
+    # index_add_ reads dst and the contributions and updates incoming
+    # (3 x 4m), plus five n-sized float32 vectors (the quotient, incoming
+    # zeroed, the dangling sum, the new rank): 24m + 20n bytes
+    bound_iter = (24 * m + 20 * n) / H100_BYTES * 1e3
+    e2e_ms = float(np.median(e2e)) * 1e3
+    t0 = time.perf_counter()
+    ref = pagerank_f64(src, dst, n, iters=iters)
+    t_ref = time.perf_counter() - t0
+    l1 = float(np.abs(ranks.astype(np.float64) - ref).sum())
+    top = np.argsort(-ref)[:PR_TOP]
+    top_rel = float(np.max(np.abs(ranks[top] - ref[top]) / ref[top]))
+    spread = max(float(np.abs(r - ranks).max()) for r in runs)
+    log(f"[phase12] 12a pagerank (0.85, {iters} iterations): end to end "
+        f"p50 {e2e_ms:.2f}ms (numpy in, numpy out; calls "
+        f"{[round(x * 1e3, 2) for x in e2e]}), device {dev_ms:.3f}ms by "
+        f"CUDA events (setup: out-degrees {setup_ms:.3f}ms), "
+        f"{iter_ms:.4f}ms an iteration, "
+        f"{m * iters / (dev_ms / 1e3):.4g} edges x iterations/s; bytes "
+        f"bound (24m + 20n) / 3.35 TB/s = {bound_iter:.4f}ms an iteration, "
+        f"share {bound_iter / iter_ms:.4f}; host-to-device copy of the "
+        f"edges {copy_ms:.2f}ms and the ranks back {back_ms:.3f}ms: "
+        f"{(copy_ms + back_ms) / e2e_ms:.4f} of the call; float64 numpy "
+        f"reference in {t_ref:.1f}s: L1 {l1:.4e} (at most {PR_L1_TOL:g}), "
+        f"largest relative error of the {PR_TOP} highest ranks "
+        f"{top_rel:.4e} (at most {PR_TOP_REL_TOL:g}); sum {ranks.sum():.6f}; "
+        f"largest difference between the {GRAPH_CALLS} calls {spread:.3e} "
+        f"(float32 atomics in no fixed order)")
+    assert ranks.shape == (n,) and ranks.dtype == np.float32
+    assert np.isfinite(ranks).all()
+    assert l1 <= PR_L1_TOL, ("pagerank L1", l1)
+    assert top_rel <= PR_TOP_REL_TOL, ("pagerank top ranks", top_rel)
+
+    # -- 12b WCC on the same graph
+    GA.connected_components(src, dst, n)  # warm-up
+    t0 = time.perf_counter()
+    labels = GA.connected_components(src, dst, n)
+    e2e_w = (time.perf_counter() - t0) * 1e3
+    s2 = torch.cat([s_dev, d_dev])
+    d2 = torch.cat([d_dev, s_dev]).to(torch.int64)
+    out: list = []
+    wcc_ms = cuda_ms(lambda: out.append(GA.wcc_device(s2, d2, n)), 1)
+    rounds = out[-1][1]
+    del s2, d2, out
+    t0 = time.perf_counter()
+    adj = sp.csr_matrix((np.ones(m, np.float32), (src, dst)), shape=(n, n))
+    n_comp, comp = scipy_cc(adj, directed=False)
+    del adj
+    _, first = np.unique(comp, return_index=True)
+    want = first[comp].astype(np.int32)  # each component's smallest member
+    t_scipy = time.perf_counter() - t0
+    sizes = np.bincount(comp)
+    log(f"[phase12] 12b connected components: {rounds} rounds (the last "
+        f"changed nothing), device {wcc_ms:.3f}ms ({wcc_ms / rounds:.4f}ms a "
+        f"round), end to end {e2e_w:.2f}ms; {n_comp} components, the "
+        f"largest {int(sizes.max())} vertices, {int((sizes == 1).sum())} "
+        f"singletons; scipy in {t_scipy:.1f}s, labels equal: "
+        f"{bool(np.array_equal(labels, want))}")
+    assert labels.dtype == np.int32
+    assert np.array_equal(labels, want), "WCC labels differ from scipy's"
+    del s_dev, d_dev, src, dst, ranks, runs, ref, labels, want, comp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 12c link prediction over a port MemoryEngine
+    nl = 1 << LINK_SCALE
+    ls, ld = kronecker_edges(LINK_SCALE, GRAPH_EDGEFACTOR, seed + 13, "cuda")
+    ls, ld = ls.cpu().numpy(), ld.cpu().numpy()
+    t0 = time.perf_counter()
+    storage = MemoryEngine()
+    for i in range(nl):
+        storage.create_node(Node(id=f"g{i}"))
+    for e, (a, b) in enumerate(zip(ls.tolist(), ld.tolist())):
+        storage.create_edge(Edge(id=f"k{e}", start_node=f"g{a}",
+                                 end_node=f"g{b}", type="LINKS"))
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = build_graph(storage)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adj = np.zeros((nl, nl), np.float32)  # batch_scores' own fill
+    for i, nbrs in enumerate(g.neighbors):
+        for j in nbrs:
+            adj[i, j] = 1.0
+    t_fill = time.perf_counter() - t0
+    a_dev = torch.from_numpy(adj).to("cuda")
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        prod_ms = cuda_ms(lambda: torch.matmul(a_dev, a_dev), 3)
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    del a_dev, adj
+    log(f"[phase12] 12c Kronecker SCALE {LINK_SCALE}: {nl} nodes and "
+        f"{len(ls)} edges stored in {t_load:.2f}s; build_graph "
+        f"{t_build * 1e3:.1f}ms ({sum(map(len, g.neighbors)) // 2} "
+        f"undirected pairs); dense fill {t_fill * 1e3:.1f}ms; one "
+        f"{nl} x {nl} float32 product on the card {prod_ms:.3f}ms "
+        f"(2n^3 / 67 TFLOP/s = {2 * nl ** 3 / H100_FP32_OPS * 1e3:.3f}ms)")
+    t_dev = {}
+    for method in ("commonNeighbors", "jaccard", "adamicAdar",
+                   "preferentialAttachment", "resourceAllocation"):
+        t0 = time.perf_counter()
+        got = batch_scores(g, method)  # device=None: the card
+        t_dev[method] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = batch_scores(g, method, use_device=False)
+        t_cpu = time.perf_counter() - t0
+        diff = float(np.abs(got.astype(np.float64) - want).max())
+        log(f"[phase12] 12c batch_scores {method}: card {t_dev[method]:.3f}s"
+            f", numpy {t_cpu:.3f}s, max |diff| {diff:.3e}, max score "
+            f"{float(want.max()):.4f}")
+        if method in ("commonNeighbors", "preferentialAttachment"):
+            assert np.array_equal(got, want), method
+        else:
+            np.testing.assert_allclose(got, want, rtol=LINK_TOL,
+                                       atol=LINK_TOL, err_msg=method)
+    del got, want
+    t0 = time.perf_counter()
+    cands = top_candidates(g, "adamicAdar", limit=LINK_LIMIT)
+    t_top = time.perf_counter() - t0
+    ref_c = top_candidates(g, "adamicAdar", limit=LINK_LIMIT, device="cpu")
+    cut = ref_c[-1][2] * (1 + LINK_TOL) + LINK_TOL
+    same = ({c[:2] for c in cands if c[2] > cut}
+            == {c[:2] for c in ref_c if c[2] > cut})
+    log(f"[phase12] 12c top_candidates(adamicAdar, {LINK_LIMIT}) in "
+        f"{t_top:.3f}s (host top-k ~{t_top - t_dev['adamicAdar']:.3f}s "
+        f"beyond batch_scores): {cands[:3]} ...; the CPU's pairs above the "
+        f"last score's tie band: {same}")
+    assert len(cands) == len(ref_c) == LINK_LIMIT
+    assert same, ("top candidates", cands, ref_c)
+    for c, r in zip(cands, ref_c):
+        assert abs(c[2] - r[2]) <= LINK_TOL * (1 + abs(r[2])), (c, r)
+
+
+def parse_exposition(text: str) -> dict:
+    """A strict reader of Prometheus text exposition (the port carries no
+    parser until its servers come): every sample belongs to a family
+    declared once by ``# TYPE``, label pairs are well formed, values
+    parse, and every histogram's buckets are cumulative with ``+Inf``
+    equal to ``_count``. Returns family -> {kind, help, samples: [(name,
+    labels, value)]}."""
+    import re
+
+    sample_re = re.compile(
+        r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    pair_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    fams: dict = {}
+    helps: dict = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# HELP "):
+            name, _, help_ = line[len("# HELP "):].partition(" ")
+            helps[name] = help_
+            continue
+        if line.startswith("# TYPE "):
+            name, _, kind = line[len("# TYPE "):].partition(" ")
+            assert name not in fams, f"TYPE of {name} declared twice"
+            assert kind in ("counter", "gauge", "histogram", "summary",
+                            "untyped"), line
+            fams[name] = {"kind": kind, "help": helps.get(name, ""),
+                          "samples": []}
+            continue
+        assert not line.startswith("#"), line
+        match = sample_re.match(line)
+        assert match, f"malformed sample {line!r}"
+        name, labelstr, value = match.groups()
+        fam = name
+        if fam not in fams:
+            fam = next((name[:-len(x)] for x in ("_bucket", "_sum", "_count")
+                        if name.endswith(x) and name[:-len(x)] in fams), None)
+        assert fam is not None, f"sample before its TYPE: {line!r}"
+        labels = {}
+        if labelstr:
+            pairs = pair_re.findall(labelstr)
+            assert ",".join(f'{k}="{v}"' for k, v in pairs) == labelstr, line
+            labels = dict(pairs)
+        fams[fam]["samples"].append((name, labels, float(value)))
+    for fam, block in fams.items():
+        if block["kind"] != "histogram":
+            continue
+        series: dict = {}
+        for name, labels, v in block["samples"]:
+            key = tuple(sorted((k, x) for k, x in labels.items() if k != "le"))
+            series.setdefault(key, {"buckets": [], "count": None})
+            if name.endswith("_bucket"):
+                series[key]["buckets"].append(v)
+            elif name.endswith("_count"):
+                series[key]["count"] = v
+        for key, ser in series.items():
+            b = ser["buckets"]
+            assert b == sorted(b) and b and b[-1] == ser["count"], (fam, key)
+    return fams
+
+
+def sample_total(fams: dict, fam: str, suffix: str = "", **labels) -> float:
+    """The sum of a family's samples named fam + suffix whose labels hold
+    ``labels``."""
+    block = fams.get(fam)
+    if block is None:
+        return 0.0
+    return sum(v for name, lab, v in block["samples"]
+               if name == fam + suffix
+               and all(lab.get(k) == x for k, x in labels.items()))
+
+
+def span_costs() -> tuple[float, float]:
+    """The tracer's cost on this host, as TestOverheadMicrobench measures
+    it: microseconds a ``tracer.span`` with no trace active, and a span
+    recorded inside a trace (a root and four children a request), each
+    beyond the same loop without spans; best of five."""
+    from nornicdb_tpu_torch.telemetry.tracing import tracer
+
+    n, state = 50_000, {}
+
+    def work(i: int) -> None:
+        state["k"] = i
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    def base():
+        for i in range(n):
+            work(i)
+
+    def untraced():
+        for i in range(n):
+            with tracer.span("bench.op"):
+                work(i)
+
+    def traced():
+        for i in range(0, n, 5):
+            with tracer.start_trace("bench.request"):
+                work(i)
+                for j in range(1, 5):
+                    with tracer.span("bench.op"):
+                        work(i + j)
+
+    t_base = best(base)
+    cost = ((best(untraced) - t_base) / n * 1e6,
+            (best(traced) - t_base) / n * 1e6)
+    tracer.clear()
+    return cost
+
+
+def phase_registry() -> None:
+    """Phase 13: the port's registry after the whole run, rendered and
+    parsed strictly, with the families every slice reports held non-zero
+    and the generated-token counter equal to the engines' own counts; the
+    cost model's accuracy, the predicted-deadline sheds and the tracer's
+    cost on this host."""
+    from nornicdb_tpu_torch.telemetry import REGISTRY
+    from nornicdb_tpu_torch.telemetry.costmodel import COST_MODEL
+
+    t0 = time.perf_counter()
+    text = REGISTRY.render_prometheus()
+    t_render = time.perf_counter() - t0
+    fams = parse_exposition(text)
+    programs = {(sub, kind): sample_total(
+        fams, "nornicdb_device_programs_total", subsystem=sub, kind=kind)
+        for sub, kind in (("search", "dense"), ("search", "ivf"),
+                          ("serving", "embed"), ("genserve", "ragged"))}
+    seen = {
+        "nornicdb_device_program_seconds": sample_total(
+            fams, "nornicdb_device_program_seconds", "_count"),
+        "nornicdb_serving_batches_total": sample_total(
+            fams, "nornicdb_serving_batches_total"),
+        "nornicdb_search_batch_size": sample_total(
+            fams, "nornicdb_search_batch_size", "_count"),
+        "nornicdb_device_sync_seconds": sample_total(
+            fams, "nornicdb_device_sync_seconds", "_count"),
+        "nornicdb_ivf_tunes_total": sample_total(
+            fams, "nornicdb_ivf_tunes_total"),
+        "nornicdb_cost_model_observations_total": sample_total(
+            fams, "nornicdb_cost_model_observations_total"),
+    }
+    tokens = sample_total(fams, "nornicdb_genserve_generated_tokens_total")
+    counted = sum(GEN_COUNTED.values())
+    rel = {f"{s}/{k}": COST_MODEL.median_rel_error(s, k)
+           for s, k in (("serving", "embed"), ("genserve", "ragged"),
+                        ("search", "dense"), ("search", "ivf"))}
+    sheds = {
+        "serving embed": sample_total(fams, "nornicdb_serving_sheds_total",
+                                      path="embed",
+                                      reason="predicted_deadline"),
+        "serving search": sample_total(fams, "nornicdb_serving_sheds_total",
+                                       path="search",
+                                       reason="predicted_deadline"),
+        "genserve": sample_total(fams, "nornicdb_genserve_sheds_total",
+                                 reason="predicted_deadline"),
+    }
+    untraced_us, traced_us = span_costs()
+    log(f"[phase13] registry: {len(text)} bytes, {len(fams)} families, "
+        f"{sum(len(b['samples']) for b in fams.values())} samples, "
+        f"rendered in {t_render * 1e3:.2f}ms and parsed strictly; device "
+        f"programs {json.dumps({'/'.join(k): v for k, v in programs.items()})}"
+        f"; {json.dumps(seen)}; generated tokens {tokens:.0f} against the "
+        f"engines' {counted} ({json.dumps(GEN_COUNTED)})")
+    log(f"[phase13] cost model median relative error {json.dumps(rel)}; "
+        f"predicted-deadline sheds in the registry {json.dumps(sheds)}, by "
+        f"phase (engine sheds, client retries) {json.dumps(PREDICTED_SHEDS)}; "
+        f"tracer cost on this host: {untraced_us:.4f}us a span with no "
+        f"trace, {traced_us:.4f}us a span recorded in a trace")
+    for key, v in programs.items():
+        assert v > 0, ("nornicdb_device_programs_total", key)
+    for fam, v in seen.items():
+        assert v > 0, fam
+    assert tokens == counted > 0, ("generated tokens", tokens, counted)
 
 
 def main() -> int:
@@ -3335,6 +3991,18 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train(args.seed, texts8, rate8, out_dir if args.profile else "")
     log(f"[phase11] {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 12: graph offloads (PageRank, WCC, link prediction)
+    t0 = time.perf_counter()
+    phase_graph(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase12] {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 13: the registry after the whole run
+    t0 = time.perf_counter()
+    phase_registry()
+    log(f"[phase13] {time.perf_counter() - t0:.1f}s")
 
     # -- report
     launches = {"streaming_topk_bf16": counts2["streaming_topk_bf16"],

@@ -30,6 +30,8 @@ from nornicdb_tpu_torch.errors import (
     StudentGateError,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "ClosedError",
     "DeviceUnavailable",

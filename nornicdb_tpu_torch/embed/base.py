@@ -17,9 +17,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from nornicdb_tpu_torch._device import DeviceLike, resolve_device, tree_to
+from nornicdb_tpu_torch._device import (
+    DeviceLike,
+    map_tree,
+    resolve_device,
+    tree_to,
+)
 from nornicdb_tpu_torch.models import bge_m3
 from nornicdb_tpu_torch.models.tokenizer import HashTokenizer
+from nornicdb_tpu_torch.telemetry import deviceprof as _deviceprof
 
 
 class Embedder:
@@ -88,8 +94,9 @@ class DeviceEmbedder(Embedder):
     to a power-of-two batch class, as the reference does. ``embed_packed``
     runs one token-packed grid of the serving engine in one forward.
 
-    Not ported (ROADMAP): the backend manager gate, the DEGRADED_CPU host
-    mirror of the weights and the device-profiler registration. The
+    The parameters' bytes are reported as ``nornicdb_hbm_bytes
+    {component="embedder_params"}``. Not ported (ROADMAP): the backend
+    manager gate and the DEGRADED_CPU host mirror of the weights. The
     embedder runs where its ``device`` says, and a forward that fails
     raises; so the reference's ``cpu_fallback_batches`` counter has no
     counterpart in ``stats``."""
@@ -121,6 +128,16 @@ class DeviceEmbedder(Embedder):
             "embedded": 0, "batches": 0,
             "packed_dispatches": 0, "packed_tokens": 0,
         }
+        # encoder parameter residency (weakref'd; summed per component at
+        # /metrics render, telemetry/deviceprof.py)
+        _deviceprof.register_hbm(self, DeviceEmbedder._hbm_bytes)
+
+    @staticmethod
+    def _hbm_bytes(self) -> dict:
+        sizes: list[int] = []
+        map_tree(lambda t: sizes.append(t.numel() * t.element_size())
+                 if isinstance(t, torch.Tensor) else None, self.params)
+        return {"embedder_params": sum(sizes)}
 
     def _bucket_len(self, n: int) -> int:
         for b in self._LEN_BUCKETS:

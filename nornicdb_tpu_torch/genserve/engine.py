@@ -28,10 +28,17 @@ Counterpart of ``nornicdb_tpu/genserve/engine.py``:
   (``qwen2.DecodeGraph``), as the reference compiles one step program a
   cache width. It is the numeric reference the paged path is held to.
 
+The engine reports through the port's telemetry as the JAX one does: the
+families of ``genserve/stats.py``; the ``genserve.admit`` span and, in the
+submitter's trace, ``genserve.queue_wait``, ``genserve.prefill``,
+``genserve.decode`` and ``genserve.evicted``; cost-model predictive
+admission and the deadline budget at submit; the program ledger
+(``record_compile`` per shape class, ``record_execute("genserve",
+"ragged", ...)`` per fused step, timed until its token ids reached the
+host); and the page pool's bytes as ``nornicdb_hbm_bytes``.
+
 Not ported (ROADMAP): the backend gate and its DEGRADED_CPU host mirror
-(the engine runs where its ``device`` says and fails a step that raises),
-cost-model predictive admission, tracer spans, device profiling and the
-Prometheus families.
+(the engine runs where its ``device`` says and fails a step that raises).
 
 Thread model: caller threads do admission and block on their handle; the
 single scheduler thread owns the page pool, page tables and running set, so
@@ -57,7 +64,12 @@ import torch
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device, tree_to
 from nornicdb_tpu_torch.errors import ClosedError, ResourceExhausted
+from nornicdb_tpu_torch.genserve import stats as _stats
 from nornicdb_tpu_torch.models import qwen2
+from nornicdb_tpu_torch.telemetry import budget as _budget
+from nornicdb_tpu_torch.telemetry import costmodel as _costmodel
+from nornicdb_tpu_torch.telemetry import deviceprof as _deviceprof
+from nornicdb_tpu_torch.telemetry.tracing import tracer as _tracer
 
 logger = logging.getLogger(__name__)
 
@@ -90,6 +102,7 @@ class GenStats:
     sheds_queue_full: int = 0
     sheds_deadline: int = 0
     sheds_pool: int = 0
+    sheds_predicted: int = 0
     cancelled: int = 0
     errors: int = 0
 
@@ -169,6 +182,7 @@ class GenHandle:
         the sequence's pages at the next step boundary."""
         if self._mark_shed():
             self._engine.stats.sheds_deadline += 1
+            _stats.SHEDS.labels("deadline").inc()
         self.error = ResourceExhausted(
             "generation deadline exceeded", reason="deadline")
         return self.error
@@ -245,7 +259,7 @@ class _Seq:
         "prefill_tokens", "prefill_pos", "page_ids", "page_table",
         "cache_len", "admit_no", "dense_cache", "dense_graph", "dense_len",
         "counted",
-        "prefix_keys", "re_prefill",
+        "trace_ctx", "submitted_perf", "prefix_keys", "re_prefill",
     )
 
     def __init__(self, handle: GenHandle, prompt: list[int], max_new: int,
@@ -266,10 +280,19 @@ class _Seq:
         self.dense_graph = None  # its captured decode step (CUDA only)
         self.dense_len = 0
         self.counted = False
+        # the submitting request's trace context: scheduler spans attach to
+        # it (prefill/decode, queue-wait, eviction)
+        self.trace_ctx = None
+        self.submitted_perf = 0.0
         # chained page-content keys over this admission's prefill tokens
         # (full pages only); registered when the final chunk lands
         self.prefix_keys: Optional[list[bytes]] = None
         self.re_prefill = False  # this admission re-prefills prior work
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        ctx = self.trace_ctx
+        return None if ctx is None else ctx.trace_id
 
 
 class GenerationEngine:
@@ -336,6 +359,21 @@ class GenerationEngine:
         self._page_refs: dict[int, int] = {}
         self._prefix_cache: "OrderedDict[bytes, int]" = OrderedDict()
         self._page_hash: dict[int, bytes] = {}
+        # the KV page pool's device residency (weakref'd provider, summed
+        # at /metrics render, telemetry/deviceprof.py)
+        _deviceprof.register_hbm(self, GenerationEngine._hbm_bytes)
+
+    @staticmethod
+    def _hbm_bytes(self) -> dict:
+        pool = self._pages
+        if pool is None:
+            return {"kv_pages": 0, "kv_prefix": 0}
+        total = pool.numel() * pool.element_size()
+        # kv_prefix is the prefix-cache-resident SUBSET of kv_pages (not
+        # additive residency): how much of the pool is pinned shareable
+        per_page = total // max(1, pool.shape[2])
+        return {"kv_pages": total,
+                "kv_prefix": len(self._prefix_cache) * per_page}
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> None:
@@ -355,6 +393,9 @@ class GenerationEngine:
         with self._cond:
             queued = list(self._queue)
             self._queue.clear()
+            # the gauge is process-global: a replaced engine must not
+            # leave its drained queue's depth behind as phantom backlog
+            _stats.QUEUE_DEPTH.set(0)
             self._cond.notify_all()
         for seq in queued:
             self._finish_seq(seq, error=ClosedError("generation engine "
@@ -433,6 +474,7 @@ class GenerationEngine:
             positions[0] = 0
             lane_tables[0, 0] = 1
             self.programs.add(("ragged", f, tq, w))
+            _deviceprof.record_compile("genserve", "ragged", f"f{f}q{tq}x{w}")
             ids, _lg, pool = qwen2.ragged_fused_step(
                 self.params, self.cfg, torch.from_numpy(meta).to(self.device),
                 pool, lmax=lmax, w=w, tq=tq, attn_impl=self._attn_for())
@@ -463,20 +505,68 @@ class GenerationEngine:
         handle = GenHandle(self, deadline)
         eos = getattr(self.tokenizer, "eos_id", -1) if self.tokenizer else -1
         seq = _Seq(handle, prompt, max_new, eos)
-        with self._cond:
-            # re-check under the lock stop() drains the queue with: a seq
-            # appended after the drain would never be processed
-            if self._stop.is_set():
-                raise ClosedError("generation engine stopped")
-            if self._queue and len(self._queue) + 1 > int(
-                    self.config.max_queue):
-                self.stats.sheds_queue_full += 1
-                raise ResourceExhausted(
-                    f"generation queue full ({len(self._queue)} queued); "
-                    "retry with backoff", reason="queue_full")
-            self.stats.requests += 1
-            self._queue.append(seq)
-            self._cond.notify_all()
+        # the submitting request's trace rides the sequence: scheduler spans
+        # attach to it, and the admission decision itself records in the
+        # CALLER's trace
+        seq.trace_ctx = _tracer.capture()
+        seq.submitted_perf = time.perf_counter()
+        with _tracer.span("genserve.admit",
+                          {"prompt_tokens": len(prompt),
+                           "max_new": max_new}) as admit_span:
+            with self._cond:
+                # re-check under the lock stop() drains the queue with: a
+                # seq appended after the drain would never be processed
+                if self._stop.is_set():
+                    raise ClosedError("generation engine stopped")
+                if self._queue and len(self._queue) + 1 > int(
+                        self.config.max_queue):
+                    self.stats.sheds_queue_full += 1
+                    _stats.SHEDS.labels("queue_full").inc()
+                    _stats.REQUESTS.labels("shed").inc()
+                    admit_span.set_attr("outcome", "shed")
+                    raise ResourceExhausted(
+                        f"generation queue full ({len(self._queue)} "
+                        "queued); retry with backoff", reason="queue_full")
+                if deadline:
+                    # predictive admission: prefill chunks + first decode
+                    # step for THIS request, behind every queued request's
+                    # same cost (the queue is bounded by max_queue). units
+                    # None: a decode step costs about a prefill chunk (both
+                    # one forward), so the per-dispatch EWMA x dispatches
+                    # is the estimator
+                    chunk = self._prefill_chunk
+                    own_steps = (len(prompt) + chunk - 1) // chunk + 1
+                    backlog = sum(
+                        (len(s.prompt) + chunk - 1) // chunk + 1
+                        for s in self._queue)
+                    decision = _costmodel.COST_MODEL.decide(
+                        "generate", "genserve", "ragged",
+                        units=None,
+                        slack_s=deadline_ms / 1000.0,
+                        dispatches_ahead=own_steps - 1 + backlog)
+                    if not decision.admit:
+                        self.stats.sheds_predicted += 1
+                        _stats.SHEDS.labels("predicted_deadline").inc()
+                        _stats.REQUESTS.labels("shed").inc()
+                        admit_span.set_attr("outcome", "shed")
+                        raise ResourceExhausted(
+                            "predicted time-to-first-token "
+                            f"{decision.predicted_s * 1e3:.0f}ms exceeds "
+                            f"the {deadline_ms:.0f}ms deadline budget; "
+                            "retry with backoff",
+                            reason="predicted_deadline")
+                    per_step, _conf = _costmodel.predict(
+                        "genserve", "ragged")
+                    _budget.open_budget(
+                        _tracer.current_trace_id(), "generate",
+                        deadline_ms / 1000.0,
+                        {"prefill": per_step * (own_steps - 1),
+                         "decode": per_step})
+                self.stats.requests += 1
+                self._queue.append(seq)
+                admit_span.set_attr("queue_depth", len(self._queue))
+                _stats.QUEUE_DEPTH.set(len(self._queue))
+                self._cond.notify_all()
         return handle
 
     def generate(self, prompt_ids: Sequence[int], max_new_tokens: int = 64,
@@ -519,6 +609,7 @@ class GenerationEngine:
                 with self._cond:
                     queued = list(self._queue)
                     self._queue.clear()
+                    _stats.QUEUE_DEPTH.set(0)
                 for seq in queued:
                     self._finish_seq(seq, error=e, drop=False)
         # scheduler exit: fail whatever is still resident
@@ -542,6 +633,7 @@ class GenerationEngine:
             elif h.deadline and now > h.deadline:
                 if h._mark_shed():
                     self.stats.sheds_deadline += 1
+                    _stats.SHEDS.labels("deadline").inc()
                 self._count_outcome(seq, "shed")
                 h._finish(ResourceExhausted(
                     "generation deadline exceeded before admission",
@@ -549,6 +641,7 @@ class GenerationEngine:
             else:
                 keep.append(seq)
         self._queue = keep
+        _stats.QUEUE_DEPTH.set(len(self._queue))
 
     def _count_outcome(self, seq: _Seq, outcome: str) -> None:
         if seq.counted:
@@ -556,8 +649,12 @@ class GenerationEngine:
         seq.counted = True
         if outcome == "ok":
             self.stats.completed += 1
+            if seq.submitted_perf:
+                _costmodel.record_latency(
+                    "generate", time.perf_counter() - seq.submitted_perf)
         elif outcome == "error":
             self.stats.errors += 1
+        _stats.REQUESTS.labels(outcome).inc()
 
     def _finish_seq(self, seq: _Seq, error: Optional[Exception] = None,
                     drop: bool = True) -> None:
@@ -671,6 +768,13 @@ class GenerationEngine:
             self._decode_step()
         else:
             self._fused_step()
+        self._publish_gauges()
+
+    def _publish_gauges(self) -> None:
+        _stats.RUNNING_SEQS.set(len(self._running))
+        used = self._usable_pages - len(self._free_pages)
+        _stats.PAGE_POOL_UTIL.set(used / max(1, self._usable_pages))
+        _stats.PREFIX_PAGES.set(len(self._prefix_cache))
 
     def _admit(self) -> None:
         paged = self.config.mode != "dense"
@@ -703,6 +807,7 @@ class GenerationEngine:
                         > self._available_pages() - idle_hits):
                     return  # pool pressure: wait for a finisher/evictor
                 self._queue.popleft()
+                _stats.QUEUE_DEPTH.set(len(self._queue))
             if seq.handle.shed:
                 self._finish_seq(seq, error=seq.handle.error or
                                  ResourceExhausted("cancelled",
@@ -739,11 +844,19 @@ class GenerationEngine:
                     seq.handle.prefix_reused_tokens = reused
                     self.stats.prefix_hits += len(hits)
                     self.stats.prefix_reused_tokens += reused
+                    _stats.PREFIX_HITS.inc(len(hits))
             seq.re_prefill = bool(seq.out)
             if seq.out:
                 self.stats.readmissions += 1
             self.stats.admissions += 1
             self._running.append(seq)
+            # queue wait lands retroactively in the SUBMITTER's trace
+            if seq.trace_ctx is not None:
+                _tracer.add_span(
+                    "genserve.queue_wait", seq.submitted_perf,
+                    time.perf_counter(), parent=seq.trace_ctx,
+                    attrs={"readmission": bool(seq.out)},
+                )
 
     def _grow(self, seq: _Seq) -> bool:
         """Ensure the sequence has a page for cache slot ``cache_len``. On
@@ -761,6 +874,7 @@ class GenerationEngine:
                            if s is not seq and s.page_ids]
                 if not victims:
                     self.stats.sheds_pool += 1
+                    _stats.SHEDS.labels("pool_exhausted").inc()
                     self._finish_seq(seq, error=ResourceExhausted(
                         "page pool exhausted", reason="pool_exhausted"))
                     return False
@@ -773,12 +887,22 @@ class GenerationEngine:
 
     def _evict(self, victim: _Seq) -> None:
         self.stats.evictions += 1
+        _stats.EVICTIONS.inc()
+        # the eviction is an event in the VICTIM's request trace: its
+        # caller is still waiting, so the span explains the re-prefill
+        if victim.trace_ctx is not None:
+            now = time.perf_counter()
+            _tracer.add_span(
+                "genserve.evicted", now, now, parent=victim.trace_ctx,
+                attrs={"generated_tokens": len(victim.out)},
+            )
         self._running.remove(victim)
         self._release_pages(victim)
         victim.dense_cache = victim.dense_graph = None
         victim.state = _QUEUED
         with self._cond:
             self._queue.appendleft(victim)
+            _stats.QUEUE_DEPTH.set(len(self._queue))
 
     def _fused_step(self) -> None:
         """ONE fused step per scheduler iteration: every running decode
@@ -853,7 +977,10 @@ class GenerationEngine:
         if chunk_seq is not None:
             lane_tables[chunk_lane] = chunk_seq.page_table
             logit_rows[ndec] = ndec + n_valid - 1
+        t0 = time.perf_counter()
+        shape = f"f{f}q{tq}x{w}"
         self.programs.add(("ragged", f, tq, w))
+        _deviceprof.record_compile("genserve", "ragged", shape)
         try:
             ids, _logits, self._pages = qwen2.ragged_fused_step(
                 self.params, self.cfg, torch.from_numpy(meta).to(self.device),
@@ -869,16 +996,40 @@ class GenerationEngine:
             self._pages = None
             self._reset_prefix_cache()
             raise
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        _deviceprof.record_execute("genserve", "ragged", shape, dt)
         self.stats.fused_steps += 1
+        # the one step served both phases: observability stays per phase
+        # (retroactive spans in each submitter's trace)
         if chunk_seq is not None:
+            _stats.PREFILL_HIST.observe(dt)
             self.stats.prefill_chunks += 1
             if chunk_seq.re_prefill:
                 self.stats.prefill_tokens_re += n_valid
+                _stats.PREFILL_TOKENS.labels("re").inc(n_valid)
             else:
                 self.stats.prefill_tokens_first += n_valid
+                _stats.PREFILL_TOKENS.labels("first").inc(n_valid)
+            if chunk_seq.trace_ctx is not None:
+                _tracer.add_span(
+                    "genserve.prefill", t0, t1,
+                    parent=chunk_seq.trace_ctx,
+                    attrs={"chunk": tq, "valid": n_valid,
+                           "fused_decode_lanes": ndec})
         if active:
+            _stats.DECODE_HIST.observe(dt)
             self.stats.decode_steps += 1
             self.stats.decode_lane_tokens += ndec
+            leader_ctx = next(
+                (s.trace_ctx for s in active if s.trace_ctx is not None),
+                None)
+            links = sorted({tid for s in active
+                            if (tid := s.trace_id) is not None})
+            if leader_ctx is not None:
+                _tracer.add_span(
+                    "genserve.decode", t0, t1, parent=leader_ctx,
+                    attrs={"batch": ndec, "links": links})
         for i, seq in enumerate(active):
             seq.cache_len += 1
             self._emit(seq, int(host[i]))
@@ -910,6 +1061,7 @@ class GenerationEngine:
         toks = seq.prefill_tokens
         max_len = qwen2.round_up_pow2(
             min(len(toks) + seq.max_new, int(self.config.max_seq_tokens)))
+        t0 = time.perf_counter()
         self.programs.add(("dense_prefill", len(toks), max_len))
         logits, seq.dense_cache = qwen2.prefill(
             self.params, self.cfg,
@@ -917,11 +1069,14 @@ class GenerationEngine:
             max_len)
         # one token id crosses to the host: the prefill's output
         tok = int(torch.argmax(logits[0]))
+        _stats.PREFILL_HIST.observe(time.perf_counter() - t0)
         self.stats.prefill_chunks += 1
         if seq.re_prefill:
             self.stats.prefill_tokens_re += len(toks)
+            _stats.PREFILL_TOKENS.labels("re").inc(len(toks))
         else:
             self.stats.prefill_tokens_first += len(toks)
+            _stats.PREFILL_TOKENS.labels("first").inc(len(toks))
         seq.prefill_pos = len(toks)
         seq.dense_len = len(toks)
         seq.cache_len = len(toks)
@@ -937,6 +1092,7 @@ class GenerationEngine:
         """One decode step of one sequence: on the card its captured
         :class:`qwen2.DecodeGraph` (captured at its first step, replayed
         after), on the CPU ``qwen2.decode_step``."""
+        t0 = time.perf_counter()
         max_len = seq.dense_cache[0][0].shape[1]
         self.programs.add(("dense_step", max_len))
         try:
@@ -961,6 +1117,7 @@ class GenerationEngine:
             # it: drop it, so a requeue re-prefills instead of reading it
             seq.dense_cache = seq.dense_graph = None
             raise
+        _stats.DECODE_HIST.observe(time.perf_counter() - t0)
         self.stats.decode_steps += 1
         self.stats.decode_lane_tokens += 1
         seq.dense_len += 1
@@ -971,6 +1128,7 @@ class GenerationEngine:
         """Deliver one generated token and advance lifecycle state."""
         seq.out.append(tok)
         self.stats.generated_tokens += 1
+        _stats.TOKENS.inc()
         seq.handle._deliver(tok)
         if (tok == seq.eos_id and seq.eos_id >= 0) or \
                 len(seq.out) >= seq.max_new:
@@ -988,6 +1146,7 @@ class GenerationEngine:
         if h.deadline and time.monotonic() > h.deadline:
             if h._mark_shed():
                 self.stats.sheds_deadline += 1
+                _stats.SHEDS.labels("deadline").inc()
             self._finish_seq(seq, error=ResourceExhausted(
                 "generation deadline exceeded", reason="deadline"))
             return True

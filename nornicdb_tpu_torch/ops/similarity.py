@@ -21,11 +21,17 @@ Write-behind: ``HostCorpus.start_uploader`` runs the reference's uploader
 thread, which patches dirty blocks between queries so a query after a write
 burst waits for a bounded patch.
 
+Telemetry as in the JAX package: every host-to-device sync observes
+``nornicdb_device_sync_seconds`` and ``_transfer_bytes`` by mode under a
+``device.sync`` span; each search records its execute time in the program
+ledger (``search/dense`` or ``search/ivf``, timed until the results reached
+the host); and a corpus reports its resident bytes as
+``nornicdb_hbm_bytes`` (``corpus_f32``, ``corpus_int8``, ``ivf``).
+
 Deferred to later slices: the BackendManager lifecycle gate and the
 DEGRADED_CPU host serving (with it the stash of a cluster fit delivered
-while degraded), and the device-memory accounting of the telemetry plane.
-Here the device gate is a plain device check: the port never falls back to
-the CPU on its own.
+while degraded), and the sharded serving families. Here the device gate is
+a plain device check: the port never falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -53,6 +59,10 @@ from nornicdb_tpu_torch.ops.kernels import (
     streaming_rows_for,
     topk_lowest_index,
 )
+from nornicdb_tpu_torch.telemetry import deviceprof as _deviceprof
+from nornicdb_tpu_torch.telemetry.metrics import BYTE_BUCKETS as _BYTE_BUCKETS
+from nornicdb_tpu_torch.telemetry.metrics import REGISTRY as _REGISTRY
+from nornicdb_tpu_torch.telemetry.tracing import tracer as _tracer
 
 logger = logging.getLogger(__name__)
 
@@ -282,6 +292,24 @@ BLOCK_ROWS = LANE
 # above this fraction of dirty blocks, one contiguous full transfer beats
 # many small patches
 FULL_SYNC_DIRTY_FRACTION = 0.5
+
+# H2D sync telemetry: duration + bytes histograms by mode (patch vs full
+# upload), plus a `device.sync` span when a traced request pays the sync
+_SYNC_HIST = _REGISTRY.histogram(
+    "nornicdb_device_sync_seconds",
+    "Host-to-device corpus sync duration by mode",
+    labels=("mode",),
+)
+_SYNC_PATCH_CELL = _SYNC_HIST.labels("patch")
+_SYNC_FULL_CELL = _SYNC_HIST.labels("full")
+_SYNC_BYTES_HIST = _REGISTRY.histogram(
+    "nornicdb_device_sync_transfer_bytes",
+    "Bytes shipped per host-to-device sync by mode",
+    labels=("mode",),
+    buckets=_BYTE_BUCKETS,
+)
+_SYNC_PATCH_BYTES_CELL = _SYNC_BYTES_HIST.labels("patch")
+_SYNC_FULL_BYTES_CELL = _SYNC_BYTES_HIST.labels("full")
 
 
 @dataclass
@@ -665,23 +693,33 @@ class HostCorpus:
             ):
                 needs_full = True
             if needs_full:
-                self._upload_full()
+                with _tracer.span("device.sync", {"mode": "full"}):
+                    self._upload_full()
                 s.full_uploads += 1
-                s.bytes_uploaded += int(self._host.nbytes + self._valid.nbytes)
+                nbytes = int(self._host.nbytes + self._valid.nbytes)
+                s.bytes_uploaded += nbytes
+                _SYNC_FULL_CELL.observe(time.perf_counter() - t0)
+                _SYNC_FULL_BYTES_CELL.observe(nbytes)
             else:
                 in_place = self._readers == 0 and self._donation_ok
-                for start_b, n_b in _coalesce_runs(
-                    sorted(self._dirty_blocks), cap_blocks
-                ):
-                    r0 = start_b * BLOCK_ROWS
-                    r1 = min((start_b + n_b) * BLOCK_ROWS, self.capacity)
-                    rows, vrows = self._host[r0:r1], self._valid[r0:r1]
-                    self._apply_patch(r0, rows, vrows, in_place)
-                    nbytes = int(rows.nbytes + vrows.nbytes)
-                    s.patch_bytes += nbytes
-                    s.bytes_uploaded += nbytes
-                    s.rows_patched += r1 - r0
+                patch_bytes = 0
+                with _tracer.span("device.sync", {"mode": "patch"}) as sp:
+                    for start_b, n_b in _coalesce_runs(
+                        sorted(self._dirty_blocks), cap_blocks
+                    ):
+                        r0 = start_b * BLOCK_ROWS
+                        r1 = min((start_b + n_b) * BLOCK_ROWS, self.capacity)
+                        rows, vrows = self._host[r0:r1], self._valid[r0:r1]
+                        self._apply_patch(r0, rows, vrows, in_place)
+                        nbytes = int(rows.nbytes + vrows.nbytes)
+                        patch_bytes += nbytes
+                        s.patch_bytes += nbytes
+                        s.bytes_uploaded += nbytes
+                        s.rows_patched += r1 - r0
+                    sp.set_attr("bytes", patch_bytes)
                 s.patches += 1
+                _SYNC_PATCH_CELL.observe(time.perf_counter() - t0)
+                _SYNC_PATCH_BYTES_CELL.observe(patch_bytes)
             self._full_dirty = False
             self._dirty_blocks.clear()
             if _record_stall:
@@ -821,6 +859,31 @@ class DeviceCorpus(HostCorpus):
         # cluster-contiguous layout (ops/ivf.py); serves only while its
         # epoch matches the corpus layout epoch
         self._ivf = None
+        # device residency provider (weakref'd; summed per component at
+        # /metrics render, telemetry/deviceprof.py)
+        _deviceprof.register_hbm(self, DeviceCorpus._hbm_bytes)
+
+    @staticmethod
+    def _hbm_bytes(self) -> dict:
+        """Lock-free resident byte accounting (scrape thread): the float32
+        rows and valid mask, the int8 codes and scales, the IVF layout's
+        device tensors (its slot maps live on the host)."""
+        out = {"corpus_f32": 0, "corpus_int8": 0, "ivf": 0}
+        dev, valid, i8, ivf = (self._dev, self._dev_valid, self._dev_i8,
+                               self._ivf)
+        for t in (dev, valid):
+            if t is not None:
+                out["corpus_f32"] += t.numel() * t.element_size()
+        if i8 is not None:
+            for t in i8:
+                out["corpus_int8"] += t.numel() * t.element_size()
+        if ivf is not None:
+            for name in ("blocks", "counts", "centroids", "residual",
+                         "residual_valid"):
+                t = getattr(ivf, name, None)
+                if isinstance(t, torch.Tensor):
+                    out["ivf"] += t.numel() * t.element_size()
+        return out
 
     def _device_gate(self) -> None:
         """Plain device check: the card must still be there. No fallback."""
@@ -1104,10 +1167,16 @@ class DeviceCorpus(HostCorpus):
             return [[] for _ in range(q.shape[0])]
         self._device_gate()
         if n_probe > 0:
+            t0 = time.perf_counter()
             pruned = self._pruned_search(q, k, min_similarity, n_probe)
             if pruned is not None:
                 self.sync_stats.device_dispatches += 1
+                # unified program ledger: shape class = pow2 batch
+                _deviceprof.record_execute(
+                    "search", "ivf", _deviceprof.pow2_class(q.shape[0], "b"),
+                    time.perf_counter() - t0)
                 return pruned
+        t0 = time.perf_counter()
         with self._borrow_device() as (corpus, valid, dev_i8, ids, _):
             kk = min(k, self.capacity)
             qt = l2_normalize(torch.from_numpy(q).to(self.device, self.dtype))
@@ -1120,6 +1189,9 @@ class DeviceCorpus(HostCorpus):
             vals_np = vals.to(torch.float32).cpu().numpy()
             idx_np = idx.cpu().numpy()
         self.sync_stats.device_dispatches += 1
+        _deviceprof.record_execute(
+            "search", "dense", _deviceprof.pow2_class(q.shape[0], "b"),
+            time.perf_counter() - t0)
         return self._format_results(
             vals_np, idx_np, q.shape[0], k, min_similarity, ids=ids,
         )

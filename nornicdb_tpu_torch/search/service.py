@@ -18,10 +18,14 @@ fitted k-means and the tuner has measured a plan that meets
 corpus a background recluster + re-tune restores it. ``backend="hnsw"``
 selects the host HNSW index instead.
 
+Telemetry as in the JAX package: the ``search.rank``, ``search.embed`` and
+(unbatched) ``search.vector`` spans, the device-time histogram of unbatched
+dispatches, and the tuner's outcome counter and plan gauges.
+
 Not ported (ROADMAP): shard promotion and ``backend="sharded"`` (with them
-the sharded IVF layout and the tuner's ``local_k``), ``graph_masked_scores``
-(with the backend manager), the tracer spans, Prometheus families and
-env-layered config defaults, and the vector-space registry.
+the sharded IVF layout, the tuner's ``local_k`` and the ``nornicdb_shard_*``
+families), ``graph_masked_scores`` (with the backend manager), env-layered
+config defaults, and the vector-space registry.
 """
 
 from __future__ import annotations
@@ -51,10 +55,30 @@ from nornicdb_tpu_torch.search.fusion import (
     fuse_rrf,
 )
 from nornicdb_tpu_torch.search.hnsw import HNSWIndex
-from nornicdb_tpu_torch.search.tuner import TUNE_OUTCOMES, IVFTuner, TuneState
+from nornicdb_tpu_torch.search.tuner import (
+    TUNE_OUTCOMES,
+    IVFTuner,
+    TuneState,
+    count_tune_outcome,
+    publish_plan,
+)
 from nornicdb_tpu_torch.storage.types import Engine, Node
+from nornicdb_tpu_torch.telemetry.metrics import REGISTRY as _REGISTRY
+from nornicdb_tpu_torch.telemetry.tracing import tracer as _tracer
 
 logger = logging.getLogger(__name__)
+
+# same families the QueryBatcher feeds (idempotent re-resolution by name):
+# unbatched corpus dispatches report device time too, and the queue-wait
+# family is registered even before batching is ever enabled
+_DEVICE_HIST = _REGISTRY.histogram(
+    "nornicdb_search_device_seconds",
+    "Device dispatch time per search batch",
+)
+_REGISTRY.histogram(
+    "nornicdb_search_queue_wait_seconds",
+    "Time a batched search waited for its batch to dispatch",
+)
 
 
 @dataclass
@@ -359,10 +383,14 @@ class SearchService:
             if self.config.batching_enabled:
                 return self.ensure_batcher().search(embedding, k,
                                                     min_similarity)
-            res = corpus.search(
-                embedding, k=k, min_similarity=min_similarity,
-                **self._corpus_search_kwargs(corpus),
-            )
+            kwargs = self._corpus_search_kwargs(corpus)
+            t0 = time.perf_counter()
+            with _tracer.span("search.vector"):
+                res = corpus.search(
+                    embedding, k=k, min_similarity=min_similarity, **kwargs)
+            # unbatched dispatches land in the same device-time histogram
+            # the batcher feeds
+            _DEVICE_HIST.observe(time.perf_counter() - t0)
             return res[0] if res else []
         if hnsw is not None:
             return [(i, s) for i, s in hnsw.search(embedding, k)
@@ -423,11 +451,22 @@ class SearchService:
     ) -> list[tuple[str, float, Optional[float], Optional[float]]]:
         """The expensive half of a search: embed + vector + BM25 + fusion
         (+ rerank/MMR). Returns ordered (id, score, vec_score, ft_score)."""
+        with _tracer.span("search.rank"):
+            return self._rank_inner(query, limit, min_sim, query_embedding)
+
+    def _rank_inner(
+        self,
+        query: str,
+        limit: int,
+        min_sim: float,
+        query_embedding: Optional[np.ndarray],
+    ) -> list[tuple[str, float, Optional[float], Optional[float]]]:
         n_cand = max(limit * self.config.candidates_multiplier, limit)
         ranked: dict[str, list[str]] = {}
         vec_scores: dict[str, float] = {}
         if query_embedding is None and self.embedder is not None and query:
-            query_embedding = self.embedder.embed(query)
+            with _tracer.span("search.embed"):
+                query_embedding = self.embedder.embed(query)
         if query_embedding is not None:
             vec = self.vector_candidates(query_embedding, n_cand, min_sim)
             ranked["vector"] = [i for i, _ in vec]
@@ -588,6 +627,7 @@ class SearchService:
             state = TuneState(outcome="too_small",
                               recall_target=cfg.recall_target,
                               corpus_rows=len(corpus))
+            count_tune_outcome("too_small")
         else:
             state = IVFTuner(recall_target=cfg.recall_target,
                              sample=cfg.tune_sample, k=cfg.tune_k).tune(corpus)
@@ -620,6 +660,10 @@ class SearchService:
                 )
             self.tune_counts[state.outcome] = (
                 self.tune_counts.get(state.outcome, 0) + 1)
+            serving = self._tune_state
+        # gauges reflect the plan the service actually SERVES (after the
+        # keep/replace decision), not whatever the last tune measured
+        publish_plan(serving)
 
     def _note_churn(self, n: int = 1) -> None:
         """Drift tracking: every index mutation ages the tuned plan (new

@@ -15,11 +15,11 @@ Cost model: probing P of K clusters scores ~P/K of the corpus, so the
 ladder walks n_probe geometrically and stops at the first value whose
 measured recall clears the floor, verified on a second independent sample.
 
-Deferred: the sharded corpus's ``local_k`` ladder (with the mesh slice),
-and the Prometheus families ``nornicdb_ivf_tunes_total``,
-``nornicdb_ivf_measured_recall`` and ``nornicdb_ivf_n_probe`` (with the
-telemetry families); the service counts outcomes in ``tune_counts`` and
-shows the plan in ``stats_snapshot()``.
+Outcomes are counted in ``nornicdb_ivf_tunes_total{outcome}`` and the
+served plan is published in ``nornicdb_ivf_measured_recall``,
+``nornicdb_ivf_n_probe`` and ``nornicdb_ivf_local_k``, the JAX package's
+families. Deferred: the sharded corpus's ``local_k`` ladder (with the mesh
+slice); until then ``nornicdb_ivf_local_k`` reads 0 (the default width).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from dataclasses import asdict, dataclass, field
 import numpy as np
 
 from nornicdb_tpu_torch.errors import DeviceUnavailable
+from nornicdb_tpu_torch.telemetry.metrics import REGISTRY as _REGISTRY
 from nornicdb_tpu_torch.ops.host_search import host_topk
 
 logger = logging.getLogger(__name__)
@@ -45,6 +46,50 @@ TUNE_OUTCOMES = (
                      # right plan at this size
     "error",         # tune crashed; the full scan serves
 )
+
+_TUNES = _REGISTRY.counter(
+    "nornicdb_ivf_tunes_total",
+    "Recall-governed IVF tunes by outcome (outcome!=ok serves full scan)",
+    labels=("outcome",),
+)
+for _o in TUNE_OUTCOMES:
+    _TUNES.labels(_o)
+_MEASURED_RECALL = _REGISTRY.gauge(
+    "nornicdb_ivf_measured_recall",
+    "Recall@k of the served IVF configuration, measured against exact "
+    "f32 ground truth on the held-out corpus-row sample at tune time",
+)
+_ACTIVE_NPROBE = _REGISTRY.gauge(
+    "nornicdb_ivf_n_probe",
+    "n_probe the tuner picked for serving (0 = full scan)",
+)
+_ACTIVE_LOCALK = _REGISTRY.gauge(
+    "nornicdb_ivf_local_k",
+    "Per-shard candidate width the tuner picked (0 = default k)",
+)
+
+
+def count_tune_outcome(outcome: str) -> None:
+    """Bump the outcome counter for tunes decided OUTSIDE IVFTuner.tune
+    (the service's too_small short-circuit), so the metric family stays
+    the single source of tune-outcome truth."""
+    _TUNES.labels(outcome).inc()
+
+
+def publish_plan(state) -> None:
+    """Point the serving-plan gauges at what is ACTUALLY being served.
+
+    Called by the service after its keep-or-replace decision, never by
+    tune() itself, which only measures. ``state`` may be None (no plan:
+    the full scan). The single-device plan has no local_k: its gauge
+    reads 0."""
+    if state is not None and state.serving_pruned:
+        _MEASURED_RECALL.set(state.measured_recall)
+        _ACTIVE_NPROBE.set(float(state.n_probe))
+    else:
+        _MEASURED_RECALL.set(0.0)
+        _ACTIVE_NPROBE.set(0.0)
+    _ACTIVE_LOCALK.set(0.0)
 
 
 @dataclass
@@ -136,6 +181,9 @@ class IVFTuner:
             state = TuneState(outcome="error", recall_target=self.recall_target,
                               k=k, detail=str(e)[:200])
         state.tune_seconds = time.perf_counter() - t0
+        _TUNES.labels(state.outcome).inc()
+        # the serving-plan gauges are published by the OWNER of the plan
+        # (SearchService._install_tune, after its keep-or-replace decision)
         logger.info(
             "IVF tune: outcome=%s n_probe=%d recall=%.4f target=%.2f k=%d "
             "clusters=%d evals=%d (%.2fs) %s",

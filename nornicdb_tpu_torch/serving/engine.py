@@ -26,9 +26,11 @@ Inner embedders without a packed path (``HashEmbedder``) still get the
 queue, admission control and cross-request batching through one
 ``embed_batch`` call per drained batch.
 
-Not ported (ROADMAP), as in the port's generation engine: cost-model
-predictive admission and the deadline budget, tracer spans, device-profile
-recording and the Prometheus families of ``serving/stats.py``.
+The engine reports through the port's telemetry as the JAX one does: the
+families of ``serving/stats.py``, cost-model predictive admission and the
+deadline budget at submit, the ``serving.queue_wait`` and ``serving.batch``
+spans in the callers' traces, and ``record_execute("serving", "embed",
+...)`` per pack, timed after its result reached the host.
 """
 
 from __future__ import annotations
@@ -46,7 +48,12 @@ import numpy as np
 from nornicdb_tpu_torch.config import ServingConfig
 from nornicdb_tpu_torch.embed.base import Embedder
 from nornicdb_tpu_torch.errors import ClosedError, ResourceExhausted
+from nornicdb_tpu_torch.serving import stats as _stats
 from nornicdb_tpu_torch.serving.ragged import RaggedPacker, unpack_results
+from nornicdb_tpu_torch.telemetry import budget as _budget
+from nornicdb_tpu_torch.telemetry import costmodel as _costmodel
+from nornicdb_tpu_torch.telemetry import deviceprof as _deviceprof
+from nornicdb_tpu_torch.telemetry.tracing import tracer as _tracer
 
 logger = logging.getLogger(__name__)
 
@@ -61,6 +68,9 @@ class _Request:
     error: Optional[Exception] = None
     deadline: float = 0.0  # monotonic; 0 = none
     shed: bool = False     # terminally shed (dispatcher must skip)
+    ctx: object = None     # caller's trace span (cross-thread hand-off)
+    enqueued: float = 0.0  # perf_counter at submit (queue-wait span)
+    queue_wait_recorded: bool = False  # once per request, not per batch
 
 
 @dataclass
@@ -83,6 +93,7 @@ class EngineStats:
     padded_tokens: int = 0
     sheds_queue_full: int = 0
     sheds_deadline: int = 0
+    sheds_predicted: int = 0
     staging_seconds: float = 0.0
     overlap_seconds: float = 0.0
     device_seconds: float = 0.0
@@ -103,6 +114,7 @@ class EngineStats:
             "pack_efficiency": round(eff, 4),
             "sheds_queue_full": self.sheds_queue_full,
             "sheds_deadline": self.sheds_deadline,
+            "sheds_predicted": self.sheds_predicted,
             "staging_overlap_ratio": round(overlap, 4),
             "device_seconds": round(self.device_seconds, 4),
         }
@@ -209,6 +221,11 @@ class ServingEngine(Embedder):
         cfg = self.config
         est = [len(t.split()) + 2 for t in texts]
         req = _Request(results=[None] * len(texts), remaining=len(texts))
+        # worker-hop trace propagation (the QueryBatcher pattern): the
+        # compute thread attaches this to record serving.batch and the
+        # retroactive queue-wait span in the CALLER's trace
+        req.ctx = _tracer.capture()
+        req.enqueued = time.perf_counter()
         if cfg.deadline_ms > 0:
             req.deadline = time.monotonic() + cfg.deadline_ms / 1000.0
         with self._cond:
@@ -220,17 +237,47 @@ class ServingEngine(Embedder):
                 or self._queued_tokens + sum(est) > cfg.max_queue_tokens
             ):
                 self.stats.sheds_queue_full += 1
+                _stats.SHEDS.labels("embed", "queue_full").inc()
                 raise ResourceExhausted(
                     f"embed queue full ({self._queued_texts} texts / "
                     f"{self._queued_tokens} tokens queued); retry with "
                     "backoff", reason="queue_full",
                 )
+            if req.deadline:
+                # predictive admission: the learned per-token cost of
+                # the queued backlog plus this request, conservatively
+                # scaled, must fit the deadline — shed at SUBMIT instead
+                # of after the queue burns device time (fails open while
+                # the cost model is cold)
+                decision = _costmodel.COST_MODEL.decide(
+                    "embed", "serving", "embed", units=sum(est),
+                    slack_s=cfg.deadline_ms / 1000.0,
+                    units_ahead=self._queued_tokens,
+                )
+                if not decision.admit:
+                    self.stats.sheds_predicted += 1
+                    _stats.SHEDS.labels("embed", "predicted_deadline").inc()
+                    raise ResourceExhausted(
+                        f"predicted completion "
+                        f"{decision.predicted_s * 1e3:.0f}ms exceeds the "
+                        f"{cfg.deadline_ms:.0f}ms deadline budget; retry "
+                        "with backoff", reason="predicted_deadline",
+                    )
+                _budget.open_budget(
+                    _tracer.current_trace_id(), "embed",
+                    cfg.deadline_ms / 1000.0,
+                    {"device_sync": decision.predicted_s},
+                )
             for i, t in enumerate(texts):
                 self._queue.append(_Item(t, req, i, est[i]))
             self._queued_texts += len(texts)
             self._queued_tokens += sum(est)
+            _stats.QUEUE_DEPTH.set(self._queued_texts)
+            _stats.QUEUE_TOKENS.set(self._queued_tokens)
             self._cond.notify_all()
         self._await(req)
+        _costmodel.record_latency(
+            "embed", time.perf_counter() - req.enqueued)
         if req.error is not None:
             raise req.error
         return list(req.results)
@@ -260,6 +307,7 @@ class ServingEngine(Embedder):
                     "embed deadline exceeded", reason="deadline"
                 )
                 self.stats.sheds_deadline += 1
+                _stats.SHEDS.labels("embed", "deadline").inc()
                 return
 
     # -- pipeline ----------------------------------------------------------
@@ -278,6 +326,7 @@ class ServingEngine(Embedder):
                 if not item.req.shed:
                     item.req.shed = True
                     self.stats.sheds_deadline += 1
+                    _stats.SHEDS.labels("embed", "deadline").inc()
                     self._fail(item.req, ResourceExhausted(
                         "embed deadline exceeded before dispatch",
                         reason="deadline",
@@ -287,6 +336,10 @@ class ServingEngine(Embedder):
             else:
                 keep.append(item)
         self._queue = keep
+        # keep the depth gauges live even when shedding empties the
+        # queue (no _take_batch follows to refresh them)
+        _stats.QUEUE_DEPTH.set(self._queued_texts)
+        _stats.QUEUE_TOKENS.set(self._queued_tokens)
 
     def _staging_loop(self) -> None:
         cfg = self.config
@@ -333,6 +386,8 @@ class ServingEngine(Embedder):
                     break
             with self._cond:
                 items, cap = self._take_batch()
+                _stats.QUEUE_DEPTH.set(self._queued_texts)
+                _stats.QUEUE_TOKENS.set(self._queued_tokens)
             if not items:
                 continue
             try:
@@ -344,14 +399,18 @@ class ServingEngine(Embedder):
                 continue
             t1 = time.perf_counter()
             busy1 = self._device_busy
-            # staging time covers tokenize + plan + pack: the full host
-            # cost the overlap ratio claims to measure
+            # staging time covers tokenize + plan + pack — the full host
+            # cost the overlap gauge claims to measure
             self.stats.staging_seconds += t1 - t0
             self.stats.overlap_seconds += (t1 - t0) * (busy0 + busy1) / 2.0
+            if self.stats.staging_seconds > 0:
+                _stats.STAGING_OVERLAP.set(
+                    self.stats.overlap_seconds / self.stats.staging_seconds
+                )
             while not self._stop.is_set():
                 try:
                     # bounded put: the staging queue depth IS the double
-                    # buffer; staging blocks here (not on the device)
+                    # buffer — staging blocks here (not on the device)
                     # when compute falls behind
                     self._staged.put((pack, items), timeout=0.5)
                     break
@@ -372,7 +431,7 @@ class ServingEngine(Embedder):
         else:
             # class-segregated packing: the head-of-line item's capacity
             # class defines this pack's attention width, and only texts
-            # that fit it ride along; short texts never pay a long
+            # that fit it ride along — short texts never pay a long
             # text's C^2 attention (longer texts head their own later
             # pack; deadline shedding bounds any wait). Tokenization
             # happened OUTSIDE the lock in the staging loop; the first
@@ -388,8 +447,9 @@ class ServingEngine(Embedder):
                 if cap == 0:
                     # short heads (<=32 tok) target ~2x their length so
                     # rows tile 2+ texts; longer heads take their own
-                    # class (doubling C for them buys little fill but
-                    # pays C^2 attention)
+                    # class — doubling C for them buys little fill but
+                    # pays C^2 attention (a 50-token text 1-per-64-row
+                    # beats 2-per-128-row on measured cells/s)
                     cap = self._packer.capacity_for(
                         min(2 * n, self._packer.max_len) if n <= 32 else n
                     )
@@ -435,26 +495,61 @@ class ServingEngine(Embedder):
                 continue
             self._device_busy = True
             t0 = time.perf_counter()
+            # per-caller queue wait recorded retroactively into EACH
+            # batched request's trace; the device span attaches to the
+            # batch leader's (the QueryBatcher convention)
+            reqs = []
+            seen_req_ids = set()
+            for item in items:
+                if id(item.req) not in seen_req_ids:
+                    seen_req_ids.add(id(item.req))
+                    reqs.append(item.req)
+            for req in reqs:
+                # once per REQUEST: a request split across several fused
+                # batches must not re-record queue wait spanning earlier
+                # batches' device compute
+                if req.ctx is not None and not req.queue_wait_recorded:
+                    req.queue_wait_recorded = True
+                    _tracer.add_span("serving.queue_wait", req.enqueued,
+                                     t0, parent=req.ctx)
+            leader_ctx = next(
+                (r.ctx for r in reqs if r.ctx is not None), None)
             try:
-                if pack is not None:
-                    emb = self.inner.embed_packed(pack)
-                    vecs = unpack_results(pack, emb)
-                else:
-                    vecs = self.inner.embed_batch([i.text for i in items])
+                with _tracer.attach(leader_ctx), _tracer.span(
+                    "serving.batch", {"texts": len(items)}
+                ):
+                    if pack is not None:
+                        emb = self.inner.embed_packed(pack)
+                        vecs = unpack_results(pack, emb)
+                    else:
+                        vecs = self.inner.embed_batch(
+                            [i.text for i in items]
+                        )
             except Exception as e:
                 self._device_busy = False
                 for item in items:
                     self._fail(item.req, e)
                 continue
             self._device_busy = False
-            self.stats.device_seconds += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            # the embed path joins the deviceprof ledger (and with it
+            # the cost model) keyed by packed-token pow2 class
+            tokens = (pack.tokens if pack is not None
+                      else sum(i.est_tokens for i in items))
+            _deviceprof.record_execute(
+                "serving", "embed",
+                _deviceprof.pow2_class(max(tokens, 1), "t"), dt)
+            self.stats.device_seconds += dt
             self.stats.batches += 1
             self.stats.texts += len(items)
+            _stats.BATCHES.inc()
             if pack is not None:
                 self.stats.packed_batches += 1
                 self.stats.tokens += pack.tokens
                 r, c = pack.ids.shape
                 self.stats.padded_tokens += r * c
+                _stats.PACKED_TOKENS_HIST.observe(pack.tokens)
+                _stats.PACK_EFFICIENCY_HIST.observe(pack.efficiency)
             for item, vec in zip(items, vecs):
                 req = item.req
                 req.results[item.idx] = vec

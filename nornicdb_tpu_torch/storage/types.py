@@ -173,6 +173,9 @@ class Engine(EventEmitter):
     def get_incoming_edges(self, node_id: str) -> list[Edge]:
         raise NotImplementedError
 
+    def all_edges(self) -> Iterator[Edge]:
+        raise NotImplementedError
+
     # -- counts ------------------------------------------------------------
     def node_count(self) -> int:
         raise NotImplementedError
@@ -302,6 +305,11 @@ class MemoryEngine(Engine):
         with self._lock:
             ids = list(self._in.get(node_id, set()))
             return [self._edges[i].copy() for i in ids if i in self._edges]
+
+    def all_edges(self) -> Iterator[Edge]:
+        with self._lock:
+            snapshot = [e.copy() for e in self._edges.values()]
+        return iter(snapshot)
 
     # -- counts ------------------------------------------------------------
     def node_count(self) -> int:

@@ -102,7 +102,19 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.models.training",
                      "nornicdb_tpu_torch.eval",
                      "nornicdb_tpu_torch.cli",
-                     "nornicdb_tpu_torch.__main__"):
+                     "nornicdb_tpu_torch.__main__",
+                     "nornicdb_tpu_torch.ops.graph_algos",
+                     "nornicdb_tpu_torch.linkpredict",
+                     "nornicdb_tpu_torch.linkpredict.topology",
+                     "nornicdb_tpu_torch.telemetry",
+                     "nornicdb_tpu_torch.telemetry.metrics",
+                     "nornicdb_tpu_torch.telemetry.tracing",
+                     "nornicdb_tpu_torch.telemetry.budget",
+                     "nornicdb_tpu_torch.telemetry.slowlog",
+                     "nornicdb_tpu_torch.telemetry.deviceprof",
+                     "nornicdb_tpu_torch.telemetry.costmodel",
+                     "nornicdb_tpu_torch.serving.stats",
+                     "nornicdb_tpu_torch.genserve.stats"):
             assert name in imported
 
 

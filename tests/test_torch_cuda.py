@@ -914,3 +914,111 @@ def test_train_step_on_the_card_gives_the_cpu_step(card, kind):
         assert float((d > 2e-6 + 1e-3 * lr).float().mean()) <= 1e-3, name
     for slot in on_card.opt_state.state.values():
         assert all(t.device.type == "cuda" for t in slot.values())
+
+
+# -- graph offloads and the telemetry plane on the card ------------------------
+
+def _kronecker(scale, seed):
+    import chip_smoke
+
+    s, d = chip_smoke.kronecker_edges(scale, 16, seed)
+    return s.numpy(), d.numpy(), 1 << scale
+
+
+@pytest.mark.parametrize("scale", [8, 12])
+def test_pagerank_on_the_card_gives_the_cpu_ranks(card, scale):
+    from nornicdb_tpu_torch.ops import graph_algos as ga
+
+    src, dst, n = _kronecker(scale, seed=scale)
+    got = ga.pagerank(src, dst, n)  # device=None: the card
+    want = ga.pagerank(src, dst, n, device="cpu")
+    # float32 atomics add in no fixed order: a tolerance, not equality
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("scale", [8, 12])
+def test_wcc_on_the_card_gives_the_cpu_labels(card, scale):
+    from nornicdb_tpu_torch.ops import graph_algos as ga
+
+    src, dst, n = _kronecker(scale, seed=scale + 1)
+    got = ga.connected_components(src, dst, n)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(
+        got, ga.connected_components(src, dst, n, device="cpu"))
+
+
+def test_batch_scores_on_the_card_gives_the_cpu_scores(card):
+    from nornicdb_tpu_torch.linkpredict import batch_scores, build_graph
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    src, dst, n = _kronecker(9, seed=3)
+    eng = MemoryEngine()
+    for i in range(n):
+        eng.create_node(Node(id=f"v{i}"))
+    for e, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        eng.create_edge(Edge(id=f"e{e}", start_node=f"v{a}",
+                             end_node=f"v{b}"))
+    g = build_graph(eng)
+    torch.backends.cuda.matmul.allow_tf32 = True  # a library user's setting
+    try:
+        for method in ("commonNeighbors", "jaccard", "adamicAdar",
+                       "preferentialAttachment", "resourceAllocation"):
+            got = batch_scores(g, method)
+            want = batch_scores(g, method, use_device=False)
+            if method in ("commonNeighbors", "preferentialAttachment"):
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        # the scoped precision was restored
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_hbm_gauge_of_a_card_corpus(card):
+    from nornicdb_tpu_torch.ops import DeviceCorpus
+    from nornicdb_tpu_torch.telemetry import deviceprof
+
+    rng = np.random.default_rng(0)
+    c = DeviceCorpus(64, quantize=True)
+    c.add_batch([f"r{i}" for i in range(5000)], _unit(rng, 5000, 64))
+    c.search(_unit(rng, 2, 64), k=5)
+    own = DeviceCorpus._hbm_bytes(c)
+    assert own["corpus_f32"] == (c._dev.numel() * c._dev.element_size()
+                                 + c._dev_valid.numel()
+                                 * c._dev_valid.element_size())
+    assert own["corpus_int8"] == sum(t.numel() * t.element_size()
+                                     for t in c._dev_i8)
+    deviceprof.PROFILER.refresh_hbm()
+    hbm = deviceprof.snapshot()["hbm_bytes"]
+    assert own["corpus_f32"] <= hbm["corpus_f32"] <= torch.cuda.memory_allocated()
+
+
+def test_profile_capture_holds_a_cuda_kernel(card):
+    import io
+    import json
+    import tarfile
+    import threading
+
+    from nornicdb_tpu_torch.telemetry import deviceprof
+
+    stop = threading.Event()
+    x = torch.randn(512, 512, device=card)
+
+    def launch():  # kernels from another thread than the capturing one
+        while not stop.is_set():
+            torch.mm(x, x)
+            torch.cuda.synchronize()
+
+    t = threading.Thread(target=launch)
+    t.start()
+    try:
+        blob = deviceprof.capture_profile(0.5)
+    finally:
+        stop.set()
+        t.join()
+    with tarfile.open(fileobj=io.BytesIO(blob), mode="r:gz") as tar:
+        name = next(n for n in tar.getnames() if n.endswith(".json"))
+        events = json.load(tar.extractfile(name))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels

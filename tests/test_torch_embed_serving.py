@@ -506,6 +506,11 @@ class TestServingEngine:
                 time.sleep(5.0)
                 return super().embed_batch(texts)
 
+        # this test exercises the POST-dispatch deadline shed; a cost model
+        # warmed on earlier slow-embedder tests would shed at submit
+        # (predicted_deadline) before the path under test is reached
+        from nornicdb_tpu_torch.telemetry.costmodel import COST_MODEL
+        COST_MODEL.reset()
         eng = _engine(StuckEmbedder(8), deadline_ms=300.0, batch_wait_ms=0.0)
         t0 = time.monotonic()
         with pytest.raises(ResourceExhausted) as ei:

@@ -279,6 +279,11 @@ class TestScheduling:
             assert len(h.result()) >= 1
 
     def test_deadline_shed_never_wedges(self):
+        from nornicdb_tpu_torch.telemetry.costmodel import COST_MODEL
+
+        # cold model -> submit fails open, so the queued request reaches
+        # the post-admission deadline path this test asserts on
+        COST_MODEL.reset()
         eng = _engine(max_seqs=1)
         h1 = eng.submit(_prompt(8), max_new_tokens=120)
         h2 = eng.submit(_prompt(4, seed=9), max_new_tokens=4, deadline_ms=50)

@@ -1,8 +1,9 @@
 """Recall-governed IVF autotuning of the port (``search/tuner.py`` and the
 service wiring), on the CPU: ``tests/test_ivf_tuner.py``'s TestTunerUnit,
 TestServiceTuning and TestDriftRetune on the port (the sharded ``local_k``
-case and the metric families wait for their slices; the plan's evidence is
-read from ``stats_snapshot()``), and the slice as a whole against the JAX
+case waits for its slice; the plan's evidence is read from
+``stats_snapshot()``, the metric families are held in
+``tests/test_torch_telemetry.py``), and the slice as a whole against the JAX
 package: the same fit tunes to the same ``n_probe`` and serves the same ids
 (scores within 1e-5, the f32 sums of bf16 products run in another order).
 """
