@@ -69,9 +69,13 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    entries), fused dispatches. The embed engine stays up for phases 10
    and 9.
 
-10. hybrid search, run after phase 8 and before phase 9: a port
-   ``MemoryEngine`` holds phase 8's 65,536 texts as nodes (``content`` and
-   the phase-8 embedding) with 2-4 seeded edges a node; a
+10. hybrid search, run after phase 8 and before phase 9: the durable
+   chain ``open_storage`` assembles with the JAX defaults (``AsyncEngine``
+   over ``WALEngine`` over ``MemoryEngine``, the one ``cli serve`` opens)
+   under ``.chip_scratch/storage/db10`` holds phase 8's 65,536 texts as
+   nodes (``content`` and the phase-8 embedding) with 2-4 seeded edges a
+   node, written, then flushed before the service serves (node and edge
+   write rates, flush seconds, WAL bytes logged); a
    ``SearchService(storage, embedder=CachedEmbedder(<phase 8's engine>))``
    (the ``cli serve`` stack) with write-behind and batching on is attached
    and indexed by ``build_indexes``. 32 clients
@@ -97,6 +101,13 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``deviceprof.capture_profile(2.0)`` while 8 threads search holds #2's
    launches (made on the batcher's thread); the tracer's ``search.embed``,
    ``search.rank`` and ``search.vector`` span p50s beside the script's.
+   Last (10.7), after the writers: the chain flushed, its counts, the
+   writers' ids and every node's content and embedding saved for phase 14;
+   a fresh ``SearchService`` over the live chain (same config,
+   ``build_indexes``) gives the row order and the ids and scores of 256
+   stored embeddings at k = 100; the directory copied while no write is in
+   flight (the image a kill then leaves). The chain is closed after phase
+   9 (its close-time snapshot).
 9. a checkpoint and GraphRAG answers: a ``QWEN25_05B`` checkpoint directory
    (weights from ``--seed``, a ``VocabTokenizer`` over phase 8's texts and
    the prompt header) written to a temporary directory and mounted with
@@ -144,6 +155,31 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    edges) in a port ``MemoryEngine``, ``build_graph``, ``batch_scores``
    of all five methods on the card against ``use_device=False`` and
    ``top_candidates(adamicAdar, 20)`` against the CPU's.
+14. the storage chain, after phase 12 (no kernel of its own: host code,
+   and two C++ libraries built with ``g++`` from the port's copies in
+   ``nornicdb_tpu_torch/storage/csrc``). 14a: phase 10's chain reopened
+   from its close-time snapshot holds its counts, every acknowledged write
+   (content, embedding bit for bit) and no deleted id; a ``SearchService``
+   on the card over it has the fresh service's row order and gives its
+   256 answers bit for bit through kernel #2. 14b: the crash image (no
+   snapshot) replays its whole WAL to the same state; records/s, then
+   ``compact()``, close and reopen. 14c: two children that never touch
+   CUDA crash by SIGKILL at a seeded point: the default chain (every write
+   before its flush back, the later ones a prefix of their order, the WAL
+   intact once its first append repairs a torn tail) and
+   ``async_writes=False, wal_sync=True`` with the native codec (every
+   acknowledged write back; the child's fsync p50). 14d: the adjacency
+   snapshot of the recovered chain: ``edge_arrays()`` equal to a scan,
+   PageRank (phase 12's bounds against float64) and WCC (scipy's) on the
+   card, again after 1,000 edges created and 1,000 deleted through the
+   chain; ``linkpredict.build_graph`` served by the snapshot and equal to
+   its scan; BFS from 16 starts against ``bfs_distances_csr``. 14e: the
+   segment store keeps 8,192 documents across a reopen and serves 64
+   vector queries bit for bit as a ``MemoryEngine`` with the same
+   documents in the same order; a ``DatabaseManager`` over the chain keeps
+   two databases with shared ids apart (counts, search answers) and brings
+   both and an alias back after a reopen. The data directories' sizes are
+   logged and the directories deleted.
 13. the registry, last: the port's ``REGISTRY`` rendered and parsed
    strictly (a parser of this script's); non-zero program-ledger samples
    for search/dense, search/ivf, serving/embed and genserve/ragged, the
@@ -152,7 +188,10 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    counter equal to the engines' own counts (phases 5, 5d and 9); the cost
    model's median relative error, every phase's predicted-deadline sheds
    (phases 5, 8 and 10 retry a shed call with backoff) and the tracer's
-   cost a span on this host.
+   cost a span on this host; the storage families (WAL append, async
+   flush seconds and ops, adjacency maintenance) non-zero, and phase 14's
+   traced write holding ``wal.append``, ``storage.flush`` and
+   ``adjacency.build`` spans.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -361,6 +400,28 @@ CAPTURE_SECONDS, CAPTURE_THREADS = 2.0, 8
 # predicted-deadline sheds each phase's clients retried
 GEN_COUNTED: dict = {}
 PREDICTED_SHEDS: dict = {}
+# phase 10 stores its corpus in the chain open_storage assembles (the JAX
+# defaults: AsyncEngine -> WALEngine -> MemoryEngine) under CHAIN_DIR/db10,
+# which phase 14 reopens; every data directory lives under CHAIN_DIR and is
+# deleted at the end of phase 14. VEC_QUERIES stored embeddings (k = VEC_K)
+# held bit for bit between a fresh service over the live chain and one over
+# the recovered chain; 14c hands CRASH_DOCS documents to each crash child,
+# the default chain's writes CRASH_LATE more after its flush and the
+# synchronous one up to CRASH_SYNC, each killed at a seeded point; 14d
+# creates and deletes ADJ_MUTATIONS edges and runs BFS from ADJ_STARTS
+# starts; 14e queries the segment store SEG_QUERIES times and fills two
+# databases with MDB_DOCS documents each. CHAIN_MIN_FREE: the disk the
+# chain's directories need (the WAL, its snapshot and the crash image of
+# phase 10 take ~4 GB)
+CHAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ".chip_scratch", "storage")
+VEC_QUERIES, VEC_K = 256, 100
+CRASH_DOCS, CRASH_LATE, CRASH_SYNC = 8192, 1024, 2048
+ADJ_MUTATIONS, ADJ_STARTS = 1000, 16
+SEG_QUERIES, MDB_DOCS = 64, 512
+CHAIN_MIN_FREE = 8 << 30
+# trace ids whose spans phase 13 reads (phase 14's traced write and build)
+TRACED: dict = {}
 
 
 def log(*a) -> None:
@@ -1887,12 +1948,25 @@ def phase_embed(K, seed: int, k: int, profile_dir: str = "") -> dict:
 
 
 def build_graph(texts: list, embs: np.ndarray, seed: int):
-    """Phase 10.1: a port MemoryEngine holding each phase-8 text as node
-    ``t<i>`` (property ``content``, its phase-8 embedding) with
-    RAG_EDGES[0]..RAG_EDGES[1] outgoing edges to seeded random nodes."""
-    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+    """Phase 10.1: the durable chain ``open_storage(CHAIN_DIR/db10)`` (the
+    one ``cli serve`` opens) holding each phase-8 text as node ``t<i>``
+    (property ``content``, its phase-8 embedding) with
+    RAG_EDGES[0]..RAG_EDGES[1] outgoing edges to seeded random nodes,
+    flushed before the service serves, so the flusher is idle (not
+    JSON-encoding under the interpreter lock) during the timed searches."""
+    import shutil
 
-    storage = MemoryEngine()
+    from nornicdb_tpu_torch.storage import Edge, Node, open_storage
+
+    # numpy float32 at the chain's door: it serialises them as JSON floats
+    assert isinstance(embs, np.ndarray) and embs.dtype == np.float32
+    free = shutil.disk_usage(os.path.dirname(CHAIN_DIR)).free
+    log(f"[phase10] disk free under {os.path.dirname(CHAIN_DIR)}: {free} "
+        f"bytes (the chain needs ~{CHAIN_MIN_FREE >> 30} GiB)")
+    assert free >= CHAIN_MIN_FREE, ("disk", free)
+    d = os.path.join(CHAIN_DIR, "db10")
+    storage = open_storage(d)
+    hist0 = storage_hists()
     t0 = time.perf_counter()
     for i, text in enumerate(texts):
         storage.create_node(Node(id=f"t{i}", labels=["Doc"],
@@ -1907,9 +1981,57 @@ def build_graph(texts: list, embs: np.ndarray, seed: int):
     for k, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
         storage.create_edge(Edge(id=f"e{k}", start_node=f"t{a}",
                                  end_node=f"t{b}"))
-    log(f"[phase10] storage: {storage.node_count()} nodes in {t_nodes:.1f}s, "
-        f"{storage.edge_count()} edges in {time.perf_counter() - t0:.1f}s")
+    t_edges = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    storage.flush()
+    t_flush = time.perf_counter() - t0
+    wal_bytes = os.path.getsize(os.path.join(d, "wal", "wal.log"))
+    n, m = storage.node_count(), storage.edge_count()
+    hist = {k: [a - b for a, b in zip(v, hist0[k])]
+            for k, v in storage_hists().items()}
+    enc, dec = json_costs(storage.batch_get_nodes(
+        [f"t{i}" for i in range(0, len(texts), len(texts) // 256)]))
+    log(f"[phase10] storage (open_storage: AsyncEngine -> WALEngine -> "
+        f"MemoryEngine): {n} nodes in {t_nodes:.1f}s ({n / t_nodes:.1f}/s), "
+        f"{m} edges in {t_edges:.1f}s ({m / t_edges:.1f}/s), then flush() "
+        f"{t_flush:.2f}s; WAL {wal_bytes} bytes "
+        f"({wal_bytes / (n + m):.1f} a record); WAL appends "
+        f"{hist['wal_append'][1]:.0f} taking {hist['wal_append'][0]:.2f}s "
+        f"(encode + write + flush to the OS), async flushes "
+        f"{hist['async_flush'][1]:.0f} taking {hist['async_flush'][0]:.2f}s "
+        f"(the appends plus the base engine's inserts); a node record's "
+        f"to_dict + json.dumps {enc * 1e3:.3f}ms and json.loads + from_dict "
+        f"{dec * 1e3:.3f}ms (256 sampled): {enc * n:.1f}s / {dec * n:.1f}s "
+        f"over the {n} nodes")
     return storage
+
+
+def storage_hists() -> dict:
+    """(sum, count) of the WAL append and async flush histograms."""
+    from nornicdb_tpu_torch.telemetry import REGISTRY
+
+    out = {}
+    for key, fam in (("wal_append", "nornicdb_wal_append_seconds"),
+                     ("async_flush", "nornicdb_async_flush_seconds")):
+        _, total, count = REGISTRY._families[fam].labels().snapshot()
+        out[key] = [total, count]
+    return out
+
+
+def json_costs(nodes: list) -> tuple[float, float]:
+    """Seconds a node record takes to encode as the WAL writes it
+    (``to_dict`` + ``json.dumps``) and to decode as recovery reads it
+    (``json.loads`` + ``Node.from_dict``), the mean over ``nodes``."""
+    from nornicdb_tpu_torch.storage import Node
+
+    t0 = time.perf_counter()
+    blobs = [json.dumps(x.to_dict(), separators=(",", ":")) for x in nodes]
+    enc = (time.perf_counter() - t0) / len(nodes)
+    t0 = time.perf_counter()
+    for b in blobs:
+        Node.from_dict(json.loads(b))
+    dec = (time.perf_counter() - t0) / len(nodes)
+    return enc, dec
 
 
 class _Spans:
@@ -2572,8 +2694,9 @@ def phase_hybrid(K, seed: int, served: dict) -> dict:
     log(f"[phase10] telemetry checks {time.perf_counter() - t0:.1f}s")
     PREDICTED_SHEDS["10"] = (served["engine"].stats.sheds_predicted
                              - PREDICTED_SHEDS["8"][0], retry.sheds)
+    record = record_chain(storage, cfg, texts, run, seed)
     return {"storage": storage, "service": svc,
-            "streaming_topk_bf16": launches}
+            "streaming_topk_bf16": launches, "record": record}
 
 
 class _RagDB:
@@ -3540,6 +3663,705 @@ def phase_graph(seed: int) -> None:
         assert abs(c[2] - r[2]) <= LINK_TOL * (1 + abs(r[2])), (c, r)
 
 
+# ---------------------------------------------------------------- phase 14
+# CPU-only children (CUDA hidden, a session of their own) started after
+# phase 10's chain is closed: they run beside phases 11 and 12 and phase 14
+# collects them. Each prints one line a step (flushed) to a file.
+CHILDREN: dict = {}
+
+
+def crash_child(mode: str, d: str, kill_at: int) -> None:
+    """14c's child: write through the chain, print a line per acknowledged
+    write, SIGKILL itself before write ``kill_at``. ``async``: the default
+    chain writes the CRASH_DOCS documents and their edges, flushes, prints
+    the counts, then writes CRASH_LATE more in bursts of 64; ``sync``: async_writes=False,
+    wal_sync=True (``NORNICDB_NATIVE_WAL=1`` set by the parent) writes up to
+    CRASH_SYNC documents and prints the fsync histogram before the kill."""
+    import signal
+
+    from nornicdb_tpu_torch.storage import Edge, Node, native, open_storage
+    from nornicdb_tpu_torch.telemetry.metrics import REGISTRY
+
+    src = os.path.join(CHAIN_DIR, "crash_docs")
+    embs = np.load(os.path.join(src, "docs.npy"))
+    with open(os.path.join(src, "docs.json")) as f:
+        meta = json.load(f)
+    texts, edges = meta["texts"], meta["edges"]
+
+    def kill() -> None:
+        torch = sys.modules.get("torch")
+        log("CUDA", bool(torch is not None and torch.cuda.is_initialized()))
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    def node(i: int, nid: str):
+        return Node(id=nid, labels=["Doc"], properties={"content": texts[i]},
+                    embedding=embs[i])
+
+    if mode == "async":
+        eng = open_storage(d)
+        for i in range(len(texts)):
+            eng.create_node(node(i, f"c{i}"))
+        for k, (a, b) in enumerate(edges):
+            eng.create_edge(Edge(id=f"ce{k}", start_node=f"c{a}",
+                                 end_node=f"c{b}"))
+        eng.flush()
+        log("FLUSHED", eng.node_count(), eng.edge_count())
+        for j in range(CRASH_LATE):
+            if j == kill_at:
+                kill()
+            eng.create_node(node(j, f"late{j}"))
+            log("ACK", j)
+            if j % 64 == 63:  # a flush tick between bursts: some of the
+                time.sleep(0.06)  # later writes reach the WAL, some not
+    else:
+        eng = open_storage(d, async_writes=False, wal_sync=True)
+        lib = native._lib
+        log("NATIVE", json.dumps({
+            "enabled": eng.wal._use_native,
+            "library": lib._name if lib else None,
+            "build_dir": str(native.BUILD_DIR),
+            "build_seconds": native.build_seconds.get("walcodec")}))
+        for i in range(CRASH_SYNC):
+            if i == kill_at:
+                cell = REGISTRY._families["nornicdb_wal_fsync_seconds"].labels()
+                counts, total, n = cell.snapshot()
+                log("FSYNC", json.dumps({"bounds": list(cell.bounds),
+                                         "counts": counts, "sum": total,
+                                         "count": n}))
+                kill()
+            eng.create_node(node(i, f"s{i}"))
+            log("ACK", i)
+
+
+def replay_child(d: str) -> None:
+    """14b's child: recover the crash image (no snapshot: the whole WAL is
+    replayed) and hold it to phase 10's state, then compact(), close() and
+    reopen once more; one JSON line per step."""
+    from nornicdb_tpu_torch.storage import open_storage
+
+    expect, embs = expect_state()
+    assert not os.path.exists(os.path.join(d, "wal", "snapshot.json"))
+    wal_bytes = os.path.getsize(os.path.join(d, "wal", "wal.log"))
+    t0 = time.perf_counter()
+    storage = open_storage(d)
+    t_rep = time.perf_counter() - t0
+    records = storage.base.wal.stats.recovered_entries
+    check_recovered(storage, expect, embs, "14b")
+    log("REPLAYED", json.dumps({"wal_bytes": wal_bytes, "records": records,
+                                "seconds": t_rep}))
+    t0 = time.perf_counter()
+    storage.base.compact()
+    t_compact = time.perf_counter() - t0
+    snap_bytes = os.path.getsize(os.path.join(d, "wal", "snapshot.json"))
+    t0 = time.perf_counter()
+    storage.close()  # WALEngine.close: a final compact, then the log closed
+    t_close = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = open_storage(d)
+    t_again = time.perf_counter() - t0
+    # left open: its close would write the same snapshot once more
+    log("REOPENED", json.dumps({
+        "compact": t_compact, "snapshot_bytes": snap_bytes,
+        "close": t_close, "reopen": t_again,
+        "counts": [again.node_count(), again.edge_count()]}))
+
+
+def start_children(seed: int) -> None:
+    """Start 14b's replay child and 14c's two crash children (kill points
+    from ``seed``); their output goes to files under CHAIN_DIR."""
+    import atexit
+
+    rng = np.random.default_rng(seed + 15)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    jobs = {
+        "replay": ("replay_child", (os.path.join(CHAIN_DIR, "db10_crash"),)),
+        "async": ("crash_child", ("async", os.path.join(CHAIN_DIR, "crash_async"),
+                                  int(rng.integers(1, CRASH_LATE)))),
+        "sync": ("crash_child", ("sync", os.path.join(CHAIN_DIR, "crash_sync"),
+                                 int(rng.integers(CRASH_SYNC // 2, CRASH_SYNC)))),
+    }
+    for name, (fn, args) in jobs.items():
+        out = os.path.join(CHAIN_DIR, f"child_{name}.out")
+        call = f"import chip_smoke as C; C.{fn}(*{args!r})"
+        with open(out, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", call], cwd=root, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(env, NORNICDB_NATIVE_WAL="1" if name == "sync"
+                         else ""))
+        CHILDREN[name] = (proc, out, args, time.perf_counter())
+
+    def stop() -> None:
+        for proc, *_ in CHILDREN.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+
+
+def collect_child(name: str, rc: int, timeout: float = 900.0) -> tuple:
+    """Wait for a child; its exit code must be ``rc``. Returns its complete
+    output lines (a partial last line is dropped, not parsed), its
+    arguments and its seconds."""
+    proc, out, args, t0 = CHILDREN[name]
+    proc.wait(timeout=timeout)
+    seconds = time.perf_counter() - t0
+    with open(out) as f:
+        text = f.read()
+    assert proc.returncode == rc, (name, proc.returncode, text[-3000:])
+    return text.split("\n")[:-1], args, seconds
+
+
+def hist_quantile(bounds: list, counts: list, q: float) -> float:
+    """The ``q`` quantile of a Prometheus histogram, interpolated inside
+    its bucket (``histogram_quantile``'s rule)."""
+    total = sum(counts)
+    want, seen, lo = q * total, 0, 0.0
+    for hi, c in zip(list(bounds) + [float("inf")], counts):
+        if c and seen + c >= want:
+            return lo + (hi - lo) * (want - seen) / c if hi != float("inf") \
+                else lo
+        seen += c
+        lo = hi
+    return lo
+
+
+def du_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def record_chain(storage, cfg, texts: list, run: dict, seed: int) -> dict:
+    """Phase 10.7: after the writers, what phase 14 holds the recovered
+    chain to. The chain is flushed; the counts, the writers' ids, and every
+    node's content and embedding are saved under CHAIN_DIR (phase 14 reads
+    them after phases 11 and 12 have released their memory); a fresh
+    ``SearchService`` over the live chain (phase 10's config,
+    ``build_indexes``) gives the row order and the answers of VEC_QUERIES
+    stored embeddings, k = VEC_K; then the directory is copied while no
+    write is in flight (each WAL append is written and flushed to the OS,
+    ``auto_compact`` is off): the image a kill at that moment leaves. Last,
+    14c's input documents are written."""
+    import dataclasses as dc
+    import shutil
+
+    from nornicdb_tpu_torch.search import SearchService
+
+    t0 = time.perf_counter()
+    storage.flush()
+    nodes = list(storage.all_nodes())
+    ids = [n.id for n in nodes]
+    contents = [n.properties.get("content") for n in nodes]
+    embs = np.stack([n.embedding for n in nodes])
+    assert embs.dtype == np.float32
+    del nodes
+    np.save(os.path.join(CHAIN_DIR, "expect_emb.npy"), embs)
+    expect = {"ids": ids, "contents": contents,
+              "nodes": storage.node_count(), "edges": storage.edge_count(),
+              "deleted": sorted(run["deleted"]),
+              "x0": contents[ids.index("x0")]}
+    with open(os.path.join(CHAIN_DIR, "expect.json"), "w") as f:
+        json.dump(expect, f)
+    t_save = time.perf_counter() - t0
+    assert expect["nodes"] == len(texts) + 1  # the writers' nodes deleted
+    assert not set(expect["deleted"]) & set(ids)
+
+    t0 = time.perf_counter()
+    fresh = SearchService(storage, config=dc.replace(cfg), device="cuda")
+    assert fresh.build_indexes() == len(ids)
+    wait_drained(fresh.corpus())
+    t_fresh = time.perf_counter() - t0
+    rows = list(fresh.corpus()._ids)
+    rng = np.random.default_rng(seed + 14)
+    queries = embs[rng.choice(len(ids), VEC_QUERIES, replace=False)]
+    answers = [fresh.vector_candidates(q, k=VEC_K) for q in queries]
+    fresh.shutdown()
+    assert all(len(a) == VEC_K for a in answers)
+
+    t0 = time.perf_counter()
+    shutil.copytree(os.path.join(CHAIN_DIR, "db10"),
+                    os.path.join(CHAIN_DIR, "db10_crash"))
+    t_copy = time.perf_counter() - t0
+    # 14c's input: the first CRASH_DOCS documents and seeded edges
+    src = os.path.join(CHAIN_DIR, "crash_docs")
+    os.makedirs(src)
+    np.save(os.path.join(src, "docs.npy"), embs[:CRASH_DOCS])
+    deg = rng.integers(RAG_EDGES[0], RAG_EDGES[1] + 1, CRASH_DOCS)
+    a = np.repeat(np.arange(CRASH_DOCS), deg)
+    edges = np.stack([a, rng.integers(0, CRASH_DOCS, a.size)], 1).tolist()
+    with open(os.path.join(src, "docs.json"), "w") as f:
+        json.dump({"texts": contents[:CRASH_DOCS], "edges": edges}, f)
+    log(f"[phase10] 10.7 for phase 14: {expect['nodes']} nodes, "
+        f"{expect['edges']} edges, {len(expect['deleted'])} deleted ids, "
+        f"state saved in {t_save:.2f}s; a fresh SearchService over the live "
+        f"chain indexed in {t_fresh:.2f}s and answered {VEC_QUERIES} "
+        f"vector queries (k={VEC_K}); crash image copied in {t_copy:.2f}s "
+        f"({du_bytes(os.path.join(CHAIN_DIR, 'db10_crash'))} bytes)")
+    return {"rows": rows, "queries": queries, "answers": answers, "cfg": cfg}
+
+
+def expect_state() -> tuple[dict, np.ndarray]:
+    with open(os.path.join(CHAIN_DIR, "expect.json")) as f:
+        expect = json.load(f)
+    return expect, np.load(os.path.join(CHAIN_DIR, "expect_emb.npy"))
+
+
+def check_recovered(storage, expect: dict, embs: np.ndarray,
+                    tag: str) -> None:
+    """Counts equal phase 10's; every node (the acknowledged creates and
+    updates among them) reads back with its content and its embedding bit
+    for bit; every deleted id is absent."""
+    assert storage.node_count() == expect["nodes"], (tag, "nodes")
+    assert storage.edge_count() == expect["edges"], (tag, "edges")
+    nodes = storage.batch_get_nodes(expect["ids"])
+    assert [n.id for n in nodes] == expect["ids"], (tag, "nodes missing")
+    assert [n.properties.get("content") for n in nodes] == \
+        expect["contents"], (tag, "contents")
+    got = np.stack([n.embedding for n in nodes])
+    assert got.dtype == np.float32 and got.tobytes() == embs.tobytes(), (
+        tag, "embeddings not bit for bit")
+    assert storage.get_node("x0").properties["content"] == expect["x0"]
+    for nid in expect["deleted"]:
+        assert not storage.batch_get_nodes([nid]), (tag, "deleted", nid)
+
+
+def phase_recover(K, rec: dict) -> object:
+    """14a: reopen phase 10's chain from its close-time snapshot, hold it
+    to phase 10's state, and serve the VEC_QUERIES vector queries on the
+    card through kernel #2: row order, ids and scores bit for bit those of
+    phase 10's fresh service. Returns the recovered chain (14d reuses it)."""
+    from nornicdb_tpu_torch.search import SearchService
+    from nornicdb_tpu_torch.storage import open_storage
+
+    expect, embs = expect_state()
+    d = os.path.join(CHAIN_DIR, "db10")
+    snap_bytes = os.path.getsize(os.path.join(d, "wal", "snapshot.json"))
+    log_bytes = os.path.getsize(os.path.join(d, "wal", "wal.log"))
+    t0 = time.perf_counter()
+    storage = open_storage(d)
+    t_rec = time.perf_counter() - t0
+    check_recovered(storage, expect, embs, "14a")
+    t0 = time.perf_counter()
+    svc = SearchService(storage, config=rec["cfg"], device="cuda")
+    assert svc.build_indexes() == expect["nodes"]
+    wait_drained(svc.corpus())
+    t_idx = time.perf_counter() - t0
+    assert list(svc.corpus()._ids) == rec["rows"], "row order after recovery"
+    K.reset_launch_counts()
+    answers = [svc.vector_candidates(q, k=VEC_K) for q in rec["queries"]]
+    launches = K.launch_counts()["streaming_topk_bf16"]
+    svc.shutdown()
+    same = sum(a == b for a, b in zip(answers, rec["answers"]))
+    log(f"[phase14] 14a recovery from the close-time snapshot "
+        f"({snap_bytes} bytes, log {log_bytes} bytes): {t_rec:.2f}s "
+        f"({expect['nodes'] / t_rec:.1f} nodes/s); counts, "
+        f"{len(expect['ids'])} contents and embeddings bit for bit, "
+        f"{len(expect['deleted'])} deleted ids absent; SearchService "
+        f"indexed in {t_idx:.2f}s, row order equal; {same} of "
+        f"{VEC_QUERIES} vector answers (k={VEC_K}) equal bit for bit to "
+        f"phase 10's fresh service; streaming_topk_bf16 launches {launches}")
+    assert same == VEC_QUERIES, "recovered answers differ"
+    assert launches > 0, "the recovered corpus missed kernel #2"
+    return storage
+
+
+def phase_replay() -> None:
+    """14b: the replay child's results (it ran beside phases 11 to 14):
+    the crash image's whole WAL replayed to phase 10's state, then
+    compact, close and a reopen with the same counts."""
+    expect, _ = expect_state()
+    lines, _, seconds = collect_child("replay", 0)
+    rep = json.loads(next(ln for ln in lines
+                          if ln.startswith("REPLAYED"))[len("REPLAYED "):])
+    again = json.loads(next(ln for ln in lines
+                            if ln.startswith("REOPENED"))[len("REOPENED "):])
+    log(f"[phase14] 14b WAL replay of the crash image ({rep['wal_bytes']} "
+        f"bytes, {rep['records']} records, no snapshot) in a CPU child: "
+        f"{rep['seconds']:.2f}s, {rep['records'] / rep['seconds']:.1f} "
+        f"records/s (14a's snapshot path above); counts, contents, "
+        f"embeddings bit for bit and deletions equal to phase 10's; "
+        f"compact() {again['compact']:.2f}s (snapshot "
+        f"{again['snapshot_bytes']} bytes), close() {again['close']:.2f}s, "
+        f"reopen from the snapshot {again['reopen']:.2f}s, counts "
+        f"{again['counts']}; the child's wall {seconds:.1f}s")
+    assert rep["records"] > expect["nodes"]
+    assert again["counts"] == [expect["nodes"], expect["edges"]]
+
+
+def phase_crash() -> None:
+    """14c: two children crashed by SIGKILL at a seeded point. The default
+    chain (child 1): every write before its flush is present after the
+    reopen, the later writes present are a prefix of their order, and the
+    WAL is intact but for a torn tail, which the first append repairs. The
+    synchronous chain with fsync and the native codec (child 2): every
+    acknowledged write reads back."""
+    from nornicdb_tpu_torch.storage import Node, open_storage
+
+    expect, embs = expect_state()
+    n = CRASH_DOCS
+    with open(os.path.join(CHAIN_DIR, "crash_docs", "docs.json")) as f:
+        edges = json.load(f)["edges"]
+
+    # child 1: the default chain
+    lines, (_, d1, kill1), t_child = collect_child("async", -9)
+    flushed = [ln.split() for ln in lines if ln.startswith("FLUSHED")]
+    acked = [int(ln.split()[1]) for ln in lines if ln.startswith("ACK")]
+    assert flushed and flushed[0][1:] == [str(n), str(len(edges))], flushed
+    assert acked == list(range(kill1)), ("acks", len(acked), kill1)
+    assert "CUDA False" in lines
+    t0 = time.perf_counter()
+    st = open_storage(d1)
+    t_open = time.perf_counter() - t0
+    wal = st.base.wal
+    torn = wal.stats.truncated_tail_records
+    assert not wal.stats.degraded, wal.stats.corruption_info
+    got = st.batch_get_nodes([f"c{i}" for i in range(n)])
+    assert len(got) == n and st.edge_count() == len(edges)
+    for i in range(0, n, 97):
+        assert got[i].embedding.tobytes() == embs[i].tobytes()
+        assert got[i].properties["content"] == expect["contents"][i]
+    late = [j for j in range(CRASH_LATE) if st.batch_get_nodes([f"late{j}"])]
+    assert late == list(range(len(late))), "later writes not a prefix"
+    assert len(late) <= kill1
+    st.create_node(Node(id="after-crash"))
+    st.flush()
+    n_rec, clean = wal.verify_integrity()
+    log(f"[phase14] 14c child 1 (default chain): {n} documents and "
+        f"{len(edges)} edges flushed, killed after {kill1} of {CRASH_LATE} "
+        f"later writes were acknowledged; child done {t_child:.1f}s after its "
+        f"start; reopened in "
+        f"{t_open:.2f}s: all flushed writes present, {len(late)} later "
+        f"writes present, a prefix of their order (acknowledged is not "
+        f"durable before a flush); torn tail at the kill: {torn > 0}; "
+        f"verify_integrity after the first append: {n_rec} records, clean "
+        f"{clean}")
+    assert clean, "WAL not intact after the repairing append"
+
+    # child 2: synchronous appends, fsync, the native codec
+    lines, (_, d2, kill2), t_child = collect_child("sync", -9)
+    info = json.loads(next(ln for ln in lines
+                           if ln.startswith("NATIVE"))[len("NATIVE "):])
+    fs = json.loads(next(ln for ln in lines
+                         if ln.startswith("FSYNC"))[len("FSYNC "):])
+    acked = [int(ln.split()[1]) for ln in lines if ln.startswith("ACK")]
+    assert info["enabled"], info
+    assert os.path.dirname(info["library"]) == info["build_dir"], info
+    assert os.path.basename(info["library"]).startswith("libwalcodec-")
+    assert acked == list(range(kill2)), ("acks", len(acked), kill2)
+    assert "CUDA False" in lines
+    st = open_storage(d2, async_writes=False, wal_sync=True)
+    got = st.batch_get_nodes([f"s{i}" for i in acked])
+    assert [g.id for g in got] == [f"s{i}" for i in acked]
+    for g, i in zip(got, acked):
+        assert g.embedding.tobytes() == embs[i].tobytes()
+    n_rec, clean = st.wal.verify_integrity()
+    p50 = hist_quantile(fs["bounds"], fs["counts"], 0.5)
+    log(f"[phase14] 14c child 2 (async_writes=False, wal_sync=True, native "
+        f"codec {info['library']}, built in {info['build_seconds']}s): "
+        f"killed after {kill2} acknowledged writes, all {len(got)} read "
+        f"back; child done {t_child:.1f}s after its start; "
+        f"nornicdb_wal_fsync_seconds in the "
+        f"child: {fs['count']} fsyncs, p50 {p50 * 1e3:.3f}ms (bucket "
+        f"interpolated), mean {fs['sum'] / max(fs['count'], 1) * 1e3:.3f}ms; "
+        f"verify_integrity {n_rec} records, clean {clean}")
+    assert clean and n_rec == kill2 and fs["count"] == kill2
+
+
+def edge_scan(storage) -> tuple[list, np.ndarray, np.ndarray]:
+    """``gds_procedures._edge_arrays``'s scan branch: sorted ids and the
+    (src, dst) index arrays of every edge."""
+    ids = sorted(n.id for n in storage.all_nodes())
+    index = {id_: i for i, id_ in enumerate(ids)}
+    src, dst = [], []
+    for e in storage.all_edges():
+        a, b = index.get(e.start_node), index.get(e.end_node)
+        if a is not None and b is not None:
+            src.append(a)
+            dst.append(b)
+    return ids, np.asarray(src, np.int32), np.asarray(dst, np.int32)
+
+
+def same_edges(view, scan) -> bool:
+    ids, src, dst = scan
+    if list(view.ids) != ids or len(view.src) != len(src):
+        return False
+    a = np.lexsort((view.dst, view.src))
+    b = np.lexsort((dst, src))
+    return bool(np.array_equal(view.src[a], src[b])
+                and np.array_equal(view.dst[a], dst[b]))
+
+
+def pagerank_check(GA, view, tag: str) -> str:
+    """PageRank on the card over a snapshot's arrays against the float64
+    power iteration, under phase 12's bounds."""
+    n = len(view.ids)
+    t0 = time.perf_counter()
+    ranks = GA.pagerank(view.src, view.dst, n)  # device=None: the card
+    t_pr = time.perf_counter() - t0
+    ref = pagerank_f64(view.src, view.dst, n)
+    l1 = float(np.abs(ranks.astype(np.float64) - ref).sum())
+    top = np.argsort(-ref)[:PR_TOP]
+    top_rel = float(np.max(np.abs(ranks[top] - ref[top]) / ref[top]))
+    assert l1 <= PR_L1_TOL, (tag, "pagerank L1", l1)
+    assert top_rel <= PR_TOP_REL_TOL, (tag, "pagerank top ranks", top_rel)
+    return (f"pagerank {t_pr * 1e3:.2f}ms, L1 {l1:.4e}, top-{PR_TOP} "
+            f"relative error {top_rel:.4e}")
+
+
+def phase_adjacency(seed: int, storage) -> None:
+    """14d: the adjacency snapshot over the recovered chain feeds the
+    card: its edge arrays equal a scan's, PageRank and WCC on the card over
+    them, mutations through the chain, build_graph's snapshot branch, BFS
+    against graph_algos over build_csr."""
+    import types
+
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components as scipy_cc
+
+    from nornicdb_tpu_torch.linkpredict import build_graph as lp_graph
+    from nornicdb_tpu_torch.ops import graph_algos as GA
+    from nornicdb_tpu_torch.storage import Edge, Node, attach_snapshot
+    from nornicdb_tpu_torch.telemetry.tracing import tracer
+
+    # one traced write, flush and snapshot build: phase 13 reads its spans
+    with tracer.start_trace("phase14.chain") as root:
+        storage.create_node(Node(id="traced", labels=["Doc"]))
+        storage.flush()
+        snap = attach_snapshot(storage)
+        t0 = time.perf_counter()
+        assert snap.ensure()
+        t_build = time.perf_counter() - t0
+    TRACED["phase14"] = root.trace_id
+    t0 = time.perf_counter()
+    view = snap.edge_arrays()
+    t_view = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan = edge_scan(storage)
+    t_scan = time.perf_counter() - t0
+    assert same_edges(view, scan), "edge_arrays differ from the scan"
+    n, m = len(view.ids), len(view.src)
+    pr = pagerank_check(GA, view, "14d")
+    t0 = time.perf_counter()
+    labels = GA.connected_components(view.src, view.dst, n)
+    t_wcc = time.perf_counter() - t0
+    adj = sp.csr_matrix((np.ones(m, np.float32), (view.src, view.dst)),
+                        shape=(n, n))
+    n_comp, comp = scipy_cc(adj, directed=False)
+    _, first = np.unique(comp, return_index=True)
+    assert np.array_equal(labels, first[comp].astype(np.int32)), "WCC"
+    log(f"[phase14] 14d snapshot build {t_build * 1e3:.1f}ms ({n} nodes, "
+        f"{m} edges), edge_arrays {t_view * 1e3:.1f}ms against a scan of "
+        f"all_edges() {t_scan * 1e3:.1f}ms, equal (sorted ids, the same "
+        f"(src, dst) multiset); on the card: {pr}; WCC {t_wcc * 1e3:.2f}ms, "
+        f"{n_comp} components equal to scipy's")
+
+    rng = np.random.default_rng(seed + 16)
+    gen = snap.generation()
+    t0 = time.perf_counter()
+    for k in range(ADJ_MUTATIONS):
+        a, b = rng.integers(0, EMBED_TEXTS, 2)
+        storage.create_edge(Edge(id=f"m{k}", start_node=f"t{a}",
+                                 end_node=f"t{b}"))
+    victims = rng.choice(m, ADJ_MUTATIONS, replace=False)  # phase 10's e<k>
+    for k in victims.tolist():
+        storage.delete_edge(f"e{k}")
+    t_mut = time.perf_counter() - t0
+    view2 = snap.edge_arrays()
+    assert snap.generation() != gen and view2 is not view
+    assert same_edges(view2, edge_scan(storage)), "after the mutations"
+    assert len(view2.src) == m
+    pr2 = pagerank_check(GA, view2, "14d mutated")
+
+    stats0 = snap.stats_snapshot()
+    t0 = time.perf_counter()
+    g = lp_graph(storage)
+    t_g = time.perf_counter() - t0
+    assert g is snap.graph_view(), "build_graph missed the snapshot branch"
+    t0 = time.perf_counter()
+    g_scan = lp_graph(types.SimpleNamespace(all_nodes=storage.all_nodes,
+                                            all_edges=storage.all_edges))
+    t_gs = time.perf_counter() - t0
+    assert (g.ids, g.index, g.neighbors) == (g_scan.ids, g_scan.index,
+                                             g_scan.neighbors)
+    assert snap.stats_snapshot()["builds"] == stats0["builds"] == 1
+    indptr, indices = GA.build_csr(view2.src, view2.dst, n)
+    starts = rng.choice(n, ADJ_STARTS, replace=False)
+    t_bfs = 0.0
+    for s in starts.tolist():
+        t0 = time.perf_counter()
+        dist = snap.bfs_distances(view2.ids[s], "both")
+        t_bfs += time.perf_counter() - t0
+        want = GA.bfs_distances_csr(indptr, indices, s, n)
+        got = {snap.id_of(i): int(dist[i]) for i in np.nonzero(dist >= 0)[0]}
+        assert got == {view2.ids[i]: int(want[i])
+                       for i in np.nonzero(want >= 0)[0]}, ("bfs", s)
+    log(f"[phase14] 14d {ADJ_MUTATIONS} edges created and {ADJ_MUTATIONS} "
+        f"deleted through the chain in {t_mut:.2f}s: generation moved, "
+        f"edge_arrays equal a fresh scan, {pr2}; build_graph "
+        f"{t_g * 1e3:.1f}ms from the snapshot (builds still 1) against "
+        f"{t_gs * 1e3:.1f}ms by its scan branch, equal; BFS from "
+        f"{ADJ_STARTS} starts {t_bfs / ADJ_STARTS * 1e3:.2f}ms each, equal "
+        f"to bfs_distances_csr; snapshot "
+        f"{json.dumps(snap.stats_snapshot())}")
+
+
+def phase_segment_and_databases(rec: dict) -> None:
+    """14e: the native segment store (built from the port's copy) holds
+    CRASH_DOCS documents across a reopen and serves SEG_QUERIES vector
+    queries equal bit for bit to a MemoryEngine-backed service over the
+    same documents in the same order; two databases with shared ids in a
+    DatabaseManager over a durable chain keep their counts, their search
+    answers and, after a reopen, their metadata apart."""
+    import dataclasses as dc
+
+    from nornicdb_tpu_torch.multidb import DatabaseManager
+    from nornicdb_tpu_torch.search import SearchService
+    from nornicdb_tpu_torch.storage import MemoryEngine, Node, native
+    from nornicdb_tpu_torch.storage import open_storage
+
+    expect, embs = expect_state()
+    n = CRASH_DOCS
+    d = os.path.join(CHAIN_DIR, "seg")
+    t0 = time.perf_counter()
+    seg = open_storage(d, engine="segment")
+    t_open = time.perf_counter() - t0
+    lib = native.library_path("segstore")
+    assert os.path.dirname(lib) == str(native.BUILD_DIR)
+    t0 = time.perf_counter()
+    for i in range(n):
+        seg.create_node(Node(id=f"g{i}", labels=["Doc"],
+                             properties={"content": expect["contents"][i]},
+                             embedding=embs[i]))
+    seg.flush()
+    t_write = time.perf_counter() - t0
+    seg.close()
+    t0 = time.perf_counter()
+    seg = open_storage(d, engine="segment")
+    t_reopen = time.perf_counter() - t0
+    order = list(seg.all_nodes())
+    got = {x.id: x for x in order}
+    assert seg.node_count() == n == len(got)
+    for i in range(n):
+        x = got[f"g{i}"]
+        assert x.properties["content"] == expect["contents"][i]
+        assert x.embedding.tobytes() == embs[i].tobytes()
+    mem = MemoryEngine()
+    for node in order:
+        mem.create_node(node)
+    answers = []
+    for eng in (seg, mem):
+        svc = SearchService(eng, config=dc.replace(rec["cfg"]), device="cuda")
+        assert svc.build_indexes() == n
+        wait_drained(svc.corpus())
+        answers.append((list(svc.corpus()._ids),
+                        [svc.vector_candidates(q, k=VEC_K)
+                         for q in embs[:SEG_QUERIES]]))
+        svc.shutdown()
+    seg_bytes = du_bytes(d)
+    seg.close()
+    assert answers[0][0] == [x.id for x in order]
+    assert answers[0] == answers[1], "segment-backed answers differ"
+    log(f"[phase14] 14e segment store: library {os.path.basename(lib)} "
+        f"built in {native.build_seconds.get('segstore', 0.0):.2f}s (first "
+        f"open {t_open:.2f}s); {n} documents written in {t_write:.2f}s "
+        f"({n / t_write:.1f}/s), reopened in {t_reopen:.2f}s, contents and "
+        f"embeddings equal ({seg_bytes} bytes on disk); {SEG_QUERIES} vector "
+        f"queries on the card equal bit for bit to a MemoryEngine-backed "
+        f"service over the same documents in the same order")
+
+    d = os.path.join(CHAIN_DIR, "mdb")
+    base = open_storage(d)
+    mgr = DatabaseManager(base)
+    mgr.create_database("a")
+    mgr.create_database("b")
+    mgr.create_alias("alpha", "a")
+    half = MDB_DOCS // 2
+    spans = {"a": range(0, MDB_DOCS), "b": range(half, half + MDB_DOCS)}
+    for name, docs in (("a", range(MDB_DOCS)),
+                       ("b", range(MDB_DOCS, 2 * MDB_DOCS))):
+        st = mgr.get_storage(name)
+        for i, j in zip(spans[name], docs):
+            st.create_node(Node(id=f"d{i}", properties={
+                "content": expect["contents"][j], "db": name},
+                embedding=embs[j]))
+    base.flush()
+    shared = f"d{half}"
+    assert (mgr.get_storage("a").get_node(shared).properties["db"],
+            mgr.get_storage("b").get_node(shared).properties["db"]) == (
+        "a", "b")
+    only_here = 0  # answers naming an id the other database lacks
+    for name, other in (("a", "b"), ("b", "a")):
+        st = mgr.get_storage(name)
+        assert st.node_count() == MDB_DOCS, (name, st.node_count())
+        own = {f"d{i}" for i in spans[name]}
+        theirs = {f"d{i}" for i in spans[other]}
+        svc = SearchService(st, config=dc.replace(rec["cfg"]), device="cuda")
+        assert svc.build_indexes() == MDB_DOCS
+        wait_drained(svc.corpus())
+        for q in embs[: 2 * MDB_DOCS: 2 * MDB_DOCS // 32]:
+            res = svc.vector_candidates(q, k=VEC_K)
+            assert res and {i for i, _ in res} <= own, name
+            only_here += sum(i not in theirs for i, _ in res)
+        svc.shutdown()
+    assert only_here > 0
+    stats = mgr.storage_stats()
+    base.close()
+    base = open_storage(d)
+    mgr2 = DatabaseManager(base)
+    back = (sorted(mgr2.list_databases()), mgr2.resolve("alpha"),
+            mgr2.storage_stats())
+    base.close()
+    log(f"[phase14] 14e DatabaseManager over open_storage: databases a and "
+        f"b with {MDB_DOCS} nodes each, {MDB_DOCS - half} ids shared holding "
+        f"different documents; each database's SearchService answered 32 "
+        f"queries from its own nodes only ({only_here} answers name an id "
+        f"the other database lacks); after a reopen "
+        f"{json.dumps(back)}")
+    assert {"a", "b"} <= set(back[0]) and back[1] == "a"
+    assert back[2] == stats and stats["a"]["nodes"] == MDB_DOCS
+
+
+def phase_storage(K, seed: int, rec: dict) -> None:
+    """Phase 14: the storage chain; see the module docstring. 14b's and
+    14c's children were started after phase 10's close and are collected
+    here (14b last: it is the longest)."""
+    import shutil
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    recovered = phase_recover(K, rec)
+    log(f"[phase14] 14a {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_crash()
+    log(f"[phase14] 14c {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_adjacency(seed, recovered)
+    # flushed and left open: a close would write a 1.5 GB snapshot that
+    # nothing reads
+    recovered.flush()
+    del recovered
+    gc.collect()
+    log(f"[phase14] 14d {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_segment_and_databases(rec)
+    log(f"[phase14] 14e {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    phase_replay()
+    log(f"[phase14] 14b {time.perf_counter() - t0:.1f}s waiting for the "
+        f"replay child")
+    sizes = {name: du_bytes(os.path.join(CHAIN_DIR, name))
+             for name in sorted(os.listdir(CHAIN_DIR))
+             if os.path.isdir(os.path.join(CHAIN_DIR, name))}
+    free = shutil.disk_usage(CHAIN_DIR).free
+    shutil.rmtree(CHAIN_DIR)
+    log(f"[phase14] data directories on disk before deletion "
+        f"{json.dumps(sizes)} (free {free} bytes); {CHAIN_DIR} deleted; "
+        f"phase 14 {time.perf_counter() - t_all:.1f}s")
+
+
 def parse_exposition(text: str) -> dict:
     """A strict reader of Prometheus text exposition (the port carries no
     parser until its servers come): every sample belongs to a family
@@ -3687,6 +4509,20 @@ def phase_registry() -> None:
         "nornicdb_cost_model_observations_total": sample_total(
             fams, "nornicdb_cost_model_observations_total"),
     }
+    storage = {
+        "nornicdb_wal_append_seconds": sample_total(
+            fams, "nornicdb_wal_append_seconds", "_count"),
+        "nornicdb_async_flush_seconds": sample_total(
+            fams, "nornicdb_async_flush_seconds", "_count"),
+        "nornicdb_async_flush_ops_total": sample_total(
+            fams, "nornicdb_async_flush_ops_total"),
+        "nornicdb_adjacency_maintenance_seconds": sample_total(
+            fams, "nornicdb_adjacency_maintenance_seconds", "_count"),
+    }
+    from nornicdb_tpu_torch.telemetry.tracing import tracer
+
+    entry = tracer.trace(TRACED["phase14"])
+    span_names = sorted({s["name"] for s in entry["spans"]}) if entry else []
     tokens = sample_total(fams, "nornicdb_genserve_generated_tokens_total")
     counted = sum(GEN_COUNTED.values())
     rel = {f"{s}/{k}": COST_MODEL.median_rel_error(s, k)
@@ -3708,7 +4544,8 @@ def phase_registry() -> None:
         f"rendered in {t_render * 1e3:.2f}ms and parsed strictly; device "
         f"programs {json.dumps({'/'.join(k): v for k, v in programs.items()})}"
         f"; {json.dumps(seen)}; generated tokens {tokens:.0f} against the "
-        f"engines' {counted} ({json.dumps(GEN_COUNTED)})")
+        f"engines' {counted} ({json.dumps(GEN_COUNTED)}); storage "
+        f"{json.dumps(storage)}; phase 14's traced write spans {span_names}")
     log(f"[phase13] cost model median relative error {json.dumps(rel)}; "
         f"predicted-deadline sheds in the registry {json.dumps(sheds)}, by "
         f"phase (engine sheds, client retries) {json.dumps(PREDICTED_SHEDS)}; "
@@ -3716,8 +4553,10 @@ def phase_registry() -> None:
         f"trace, {traced_us:.4f}us a span recorded in a trace")
     for key, v in programs.items():
         assert v > 0, ("nornicdb_device_programs_total", key)
-    for fam, v in seen.items():
+    for fam, v in {**seen, **storage}.items():
         assert v > 0, fam
+    for name in ("wal.append", "storage.flush", "adjacency.build"):
+        assert name in span_names, ("span", name, span_names)
     assert tokens == counted > 0, ("generated tokens", tokens, counted)
 
 
@@ -3968,8 +4807,13 @@ def main() -> int:
     served = phase_embed(K, args.seed, k, out_dir if args.profile else "")
     log(f"[phase8] {time.perf_counter() - t0:.1f}s")
 
-    # -- phase 10: hybrid search over phase 8's corpus in a MemoryEngine;
-    # phase 9: a checkpoint and GraphRAG answers retrieving through it
+    # -- phase 10: hybrid search over phase 8's corpus in the durable
+    # chain; phase 9: a checkpoint and GraphRAG answers retrieving through
+    # it; then the chain is closed (its close-time snapshot for phase 14)
+    import shutil
+
+    shutil.rmtree(CHAIN_DIR, ignore_errors=True)
+    os.makedirs(CHAIN_DIR)
     try:
         t0 = time.perf_counter()
         hybrid = phase_hybrid(K, args.seed, served)
@@ -3980,9 +4824,17 @@ def main() -> int:
             log(f"[phase9] {time.perf_counter() - t0:.1f}s")
         finally:
             hybrid["service"].shutdown()
+            t0 = time.perf_counter()
+            hybrid["storage"].close()
+            snap = os.path.join(CHAIN_DIR, "db10", "wal", "snapshot.json")
+            log(f"[phase10] storage.close() {time.perf_counter() - t0:.2f}s "
+                f"(close-time snapshot {os.path.getsize(snap)} bytes)")
     finally:
         served["engine"].stop()
+    # 14b's replay and 14c's crash children run beside phases 11 and 12
+    start_children(args.seed)
     texts8, rate8 = served["texts"], served["embeddings_per_s"]
+    record = hybrid["record"]
     del served, hybrid
     gc.collect()
     torch.cuda.empty_cache()
@@ -3998,6 +4850,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase12] {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 14: the storage chain, from disk onto the card
+    t0 = time.perf_counter()
+    phase_storage(K, args.seed, record)
+    del record
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase14] {time.perf_counter() - t0:.1f}s")
 
     # -- phase 13: the registry after the whole run
     t0 = time.perf_counter()

@@ -1,7 +1,10 @@
 """NornicDB's vector-search tier, embed serving and paged-KV generation
 serving in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
 (sm_90a): ``search`` (the hybrid ``SearchService``: device vector search,
-BM25, RRF fusion, rerank, MMR, over a ``storage.MemoryEngine``),
+BM25, RRF fusion, rerank, MMR, over a storage engine), ``storage`` (the
+durable chain ``open_storage`` assembles: write-behind over a WAL over an
+in-memory engine, the native segment store, namespaces, and the CSR
+adjacency snapshot that feeds the graph offloads) and ``multidb``,
 ``serving`` (``ServingEngine`` over ``embed.DeviceEmbedder``, the bge-m3
 encoder of ``models``),
 ``genserve`` (``GenerationEngine`` over the Qwen2 decoder of ``models``, and

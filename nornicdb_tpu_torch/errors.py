@@ -13,8 +13,29 @@ class NotFoundError(NornicError):
 
 
 class AlreadyExistsError(NornicError):
-    """Entity with this id already exists (``MemoryEngine.create_node`` /
-    ``create_edge``)."""
+    """Entity already exists (duplicate id, unique-constraint violation)."""
+
+
+class ConstraintViolationError(NornicError):
+    """Schema constraint violated."""
+
+
+class WALCorruptionError(NornicError):
+    """WAL record failed CRC / magic validation."""
+
+
+class DurabilityError(NornicError):
+    """A WAL append could not be made durable (write/fsync failure, torn
+    tail, ENOSPC).  The write was NOT acked and the log tail was repaired
+    back to its last good record, so the WAL stays replayable.  Protocol
+    layers surface this as a transient, retryable storage error; clients
+    back off and retry.  Raised by ``WAL.append`` — real disk errors and
+    the deterministic injector in ``storage/faults.py`` take the same
+    path."""
+
+    def __init__(self, message: str, kind: str = "io"):
+        super().__init__(message)
+        self.kind = kind  # enospc | io | fsync | wal_disabled
 
 
 class ResourceExhausted(NornicError):

@@ -46,9 +46,9 @@ class Graph:
 
 
 def build_graph(storage: Engine, edge_types: Optional[list[str]] = None) -> Graph:
-    # A CSR adjacency snapshot attached to this engine (the JAX package's
-    # storage/adjacency.py) serves the projection from resident arrays,
-    # generation-cached; no port engine carries one yet.
+    # A CSR adjacency snapshot attached to this engine (storage/adjacency.py)
+    # serves the projection from resident arrays — generation-cached, no
+    # `all_edges()` rescan after its first build.
     snap = getattr(storage, "_adjacency_snapshot", None)
     if snap is not None and snap.ensure():
         return snap.graph_view(edge_types)

@@ -1,17 +1,18 @@
-"""Core graph storage types of the port: copies of what the search service,
-GraphRAG and their tests use from ``nornicdb_tpu/storage/types.py``.
+"""Core graph storage types of the port, counterpart of
+``nornicdb_tpu/storage/types.py`` (the port imports nothing of the JAX
+package, so it keeps its own copy).
 
-``Node`` and ``Edge`` keep the reference's names and defaults for the
-fields the port reads (a recall's touch bumps ``access_count`` and
-``last_accessed``); decay, memory tiers, named and chunk embeddings,
-inference provenance and the dict (de)serialisation are left to the
-engines and subsystems that read them. ``MemoryEngine`` keeps node and
-edge CRUD, ``all_nodes``, the adjacency reads and the synchronous storage
-events (``node_created`` / ``node_updated`` / ``node_deleted`` and their
-edge kinds) that ``SearchService.attach`` subscribes to. Label indexes,
-the pending-embed index and the no-copy fast paths are not ported.
+Behavioral reference: the upstream NornicDB pkg/storage/types.go
+  - Node / Edge shapes: types.go:185-346 (DecayScore, AccessCount,
+    NamedEmbeddings map[string][]float32, ChunkEmbeddings)
+  - Engine interface:   types.go:355-414
 
-Pure Python and numpy: no device work happens here.
+Embeddings are numpy float32 arrays on the host; the copy the card
+searches lives in the search service's ``DeviceCorpus``, fed through the
+engine's events. ``to_dict`` serialises through ``np.asarray``, so a CUDA
+tensor raises at the chain's door instead of being copied to the host.
+Events are synchronous callbacks; the async write-behind layer is a
+separate decorator engine. Pure Python and numpy: no device work here.
 """
 
 from __future__ import annotations
@@ -21,13 +22,18 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 
 from nornicdb_tpu_torch.errors import AlreadyExistsError, NotFoundError
 
 log = logging.getLogger(__name__)
+
+# Memory type tiers driving decay half-lives (ref: pkg/decay/decay.go:80-125).
+EPISODIC = "episodic"
+SEMANTIC = "semantic"
+PROCEDURAL = "procedural"
 
 
 def new_id() -> str:
@@ -40,13 +46,19 @@ def _now() -> float:
 
 @dataclass
 class Node:
-    """A graph node."""
+    """A graph node (ref: pkg/storage/types.go:185)."""
 
     id: str = field(default_factory=new_id)
     labels: list[str] = field(default_factory=list)
     properties: dict[str, Any] = field(default_factory=dict)
     embedding: Optional[np.ndarray] = None
+    # Multiple named vector spaces per node (ref: NamedEmbeddings types.go:196).
+    named_embeddings: dict[str, np.ndarray] = field(default_factory=dict)
+    # Per-chunk embeddings for long documents (ref: ChunkEmbeddings types.go:197).
+    chunk_embeddings: list[np.ndarray] = field(default_factory=list)
+    decay_score: float = 1.0
     access_count: int = 0
+    memory_type: str = SEMANTIC
     created_at: float = field(default_factory=_now)
     updated_at: float = field(default_factory=_now)
     last_accessed: float = field(default_factory=_now)
@@ -57,22 +69,77 @@ class Node:
             labels=list(self.labels),
             properties=dict(self.properties),
             embedding=None if self.embedding is None else np.array(self.embedding),
+            named_embeddings={k: np.array(v) for k, v in self.named_embeddings.items()},
+            chunk_embeddings=[np.array(v) for v in self.chunk_embeddings],
+            decay_score=self.decay_score,
             access_count=self.access_count,
+            memory_type=self.memory_type,
             created_at=self.created_at,
             updated_at=self.updated_at,
             last_accessed=self.last_accessed,
         )
 
+    def to_dict(self) -> dict[str, Any]:
+        d: dict[str, Any] = {
+            "id": self.id,
+            "labels": list(self.labels),
+            "properties": dict(self.properties),
+            "decay_score": self.decay_score,
+            "access_count": self.access_count,
+            "memory_type": self.memory_type,
+            "created_at": self.created_at,
+            "updated_at": self.updated_at,
+            "last_accessed": self.last_accessed,
+        }
+        if self.embedding is not None:
+            d["embedding"] = np.asarray(self.embedding, dtype=np.float32).tolist()
+        if self.named_embeddings:
+            d["named_embeddings"] = {
+                k: np.asarray(v, dtype=np.float32).tolist()
+                for k, v in self.named_embeddings.items()
+            }
+        if self.chunk_embeddings:
+            d["chunk_embeddings"] = [
+                np.asarray(v, dtype=np.float32).tolist() for v in self.chunk_embeddings
+            ]
+        return d
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "Node":
+        n = Node(
+            id=d["id"],
+            labels=list(d.get("labels", [])),
+            properties=dict(d.get("properties", {})),
+            decay_score=d.get("decay_score", 1.0),
+            access_count=d.get("access_count", 0),
+            memory_type=d.get("memory_type", SEMANTIC),
+            created_at=d.get("created_at", _now()),
+            updated_at=d.get("updated_at", _now()),
+            last_accessed=d.get("last_accessed", _now()),
+        )
+        if d.get("embedding") is not None:
+            n.embedding = np.asarray(d["embedding"], dtype=np.float32)
+        for k, v in (d.get("named_embeddings") or {}).items():
+            n.named_embeddings[k] = np.asarray(v, dtype=np.float32)
+        for v in d.get("chunk_embeddings") or []:
+            n.chunk_embeddings.append(np.asarray(v, dtype=np.float32))
+        return n
+
 
 @dataclass
 class Edge:
-    """A directed, typed relationship."""
+    """A directed, typed relationship (ref: pkg/storage/types.go:298)."""
 
     id: str = field(default_factory=new_id)
     start_node: str = ""
     end_node: str = ""
     type: str = "RELATED_TO"
     properties: dict[str, Any] = field(default_factory=dict)
+    # Auto-TLP provenance (ref: inference edges carry confidence + AutoGenerated).
+    confidence: float = 1.0
+    auto_generated: bool = False
+    decay_score: float = 1.0
+    access_count: int = 0
     created_at: float = field(default_factory=_now)
     updated_at: float = field(default_factory=_now)
 
@@ -83,12 +150,48 @@ class Edge:
             end_node=self.end_node,
             type=self.type,
             properties=dict(self.properties),
+            confidence=self.confidence,
+            auto_generated=self.auto_generated,
+            decay_score=self.decay_score,
+            access_count=self.access_count,
             created_at=self.created_at,
             updated_at=self.updated_at,
         )
 
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "id": self.id,
+            "start_node": self.start_node,
+            "end_node": self.end_node,
+            "type": self.type,
+            "properties": dict(self.properties),
+            "confidence": self.confidence,
+            "auto_generated": self.auto_generated,
+            "decay_score": self.decay_score,
+            "access_count": self.access_count,
+            "created_at": self.created_at,
+            "updated_at": self.updated_at,
+        }
 
-# event kinds fired by engines (search indexing subscribes to the node kinds)
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "Edge":
+        return Edge(
+            id=d["id"],
+            start_node=d.get("start_node", ""),
+            end_node=d.get("end_node", ""),
+            type=d.get("type", "RELATED_TO"),
+            properties=dict(d.get("properties", {})),
+            confidence=d.get("confidence", 1.0),
+            auto_generated=d.get("auto_generated", False),
+            decay_score=d.get("decay_score", 1.0),
+            access_count=d.get("access_count", 0),
+            created_at=d.get("created_at", _now()),
+            updated_at=d.get("updated_at", _now()),
+        )
+
+
+# Event kinds fired by engines (ref: BadgerEngine.notifyNodeCreated badger.go:162,
+# wired to search indexing in pkg/nornicdb/db.go:1020-1033).
 NODE_CREATED = "node_created"
 NODE_UPDATED = "node_updated"
 NODE_DELETED = "node_deleted"
@@ -111,7 +214,8 @@ class EventEmitter:
             self._callbacks.append(cb)
 
     def off_event(self, cb: EventCallback) -> None:
-        """Unsubscribe (anything shorter-lived than the engine)."""
+        """Unsubscribe (needed by anything shorter-lived than the engine,
+        e.g. a WorkerPool whose generation file closes on stop)."""
         with self._events_lock:
             try:
                 self._callbacks.remove(cb)
@@ -124,19 +228,28 @@ class EventEmitter:
         for cb in cbs:
             try:
                 cb(kind, entity)
-            except Exception:  # noqa: BLE001 - a listener must not break the
-                # write path, but a crashing index updater corrupts its own
-                # view, so operators must see it
+            except Exception:
+                # listeners must not break the write path, but a crashing
+                # listener (index updater, cache invalidator, replicator)
+                # is corrupting its own view — operators must see it
                 log.warning("storage event listener failed on %s", kind,
                             exc_info=True)
 
 
 class Engine(EventEmitter):
-    """Abstract storage engine: the part of the reference's interface that
-    the port uses.
+    """Abstract storage engine (ref: storage.Engine pkg/storage/types.go:355-414).
 
-    OWNERSHIP CONTRACT: every Node/Edge returned by a read or write method is
-    a caller-owned fresh copy, never an object the engine retains."""
+    Concrete engines: MemoryEngine, LogEngine (durable), and the decorator
+    chain AsyncEngine -> WALEngine -> base, plus NamespacedEngine for multi-DB.
+
+    OWNERSHIP CONTRACT: every Node/Edge RETURNED by a read or write method
+    is a caller-owned fresh copy — never an interned/cached object the
+    engine retains. Decorators rely on this to mutate return values in
+    place (NamespacedEngine re-ids them without re-copying), and callers
+    rely on it to mutate results without corrupting the store (pinned by
+    test_storage_unit_depth's deep-copy tests on every engine). An engine
+    that hands out retained objects breaks both.
+    """
 
     # -- nodes -------------------------------------------------------------
     def create_node(self, node: Node) -> Node:
@@ -151,8 +264,23 @@ class Engine(EventEmitter):
     def delete_node(self, node_id: str) -> None:
         raise NotImplementedError
 
+    def get_nodes_by_label(self, label: str) -> list[Node]:
+        raise NotImplementedError
+
     def all_nodes(self) -> Iterator[Node]:
         raise NotImplementedError
+
+    def batch_get_nodes(self, ids: Iterable[str]) -> list[Node]:
+        out = []
+        for i in ids:
+            try:
+                out.append(self.get_node(i))
+            except NotFoundError:
+                pass
+        return out
+
+    def batch_create_nodes(self, nodes: Iterable[Node]) -> list[Node]:
+        return [self.create_node(n) for n in nodes]
 
     # -- edges -------------------------------------------------------------
     def create_edge(self, edge: Edge) -> Edge:
@@ -167,6 +295,9 @@ class Engine(EventEmitter):
     def delete_edge(self, edge_id: str) -> None:
         raise NotImplementedError
 
+    def get_edges_by_type(self, edge_type: str) -> list[Edge]:
+        raise NotImplementedError
+
     def get_outgoing_edges(self, node_id: str) -> list[Edge]:
         raise NotImplementedError
 
@@ -176,25 +307,62 @@ class Engine(EventEmitter):
     def all_edges(self) -> Iterator[Edge]:
         raise NotImplementedError
 
-    # -- counts ------------------------------------------------------------
+    def batch_create_edges(self, edges: Iterable[Edge]) -> list[Edge]:
+        return [self.create_edge(e) for e in edges]
+
+    # -- degree / counts ---------------------------------------------------
+    def degree(self, node_id: str, direction: str = "both") -> int:
+        n = 0
+        if direction in ("out", "both"):
+            n += len(self.get_outgoing_edges(node_id))
+        if direction in ("in", "both"):
+            n += len(self.get_incoming_edges(node_id))
+        return n
+
     def node_count(self) -> int:
         raise NotImplementedError
 
     def edge_count(self) -> int:
         raise NotImplementedError
 
+    def count_nodes_by_label(self, label: str) -> int:
+        return len(self.get_nodes_by_label(label))
+
+    def count_edges_by_type(self, edge_type: str) -> int:
+        return len(self.get_edges_by_type(edge_type))
+
+    # -- pending-embed index (ref: key prefix 0x07 badger.go:24) -----------
+    def mark_pending_embed(self, node_id: str) -> None:
+        raise NotImplementedError
+
+    def unmark_pending_embed(self, node_id: str) -> None:
+        raise NotImplementedError
+
+    def pending_embed_ids(self, limit: int = 0) -> list[str]:
+        raise NotImplementedError
+
+    # -- lifecycle ---------------------------------------------------------
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
 
 class MemoryEngine(Engine):
-    """In-memory engine: the default engine of the tests and of the smoke
-    run's hybrid search."""
+    """In-memory engine; the default test backend, and the recovery target for
+    WAL replay (ref: pkg/storage/memory.go; Open("") path db.go:898-913)."""
 
     def __init__(self) -> None:
         super().__init__()
         self._lock = threading.RLock()
         self._nodes: dict[str, Node] = {}
         self._edges: dict[str, Edge] = {}
+        self._by_label: dict[str, set[str]] = {}
+        self._by_type: dict[str, set[str]] = {}
         self._out: dict[str, set[str]] = {}
         self._in: dict[str, set[str]] = {}
+        self._pending_embed: dict[str, float] = {}  # id -> enqueue ts (ordered)
 
     # -- nodes -------------------------------------------------------------
     def create_node(self, node: Node) -> Node:
@@ -203,6 +371,8 @@ class MemoryEngine(Engine):
                 raise AlreadyExistsError(f"node {node.id} already exists")
             stored = node.copy()
             self._nodes[stored.id] = stored
+            for lbl in stored.labels:
+                self._by_label.setdefault(lbl, set()).add(stored.id)
         self._emit(NODE_CREATED, stored.copy())
         return stored.copy()
 
@@ -221,6 +391,10 @@ class MemoryEngine(Engine):
             stored = node.copy()
             stored.created_at = old.created_at
             stored.updated_at = _now()
+            for lbl in old.labels:
+                self._by_label.get(lbl, set()).discard(old.id)
+            for lbl in stored.labels:
+                self._by_label.setdefault(lbl, set()).add(stored.id)
             self._nodes[stored.id] = stored
         self._emit(NODE_UPDATED, stored.copy())
         return stored.copy()
@@ -230,22 +404,30 @@ class MemoryEngine(Engine):
             n = self._nodes.pop(node_id, None)
             if n is None:
                 raise NotFoundError(f"node {node_id} not found")
-            # cascade: remove attached edges
-            attached = list(self._out.get(node_id, set())
-                            | self._in.get(node_id, set()))
+            for lbl in n.labels:
+                self._by_label.get(lbl, set()).discard(node_id)
+            # cascade: remove attached edges (ref Engine.DeleteNode semantics)
+            attached = list(self._out.get(node_id, set()) | self._in.get(node_id, set()))
             removed_edges = []
             for eid in attached:
                 e = self._edges.pop(eid, None)
                 if e is None:
                     continue
+                self._by_type.get(e.type, set()).discard(eid)
                 self._out.get(e.start_node, set()).discard(eid)
                 self._in.get(e.end_node, set()).discard(eid)
                 removed_edges.append(e)
             self._out.pop(node_id, None)
             self._in.pop(node_id, None)
+            self._pending_embed.pop(node_id, None)
         for e in removed_edges:
             self._emit(EDGE_DELETED, e)
         self._emit(NODE_DELETED, n)
+
+    def get_nodes_by_label(self, label: str) -> list[Node]:
+        with self._lock:
+            ids = list(self._by_label.get(label, set()))
+            return [self._nodes[i].copy() for i in ids if i in self._nodes]
 
     def all_nodes(self) -> Iterator[Node]:
         with self._lock:
@@ -263,6 +445,7 @@ class MemoryEngine(Engine):
                 raise NotFoundError(f"end node {edge.end_node} not found")
             stored = edge.copy()
             self._edges[stored.id] = stored
+            self._by_type.setdefault(stored.type, set()).add(stored.id)
             self._out.setdefault(stored.start_node, set()).add(stored.id)
             self._in.setdefault(stored.end_node, set()).add(stored.id)
         self._emit(EDGE_CREATED, stored.copy())
@@ -283,6 +466,9 @@ class MemoryEngine(Engine):
             stored = edge.copy()
             stored.created_at = old.created_at
             stored.updated_at = _now()
+            if old.type != stored.type:
+                self._by_type.get(old.type, set()).discard(old.id)
+                self._by_type.setdefault(stored.type, set()).add(stored.id)
             self._edges[stored.id] = stored
         self._emit(EDGE_UPDATED, stored.copy())
         return stored.copy()
@@ -292,9 +478,15 @@ class MemoryEngine(Engine):
             e = self._edges.pop(edge_id, None)
             if e is None:
                 raise NotFoundError(f"edge {edge_id} not found")
+            self._by_type.get(e.type, set()).discard(edge_id)
             self._out.get(e.start_node, set()).discard(edge_id)
             self._in.get(e.end_node, set()).discard(edge_id)
         self._emit(EDGE_DELETED, e)
+
+    def get_edges_by_type(self, edge_type: str) -> list[Edge]:
+        with self._lock:
+            ids = list(self._by_type.get(edge_type, set()))
+            return [self._edges[i].copy() for i in ids if i in self._edges]
 
     def get_outgoing_edges(self, node_id: str) -> list[Edge]:
         with self._lock:
@@ -305,6 +497,44 @@ class MemoryEngine(Engine):
         with self._lock:
             ids = list(self._in.get(node_id, set()))
             return [self._edges[i].copy() for i in ids if i in self._edges]
+
+    # -- no-copy reads for internal fast paths ------------------------------
+    # (ref: the Go engines hand out pointers; the Cypher traversal fastpath
+    # is dominated by defensive Edge/Node copies without these)
+    def iter_adjacency(self, node_id: str, direction: str) -> list[tuple]:
+        """(edge_id, edge_type, other_node_id) tuples, built under the lock
+        with no Edge materialization. direction: 'out' | 'in'."""
+        index = self._out if direction == "out" else self._in
+        with self._lock:
+            out = []
+            for i in index.get(node_id, ()):
+                e = self._edges.get(i)
+                if e is not None:
+                    other = e.end_node if direction == "out" else e.start_node
+                    out.append((e.id, e.type, other))
+            return out
+
+    def node_entry(self, node_id: str):
+        """The stored node WITHOUT copying — READ-ONLY by contract (updates
+        replace the stored object, so a held reference stays a consistent
+        snapshot). None when absent. Property values alias storage exactly
+        as the shallow Node.copy() already does."""
+        with self._lock:
+            return self._nodes.get(node_id)
+
+    def node_ids_by_label(self, label: str) -> list[str]:
+        """Label membership as bare ids — no Node materialization (the
+        copying get_nodes_by_label clones embeddings per node, which a
+        count or selectivity probe must never pay)."""
+        with self._lock:
+            return list(self._by_label.get(label, ()))
+
+    def all_node_ids(self) -> list[str]:
+        """Every node id with no Node materialization — the adjacency
+        snapshot's vocab build (storage/adjacency.py) must not deep-copy
+        embeddings just to learn the ids."""
+        with self._lock:
+            return list(self._nodes)
 
     def all_edges(self) -> Iterator[Edge]:
         with self._lock:
@@ -319,3 +549,26 @@ class MemoryEngine(Engine):
     def edge_count(self) -> int:
         with self._lock:
             return len(self._edges)
+
+    def count_nodes_by_label(self, label: str) -> int:
+        with self._lock:
+            return len(self._by_label.get(label, ()))
+
+    def count_edges_by_type(self, edge_type: str) -> int:
+        with self._lock:
+            return len(self._by_type.get(edge_type, ()))
+
+    # -- pending embed -----------------------------------------------------
+    def mark_pending_embed(self, node_id: str) -> None:
+        with self._lock:
+            if node_id in self._nodes:
+                self._pending_embed.setdefault(node_id, _now())
+
+    def unmark_pending_embed(self, node_id: str) -> None:
+        with self._lock:
+            self._pending_embed.pop(node_id, None)
+
+    def pending_embed_ids(self, limit: int = 0) -> list[str]:
+        with self._lock:
+            ids = sorted(self._pending_embed, key=self._pending_embed.get)
+            return ids[:limit] if limit > 0 else ids

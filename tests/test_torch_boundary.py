@@ -78,6 +78,18 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.search.tuner",
                      "nornicdb_tpu_torch.storage",
                      "nornicdb_tpu_torch.storage.types",
+                     "nornicdb_tpu_torch.storage.faults",
+                     "nornicdb_tpu_torch.storage.native",
+                     "nornicdb_tpu_torch.storage.wal",
+                     "nornicdb_tpu_torch.storage.async_engine",
+                     "nornicdb_tpu_torch.storage.namespaced",
+                     "nornicdb_tpu_torch.storage.schema",
+                     "nornicdb_tpu_torch.storage.io",
+                     "nornicdb_tpu_torch.storage.segment",
+                     "nornicdb_tpu_torch.storage.adjacency",
+                     "nornicdb_tpu_torch.encryption",
+                     "nornicdb_tpu_torch.multidb",
+                     "nornicdb_tpu_torch.multidb.manager",
                      "nornicdb_tpu_torch.convert",
                      "nornicdb_tpu_torch.config",
                      "nornicdb_tpu_torch.models",

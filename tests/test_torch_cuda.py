@@ -1022,3 +1022,100 @@ def test_profile_capture_holds_a_cuda_kernel(card):
         events = json.load(tar.extractfile(name))["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert kernels
+
+
+def test_search_over_a_reopened_wal_chain_answers_as_before(card, tmp_path,
+                                                           monkeypatch):
+    """A SearchService on the card over the durable chain, then over the
+    same directory reopened (its close-time snapshot, then a WAL replay of
+    a copy made before the close): the same row order and the same ids and
+    scores, bit for bit, through the bf16 kernel (forced at this size: the
+    service streams from 65,536 rows)."""
+    import shutil
+
+    from nornicdb_tpu_torch.ops import similarity
+    from nornicdb_tpu_torch.search import SearchConfig, SearchService
+    from nornicdb_tpu_torch.storage import Edge, Node, open_storage
+
+    monkeypatch.setattr(similarity, "STREAMING_MIN_ROWS", 1024)
+
+    rng = np.random.default_rng(21)
+    embs = _unit(rng, 3000, 96)
+    d = str(tmp_path / "db")
+    cfg = SearchConfig(write_behind=True, batching_enabled=True)
+
+    def answers(storage):
+        svc = SearchService(storage, config=cfg, device=card)
+        svc.build_indexes()
+        before = K.launch_counts()["streaming_topk_bf16"]
+        out = (list(svc.corpus()._ids),
+               [svc.vector_candidates(q, k=50) for q in embs[:40]])
+        assert K.launch_counts()["streaming_topk_bf16"] > before
+        svc.shutdown()
+        return out
+
+    st = open_storage(d)
+    for i in range(len(embs)):
+        st.create_node(Node(id=f"v{i}", properties={"content": f"doc {i}"},
+                            embedding=embs[i]))
+    for i in range(0, len(embs) - 1, 3):
+        st.create_edge(Edge(id=f"e{i}", start_node=f"v{i}",
+                            end_node=f"v{i + 1}"))
+    for i in range(0, len(embs), 10):
+        st.delete_node(f"v{i}")
+    node = st.get_node("v1")
+    node.embedding = embs[0]
+    st.update_node(node)
+    st.flush()
+    want = answers(st)
+    shutil.copytree(d, str(tmp_path / "crash"))
+    st.close()
+    for path in (d, str(tmp_path / "crash")):
+        again = open_storage(path)
+        try:
+            assert answers(again) == want, path
+        finally:
+            again.close()
+
+
+def test_pagerank_on_the_card_over_a_snapshot(card):
+    """PageRank and WCC on the card over the adjacency snapshot's
+    edge_arrays(), before and after mutations through the async chain,
+    against the CPU path over the same arrays."""
+    from nornicdb_tpu_torch.ops import graph_algos as ga
+    from nornicdb_tpu_torch.storage import (
+        Edge,
+        Node,
+        attach_snapshot,
+        open_storage,
+    )
+
+    src, dst, n = _kronecker(11, seed=3)
+    st = open_storage("")
+    try:
+        for i in range(n):
+            st.create_node(Node(id=f"g{i}"))
+        for k, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+            st.create_edge(Edge(id=f"e{k}", start_node=f"g{a}",
+                                end_node=f"g{b}"))
+        snap = attach_snapshot(st)
+        assert snap.ensure()
+        for step in range(2):
+            if step:
+                for k in range(0, len(src), 7):
+                    st.delete_edge(f"e{k}")
+                for k in range(500):
+                    st.create_edge(Edge(id=f"m{k}", start_node=f"g{k}",
+                                        end_node=f"g{(7 * k) % n}"))
+            view = snap.edge_arrays()
+            assert len(view.src) == st.edge_count()
+            got = ga.pagerank(view.src, view.dst, len(view.ids))
+            want = ga.pagerank(view.src, view.dst, len(view.ids),
+                               device="cpu")
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-9)
+            np.testing.assert_array_equal(
+                ga.connected_components(view.src, view.dst, len(view.ids)),
+                ga.connected_components(view.src, view.dst, len(view.ids),
+                                        device="cpu"))
+    finally:
+        st.close()
