@@ -9,8 +9,11 @@ adjacency snapshot that feeds the graph offloads) and ``multidb``,
 encoder of ``models``),
 ``genserve`` (``GenerationEngine`` over the Qwen2 decoder of ``models``, and
 ``GraphRAGService`` answering over search and generation) and ``heimdall``
-(the assistant's generators; ``models.pretrain.load_generator`` mounts a
-checkpoint).
+(the assistant: its generators and ``HeimdallManager``;
+``models.pretrain.load_generator`` mounts a checkpoint). ``DB`` /
+``open_db`` is the facade over all of them: ``store`` -> the embed worker
+-> the index -> auto-TLP inference (``inference``) -> ``recall``, Heimdall
+and GraphRAG, ``close`` and a reopen that recovers the chain.
 
 A port of ``nornicdb_tpu`` (JAX on a TPU), kept beside it: the module names
 mirror the JAX package's so each module's counterpart is easy to find, and
@@ -24,6 +27,8 @@ version runs in its place.
 """
 
 from nornicdb_tpu_torch._device import resolve_device
+from nornicdb_tpu_torch.db import DB, Config
+from nornicdb_tpu_torch.db import open as open_db
 from nornicdb_tpu_torch.errors import (
     ClosedError,
     DeviceUnavailable,
@@ -36,11 +41,14 @@ from nornicdb_tpu_torch.errors import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "Config",
+    "DB",
     "ClosedError",
     "DeviceUnavailable",
     "NornicError",
     "NotFoundError",
     "ResourceExhausted",
     "StudentGateError",
+    "open_db",
     "resolve_device",
 ]

@@ -1,10 +1,8 @@
 """Embedders of the port (counterpart of ``nornicdb_tpu.embed``): the bge-m3
 encoder on the card (``DeviceEmbedder``), the deterministic
-``HashEmbedder`` and the content-hash LRU ``CachedEmbedder``.
-
-``embed/queue.py`` holds ``build_embedding_text`` (which text of a node is
-embedded and indexed); its background EmbedWorker and the HTTP embedders
-are not ported yet (ROADMAP)."""
+``HashEmbedder`` and the content-hash LRU ``CachedEmbedder``; and in
+``embed/queue.py`` the background ``EmbedWorker`` the DB runs over its
+pending-embed queue. The HTTP embedders are not ported yet (ROADMAP A6)."""
 
 from nornicdb_tpu_torch.embed.base import (
     CachedEmbedder,
@@ -12,5 +10,15 @@ from nornicdb_tpu_torch.embed.base import (
     Embedder,
     HashEmbedder,
 )
+from nornicdb_tpu_torch.embed.queue import (
+    EmbedWorker,
+    EmbedWorkerConfig,
+    EmbedWorkerStats,
+    average_embeddings,
+    build_embedding_text,
+    chunk_text,
+)
 
-__all__ = ["CachedEmbedder", "DeviceEmbedder", "Embedder", "HashEmbedder"]
+__all__ = ["CachedEmbedder", "DeviceEmbedder", "Embedder", "EmbedWorker",
+           "EmbedWorkerConfig", "EmbedWorkerStats", "HashEmbedder",
+           "average_embeddings", "build_embedding_text", "chunk_text"]

@@ -1,27 +1,98 @@
-"""Heimdall's generation backends: the part of ``nornicdb_tpu/heimdall/
-manager.py`` that runs the model (``Generator``, ``_trim_prompt_ids``,
-``_cap_new_tokens``, ``QwenGenerator``, ``EngineGenerator``).
+"""Heimdall, the in-process assistant: a copy of
+``nornicdb_tpu/heimdall/manager.py``.
 
-``QwenGenerator`` is the synchronous path: one prompt at a time through
-``qwen2.generate`` (a dense per-request KV cache), and a true incremental
-decode for streaming. ``EngineGenerator`` fronts the continuous-batching
-``genserve.GenerationEngine``, as the JAX DB wires it when generation is
-enabled: chat, streaming and the QC batch become submits into the shared
-paged-KV engine.
+The generation backends run the model on the card: ``QwenGenerator`` is
+the synchronous path (one prompt at a time through ``qwen2.generate``, a
+dense per-request KV cache, and a true incremental decode for streaming);
+``EngineGenerator`` fronts the continuous-batching
+``genserve.GenerationEngine``, as ``DB`` wires it when generation is
+enabled, so chat, streaming and the QC batch become submits into the shared
+paged-KV engine (kernel #5). ``TemplateGenerator`` answers from the DB
+without a model, when no checkpoint is mounted.
 
-Not here: ``HeimdallManager`` (chat completions, action parsing, metrics),
-the ``Bifrost`` notification bus, ``TemplateGenerator`` and the model
-registry. They run no device work; they come with the DB wiring that builds
-them (ROADMAP A3).
+``HeimdallManager`` is host code: chat completions (OpenAI-shaped), the
+per-request ``PromptContext``, action parsing from the model's output and
+dispatch (``status``, ``hello``, ``query``), the ``Bifrost`` notification
+bus, the model and metrics registries and the plugin hooks. The ``query``
+action runs Cypher, which the port does not have yet (ROADMAP A5): until
+then its dispatch fails through the error path of a failing action.
+
+Behavioral reference: the upstream NornicDB pkg/heimdall/ --
+Manager.Generate (scheduler.go:178), Handler.handleChatCompletions
+(handler.go:207), action parsing from model output (tryParseAction :516),
+streaming (:561), Bifrost SSE notification bus (bifrost.go:15), model
+registry (types.go:20-37), plugin actions (plugin.go), metrics
+(metrics.go).
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+import json
+import logging
+import queue
+import re
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator, Optional
 
 import torch
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device, tree_to
+from nornicdb_tpu_torch.heimdall.context import (
+    PromptContext,
+    PromptExample,
+    estimate_tokens,
+)
+from nornicdb_tpu_torch.heimdall.registry import (
+    MODEL_REASONING,
+    EventDispatcher,
+    MetricsRegistry,
+    ModelInfo,
+    ModelRegistry,
+)
+from nornicdb_tpu_torch.telemetry.metrics import count_error as _count_error
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class HeimdallMetrics:
+    generations: int = 0
+    tokens_generated: int = 0
+    actions_executed: int = 0
+    errors: int = 0
+    total_latency: float = 0.0
+
+
+class Bifrost:
+    """Notification bus to UI subscribers (ref: bifrost.go:15 — SSE bus)."""
+
+    def __init__(self) -> None:
+        self._subs: list[queue.Queue] = []
+        self._lock = threading.Lock()
+
+    def subscribe(self) -> queue.Queue:
+        # bounded: a stalled SSE client must not grow memory without
+        # limit — broadcast's drop-on-full branch handles overflow
+        q: queue.Queue = queue.Queue(maxsize=1000)
+        with self._lock:
+            self._subs.append(q)
+        return q
+
+    def unsubscribe(self, q: queue.Queue) -> None:
+        with self._lock:
+            if q in self._subs:
+                self._subs.remove(q)
+
+    def broadcast(self, event: str, data: Any) -> None:
+        with self._lock:
+            subs = list(self._subs)
+        for q in subs:
+            try:
+                q.put_nowait({"event": event, "data": data, "ts": time.time()})
+            except queue.Full:
+                pass
 
 
 class Generator:
@@ -161,3 +232,553 @@ class EngineGenerator(Generator):
         handles = [self.engine.submit(self._ids(p), max_new_tokens=cap)
                    for p in prompts]
         return [self.tokenizer.decode(h.result()) for h in handles]
+
+
+class TemplateGenerator(Generator):
+    """Deterministic fallback when no trained weights are mounted: answers
+    from DB context using templates (keeps the assistant functional in
+    headless/test environments, like the reference's stub builds)."""
+
+    def __init__(self, db=None):
+        self.db = db
+
+    def generate(self, prompt: str, max_tokens: int = 128) -> str:
+        low = prompt.lower()
+        if self.db is not None:
+            if "how many" in low and "node" in low:
+                return f"The graph currently holds {self.db.storage.node_count()} nodes."
+            if "how many" in low and ("edge" in low or "relationship" in low):
+                return (
+                    f"The graph currently holds {self.db.storage.edge_count()} "
+                    "relationships."
+                )
+            m = re.search(r"(?:search|find|recall)\s+(?:for\s+)?(.+)", low)
+            if m:
+                results = self.db.recall(m.group(1).strip(" ?.!"), limit=3)
+                if results:
+                    lines = [f"- {r['content'][:80]}" for r in results]
+                    return "Here is what I found:\n" + "\n".join(lines)
+                return "I could not find matching memories."
+            if "status" in low or "health" in low:
+                return json.dumps(
+                    {"action": "status", "params": {}}
+                )
+        return "I am Heimdall, the NornicDB assistant. Ask me about the graph."
+
+
+ActionFn = Callable[[dict[str, Any]], Any]
+
+
+def _brief(v: Any, limit: int = 200) -> Any:
+    """Row values trimmed for chat-sized payloads — including property
+    values inside nodes/edges (a 10MB document property must not balloon
+    the chat JSON)."""
+    if isinstance(v, str) and len(v) > limit:
+        return v[:limit] + "…"
+    if hasattr(v, "id") and hasattr(v, "properties"):
+        return {
+            "id": v.id,
+            "properties": {
+                k: _brief(p, limit) for k, p in dict(v.properties).items()
+            },
+        }
+    if isinstance(v, dict):
+        return {k: _brief(x, limit) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_brief(x, limit) for x in list(v)[:20]]
+    return v
+
+
+class HeimdallManager:
+    """(ref: heimdall.Manager scheduler.go:178). The system prompt is
+    assembled per-request by PromptContext.build_final_prompt()."""
+
+    def __init__(self, generator: Generator, db=None):
+        self.generator = generator
+        self.db = db
+        self.bifrost = Bifrost()
+        self.metrics = HeimdallMetrics()
+        # named-metrics registry with Prometheus rendering
+        # (ref: pkg/heimdall/metrics.go)
+        self.metrics_registry = MetricsRegistry()
+        # model registry; the construction generator is the default
+        # reasoning model (ref: ModelInfo types.go:32, scheduler model pick)
+        self.models = ModelRegistry()
+        self.models.register(
+            ModelInfo(name="heimdall", type=MODEL_REASONING,
+                      backend=generator, loaded=True),
+            default=True,
+        )
+        # async DB-event fan-out to plugins (ref: plugin.go:1345
+        # dbEventDispatcher — bounded queue + background thread)
+        self.events = EventDispatcher()
+        self._actions: dict[str, ActionFn] = {}
+        self._action_descriptions: dict[str, str] = {}
+        # plugin-installed hooks that mutate the per-request PromptContext
+        # (ref: PrePrompt receiving *PromptContext, plugin.go)
+        self.context_hooks: list[Callable[[PromptContext], None]] = []
+        # default few-shot examples (ref: handler.go:324 example injection)
+        self.default_examples: list[PromptExample] = [
+            PromptExample("how many nodes are there?",
+                          '{"action": "query", "params": {"cypher": '
+                          '"MATCH (n) RETURN count(n)"}}'),
+            PromptExample("is the database healthy?",
+                          '{"action": "status", "params": {}}'),
+        ]
+        # a PluginHost installs itself here so chat-path actions run through
+        # the pre/post-execute hooks (incl. veto)
+        self.action_dispatcher: Optional[Callable[[dict], Any]] = None
+        # identity until a PluginHost installs pre_prompt hooks; the
+        # streaming path routes prompts through this so stream=true cannot
+        # evade plugin redaction/veto guards
+        self.pre_prompt_transform: Callable[[str], str] = lambda p: p
+        self.plugin_host = None  # set by PluginHost.__init__
+        self._lock = threading.Lock()
+        # built-in actions (ref: plugins/heimdall reference plugin actions)
+        self.register_action("status", self._action_status,
+                             "Report database health and entity counts")
+        self.register_action(
+            "hello", lambda p: {"message": "Heimdall online"},
+            "Liveness check",
+        )
+        self.register_action("query", self._action_query,
+                             "Run a Cypher query: params {cypher: string}")
+
+    # -- actions (ref: plugin.go ActionFunc) ---------------------------------
+    def register_action(
+        self, name: str, fn: ActionFn, description: str = ""
+    ) -> None:
+        with self._lock:
+            self._actions[name] = fn
+            if description:
+                self._action_descriptions[name] = description
+
+    def action_prompt(self) -> str:
+        """Registered-action catalog injected (immutably) into every
+        prompt (ref: PromptContext.ActionPrompt types.go:294)."""
+        with self._lock:
+            lines = []
+            for name in sorted(self._actions):
+                desc = self._action_descriptions.get(name, "")
+                lines.append(f"- {name}: {desc}" if desc else f"- {name}")
+        return "\n".join(lines)
+
+    def _action_status(self, params: dict) -> dict:
+        out = {"status": "ok"}
+        if self.db is not None:
+            out["nodes"] = self.db.storage.node_count()
+            out["edges"] = self.db.storage.edge_count()
+        return out
+
+    def _action_query(self, params: dict) -> dict:
+        """Cypher pass-through action, read-only (ref: heimdall.watcher.query
+        in the reference plugin + the CypherPrimer ACTION MODE examples).
+        The port has no Cypher executor yet (ROADMAP A5): a request that
+        passes the checks raises, and ``_dispatch_action`` turns that into
+        the action's ``{"error": ...}`` result, as it does for a failing
+        executor."""
+        if self.db is None:
+            return {"error": "no database attached"}
+        cypher = str(params.get("cypher", "")).strip()
+        if not cypher:
+            return {"error": "params.cypher required"}
+        raise NotImplementedError(
+            "the query action runs Cypher, which is not ported yet "
+            "(ROADMAP A5)")
+
+    @staticmethod
+    def try_parse_action(text: str) -> Optional[dict[str, Any]]:
+        """Extract a JSON action from model output (ref: tryParseAction
+        handler.go:516).
+
+        In-image generators decode through a word-level tokenizer that
+        spaces out punctuation ('{ " action " : ...'), so when the direct
+        scan finds nothing, retry with quote-adjacent whitespace collapsed —
+        interior spaces (e.g. inside a cypher string) are preserved."""
+        out = HeimdallManager._try_parse_action_exact(text)
+        if out is not None:
+            return out
+        normalized = re.sub(r'\s+"', '"', re.sub(r'"\s+', '"', text))
+        if normalized != text:
+            return HeimdallManager._try_parse_action_exact(normalized)
+        return None
+
+    @staticmethod
+    def _try_parse_action_exact(text: str) -> Optional[dict[str, Any]]:
+        marker = text.find('"action"')
+        if marker == -1:
+            return None
+        # try every opening brace before the marker, outermost first, so a
+        # nested object preceding "action" (key order is unguaranteed) still
+        # resolves to the enclosing action object
+        starts = [i for i, ch in enumerate(text[: marker + 1]) if ch == "{"]
+        for start in starts:
+            depth = 0
+            for i in range(start, len(text)):
+                if text[i] == "{":
+                    depth += 1
+                elif text[i] == "}":
+                    depth -= 1
+                    if depth == 0:
+                        if i < marker:
+                            break  # object closed before "action": not it
+                        try:
+                            obj = json.loads(text[start : i + 1])
+                        except json.JSONDecodeError:
+                            break
+                        if isinstance(obj, dict) and "action" in obj:
+                            return obj
+                        break
+        return None
+
+    # -- generation (ref: Generate scheduler.go:178) ---------------------------
+    def generate(self, prompt: str, max_tokens: int = 128,
+                 generator: Optional[Generator] = None) -> str:
+        """One generation with metric/error accounting. PluginHost wraps
+        this method to apply pre_prompt hooks — any alternate-model path
+        must also flow through here, never call a backend directly, or
+        plugin guards (redaction, veto) become evadable by picking a
+        different registered model."""
+        t0 = time.perf_counter()
+        backend = generator if generator is not None else self.generator
+        try:
+            out = backend.generate(prompt, max_tokens)
+            self.metrics.generations += 1
+            self.metrics.tokens_generated += len(out.split())
+            return out
+        except Exception:
+            self.metrics.errors += 1
+            raise
+        finally:
+            self.metrics.total_latency += time.perf_counter() - t0
+
+    def generate_many(self, prompts: list[str], max_tokens: int = 128,
+                      generator: Optional[Generator] = None) -> list[str]:
+        """Batch generation with the same guard + metric contract as
+        :meth:`generate`.  PluginHost wraps ``generate`` (not this), so
+        pre_prompt guards are applied here explicitly via
+        ``pre_prompt_transform`` — a batch path must never evade plugin
+        redaction/veto.  Backends with a serving engine overlap the whole
+        batch through continuous batching."""
+        if not prompts:
+            return []
+        t0 = time.perf_counter()
+        backend = generator if generator is not None else self.generator
+        guarded = [self.pre_prompt_transform(p) for p in prompts]
+        try:
+            outs = backend.generate_many(guarded, max_tokens)
+            self.metrics.generations += len(outs)
+            self.metrics.tokens_generated += sum(
+                len(o.split()) for o in outs)
+            return outs
+        except Exception:
+            self.metrics.errors += 1
+            raise
+        finally:
+            self.metrics.total_latency += time.perf_counter() - t0
+
+    def build_context(
+        self, messages: list[dict[str, str]]
+    ) -> PromptContext:
+        """Assemble the per-request PromptContext: immutable action
+        catalog, default examples, DB context, then plugin hooks
+        (ref: handler.go:207-340 prompt assembly + PrePrompt)."""
+        user_message = ""
+        for m in reversed(messages):
+            if m.get("role", "user") == "user":
+                user_message = m.get("content", "")
+                break
+        ctx = PromptContext(
+            user_message=user_message,
+            messages=messages,
+            action_prompt=self.action_prompt(),
+        )
+        ctx.bifrost = self.bifrost
+        ctx.examples.extend(self.default_examples)
+        if self.db is not None:
+            # DB context injection (ref: handler.go DatabaseReader):
+            # schema-level summary the model can ground answers in
+            try:
+                ctx.additional_instructions = (
+                    f"Current graph: {self.db.storage.node_count()} nodes, "
+                    f"{self.db.storage.edge_count()} relationships."
+                )
+            except Exception:
+                # context enrichment is best-effort, but a storage engine
+                # that can't count is worth surfacing
+                log.warning("heimdall DB-context injection failed",
+                            exc_info=True)
+                _count_error("heimdall.context")
+        for hook in list(self.context_hooks):
+            try:
+                hook(ctx)
+            except Exception:
+                log.warning("heimdall context hook %r failed", hook,
+                            exc_info=True)
+                _count_error("heimdall.context_hook")
+            if ctx.cancelled:
+                break
+        return ctx
+
+    def _build_prompt(self, ctx, messages: list[dict[str, str]]) -> str:
+        """One prompt assembly for streamed AND non-streamed chat — the two
+        paths must never drift in format."""
+        prompt_parts = [ctx.build_final_prompt()]
+        for m in messages:
+            prompt_parts.append(f"{m.get('role', 'user')}: {m.get('content', '')}")
+        prompt_parts.append("assistant:")
+        return "\n".join(prompt_parts)
+
+    def _dispatch_action(self, action: dict):
+        """Shared action dispatch; returns the raw result (or error dict)."""
+        if self.action_dispatcher is not None:
+            try:
+                result = self.action_dispatcher(action)
+                self.metrics.actions_executed += 1
+                return result
+            except Exception as e:  # noqa: BLE001 — surfaced to the client
+                return {"error": str(e)}
+        fn = self._actions.get(str(action.get("action")))
+        if fn is None:
+            return None
+        try:
+            result = fn(action.get("params") or {})
+            self.metrics.actions_executed += 1
+            return result
+        except Exception as e:  # noqa: BLE001
+            return {"error": str(e)}
+
+    def chat(
+        self,
+        messages: list[dict[str, str]],
+        max_tokens: int = 128,
+        model: Optional[str] = None,
+        temperature: Optional[float] = None,
+    ) -> dict:
+        """OpenAI-compatible chat completion (ref: handleChatCompletions
+        handler.go:207) + action execution."""
+        ctx = self.build_context(messages)
+        if ctx.cancelled:
+            # a PrePrompt hook aborted the request (ref: Cancel types.go:343)
+            self.metrics_registry.inc("requests_cancelled")
+            return {
+                "id": f"chatcmpl-{ctx.request_id}",
+                "object": "chat.completion",
+                "model": model or "heimdall",
+                "choices": [{
+                    "index": 0,
+                    "message": {
+                        "role": "assistant",
+                        "content": f"Request cancelled: {ctx.cancel_reason}",
+                    },
+                    "finish_reason": "cancelled",
+                }],
+                "cancelled_by": ctx.cancelled_by,
+            }
+        prompt = self._build_prompt(ctx, messages)
+        # model selection through the registry (ref: ChatRequest.Model)
+        generator = self.generator
+        if model and model not in ("heimdall", ""):
+            info = self.models.get(model)
+            if info is None:
+                return {"error": {
+                    "message": f"model {model!r} not found",
+                    "type": "invalid_request_error",
+                }}
+            generator = self.models.acquire(model)
+            if generator is None:
+                return {"error": {
+                    "message": f"model {model!r} has no loaded backend",
+                    "type": "invalid_request_error",
+                }}
+        else:
+            self.models.acquire("heimdall")
+        text = self._generate_with(generator, prompt, max_tokens)
+        prompt_toks = estimate_tokens(prompt)
+        completion_toks = estimate_tokens(text)
+        self.metrics_registry.inc("chat_requests")
+        self.metrics_registry.inc("prompt_tokens", prompt_toks)
+        self.metrics_registry.inc("completion_tokens", completion_toks)
+        action_result = None
+        action = self.try_parse_action(text)
+        if action is not None:
+            action_result = self._dispatch_action(action)
+        self.bifrost.broadcast("chat", {"content": text[:200]})
+        response = {
+            "id": f"chatcmpl-{ctx.request_id}",
+            "object": "chat.completion",
+            "model": model or "heimdall",
+            "created": int(ctx.request_time),
+            "choices": [
+                {
+                    "index": 0,
+                    "message": {"role": "assistant", "content": text},
+                    "finish_reason": "stop",
+                }
+            ],
+            # (ref: ChatUsage types.go:80)
+            "usage": {
+                "prompt_tokens": prompt_toks,
+                "completion_tokens": completion_toks,
+                "total_tokens": prompt_toks + completion_toks,
+            },
+        }
+        notes = ctx.drain_notifications()
+        if notes:
+            response["notifications"] = [vars(n) for n in notes]
+        if action_result is not None:
+            response["action_result"] = action_result
+        return response
+
+    def _generate_with(self, generator, prompt: str, max_tokens: int) -> str:
+        """Dispatch through self.generate so the PluginHost wrapper (and
+        its pre_prompt hooks) applies to every backend."""
+        if generator is self.generator:
+            return self.generate(prompt, max_tokens)
+        return self.generate(prompt, max_tokens, generator=generator)
+
+    def chat_stream(self, messages: list[dict[str, str]],
+                    max_tokens: int = 128, model: Optional[str] = None,
+                    ) -> Iterator[dict]:
+        """Streaming chunks (ref: streaming handler.go:561; queued
+        notifications are flushed ahead of content chunks to preserve
+        ordering, ref: notificationQueue types.go:321-324).
+
+        Generators that implement a REAL generate_stream (the Qwen decode
+        loop) stream token deltas as produced; the accumulated text is
+        action-sniffed at the end like the reference's buffered streaming
+        handler. Template/backoff generators fall back to word-chunking
+        the full response."""
+        generator = self.generator
+        if model and model not in ("heimdall", ""):
+            try:
+                maybe = self.models.acquire(model)
+                msg = f"model {model!r} has no loaded backend"
+            except KeyError:
+                maybe = None
+                msg = f"model {model!r} not found"
+            if maybe is None:
+                # unknown or unloaded model: same error contract as chat(),
+                # never a silent fallback to the default backend
+                yield {
+                    "object": "chat.completion.chunk",
+                    "choices": [],
+                    "error": {"message": msg,
+                              "type": "invalid_request_error"},
+                }
+                return
+            generator = maybe
+        else:
+            self.models.acquire("heimdall")  # last_used bookkeeping
+        streams_natively = (
+            type(generator).generate_stream is not Generator.generate_stream
+        )
+        if streams_natively:
+            yield from self._chat_stream_native(
+                generator, messages, max_tokens, model)
+            return
+        try:
+            full = self.chat(messages, max_tokens, model=model)
+        except Exception as e:  # noqa: BLE001 — SSE headers already sent:
+            # the client must get a terminal error event, matching the
+            # native path's contract
+            self.metrics.errors += 1
+            yield {"object": "chat.completion.chunk", "choices": [],
+                   "error": {"message": str(e)}}
+            yield {"object": "chat.completion.chunk",
+                   "choices": [{"index": 0, "delta": {},
+                                "finish_reason": "error"}]}
+            return
+        if "choices" not in full:
+            # error response (unknown model etc.): one error event, done
+            yield {
+                "object": "chat.completion.chunk",
+                "choices": [],
+                "error": full.get("error",
+                                  {"message": "generation failed"}),
+            }
+            return
+        for note in full.pop("notifications", []):
+            yield {
+                "object": "chat.completion.chunk",
+                "choices": [],
+                "notification": note,
+            }
+        content = full["choices"][0]["message"]["content"]
+        words = content.split(" ")
+        for i, w in enumerate(words):
+            yield {
+                "object": "chat.completion.chunk",
+                "choices": [
+                    {
+                        "index": 0,
+                        "delta": {"content": w + (" " if i < len(words) - 1 else "")},
+                        "finish_reason": None,
+                    }
+                ],
+            }
+        yield {
+            "object": "chat.completion.chunk",
+            "choices": [{"index": 0, "delta": {}, "finish_reason": "stop"}],
+        }
+
+    def _chat_stream_native(self, generator, messages, max_tokens, model
+                            ) -> Iterator[dict]:
+        ctx = self.build_context(messages)
+        if ctx.cancelled:
+            self.metrics_registry.inc("requests_cancelled")
+            yield {
+                "object": "chat.completion.chunk",
+                "choices": [],
+                "error": {"message": f"Request cancelled: {ctx.cancel_reason}"},
+            }
+            yield {"object": "chat.completion.chunk",
+                   "choices": [{"index": 0, "delta": {},
+                                "finish_reason": "cancelled"}]}
+            return
+        for note in [vars(n) for n in ctx.drain_notifications()]:
+            yield {"object": "chat.completion.chunk", "choices": [],
+                   "notification": note}
+        # plugin guards (redaction, veto) apply to streamed prompts too
+        prompt = self.pre_prompt_transform(
+            self._build_prompt(ctx, messages))
+        pieces: list[str] = []
+        t0 = time.perf_counter()
+        try:
+            for delta in generator.generate_stream(prompt, max_tokens):
+                pieces.append(delta)
+                yield {
+                    "object": "chat.completion.chunk",
+                    "choices": [{"index": 0, "delta": {"content": delta},
+                                 "finish_reason": None}],
+                }
+        except Exception as e:  # noqa: BLE001 — headers are already sent;
+            # the client must see a terminal error event, not a cut stream
+            self.metrics.errors += 1
+            yield {"object": "chat.completion.chunk", "choices": [],
+                   "error": {"message": str(e)}}
+            yield {"object": "chat.completion.chunk",
+                   "choices": [{"index": 0, "delta": {},
+                                "finish_reason": "error"}]}
+            return
+        text = "".join(pieces)
+        self.metrics.generations += 1
+        # same unit as generate() (word count) so the counter stays summable
+        self.metrics.tokens_generated += len(text.split())
+        self.metrics.total_latency += time.perf_counter() - t0
+        self.metrics_registry.inc("chat_requests")
+        self.metrics_registry.inc("prompt_tokens", estimate_tokens(prompt))
+        self.metrics_registry.inc("completion_tokens", estimate_tokens(text))
+        self.bifrost.broadcast("chat", {"content": text[:200]})
+        # buffered action sniff over the COMPLETE text, like the reference's
+        # streaming handler (tryParseAction handler.go:516)
+        action = self.try_parse_action(text)
+        if action is not None:
+            result = self._dispatch_action(action)
+            if result is not None:
+                yield {"object": "chat.completion.chunk", "choices": [],
+                       "action_result": _brief(result, 2000)}
+        yield {
+            "object": "chat.completion.chunk",
+            "choices": [{"index": 0, "delta": {}, "finish_reason": "stop"}],
+        }

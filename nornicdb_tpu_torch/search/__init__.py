@@ -15,6 +15,8 @@ from nornicdb_tpu_torch.search.service import (
     SearchConfig,
     SearchService,
     SearchStats,
+    configure_defaults,
+    default_search_config,
 )
 from nornicdb_tpu_torch.search.tuner import IVFTuner, TuneState
 
@@ -30,6 +32,8 @@ __all__ = [
     "SearchStats",
     "TuneState",
     "adaptive_rrf_weights",
+    "configure_defaults",
+    "default_search_config",
     "apply_mmr",
     "fuse_rrf",
 ]

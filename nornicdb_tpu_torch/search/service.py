@@ -22,26 +22,35 @@ Telemetry as in the JAX package: the ``search.rank``, ``search.embed`` and
 (unbatched) ``search.vector`` spans, the device-time histogram of unbatched
 dispatches, and the tuner's outcome counter and plan gauges.
 
+Configuration is layered as in the JAX package: an explicit
+``SearchService(config=...)`` > ``configure_defaults`` > the
+``NORNICDB_SEARCH_<FIELD>`` environment > the dataclass defaults
+(``default_search_config``). With a ``vectorspaces`` registry the service
+registers its ``default`` space when the vector index is created.
+
 Not ported (ROADMAP): shard promotion and ``backend="sharded"`` (with them
 the sharded IVF layout, the tuner's ``local_k`` and the ``nornicdb_shard_*``
-families), ``graph_masked_scores`` (with the backend manager), env-layered
-config defaults, and the vector-space registry.
+families; a non-default value of their config fields is refused, as
+``backend="sharded"`` is) and ``graph_masked_scores`` (with the backend
+manager).
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import threading
 import time
 import weakref
 from collections import OrderedDict
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, fields
 from typing import Any, Optional
 
 import numpy as np
 
 from nornicdb_tpu_torch._device import DeviceLike, resolve_device
+from nornicdb_tpu_torch.config import _coerce_env
 from nornicdb_tpu_torch.embed.base import Embedder
 from nornicdb_tpu_torch.embed.queue import build_embedding_text
 from nornicdb_tpu_torch.errors import NotFoundError
@@ -92,12 +101,16 @@ class SearchStats:
 
 # backends the port serves; "sharded" (the JAX mesh corpus) is ROADMAP A7
 BACKENDS = ("auto", "tpu", "hnsw")
+# SearchConfig fields only the sharded corpus reads (ROADMAP A7)
+SHARDED_FIELDS = ("sharded_min_rows", "local_k", "int8_residency",
+                  "rescore_factor")
 
 
 @dataclass
 class SearchConfig:
-    """The JAX package's SearchConfig fields that the ported paths use, with
-    the same names and defaults."""
+    """The JAX package's SearchConfig: the same fields, names and defaults.
+    ``SHARDED_FIELDS`` belong to the sharded corpus (ROADMAP A7): a
+    service refuses any value of theirs but the default."""
 
     min_similarity: float = 0.0
     rrf_k: float = 60.0
@@ -107,9 +120,13 @@ class SearchConfig:
     # "auto" | "tpu": the device corpus on the service's device (the JAX
     # config's name for it is kept); "hnsw": the host HNSW index
     backend: str = "auto"
+    # the sharded corpus's promotion threshold (ROADMAP A7)
+    sharded_min_rows: int = 100_000
     # exact=True full-sorts (recall 1.0, slower); the default membership
     # honors the ~0.95 recall contract
     exact: bool = False
+    # per-shard candidate count of the sharded merge (ROADMAP A7)
+    local_k: int = 0
     # cross-encoder second stage, gated like the reference's feature flag
     rerank_enabled: bool = False
     rerank_candidates: int = 20
@@ -141,6 +158,10 @@ class SearchConfig:
     # this many live rows the Lloyd fit runs on a uniform sample and the
     # full set is assigned in chunks. 0 = always fit everything.
     cluster_fit_sample: int = 262_144
+    # int8 residency and its exact rescore, of the sharded corpus
+    # (ROADMAP A7)
+    int8_residency: bool = False
+    rescore_factor: int = 4
     # write-behind device sync: a background thread coalesces dirty corpus
     # blocks and patches them between queries, so a query after a write
     # burst waits for a bounded patch instead of staging the whole burst
@@ -148,13 +169,74 @@ class SearchConfig:
     write_behind_interval: float = 0.002
 
 
+# -- default-config layering -------------------------------------------------
+# A server installs the operator's AppConfig.search section here before any
+# SearchService exists; embedded processes can set the same knobs via
+# NORNICDB_SEARCH_<FIELD>, read once per service construction. Precedence:
+# explicit SearchService(config=...) > configure_defaults() > env >
+# dataclass defaults.
+_DEFAULTS_LOCK = threading.Lock()
+_CONFIG_DEFAULTS: dict[str, Any] = {}
+
+
+def refuse_unported(values: dict) -> None:
+    """Raise for an option only the sharded corpus reads (ROADMAP A7) set
+    to anything but its default, so that no option silently does
+    nothing."""
+    default = SearchConfig()
+    if values.get("backend") == "sharded":
+        raise ValueError(
+            'backend="sharded" (the mesh-sharded corpus) is not ported '
+            "yet (ROADMAP A7); use \"auto\" or \"hnsw\"")
+    bad = sorted(name for name in SHARDED_FIELDS
+                 if name in values
+                 and values[name] != getattr(default, name))
+    if bad:
+        raise ValueError(
+            f"SearchConfig {', '.join(f'{n}={values[n]!r}' for n in bad)}: "
+            "the sharded corpus these options tune is not ported yet "
+            "(ROADMAP A7); leave them at their defaults")
+
+
+def configure_defaults(**kwargs) -> None:
+    """Set process-wide SearchConfig defaults (unknown keys rejected, and
+    the sharded corpus's options refused: ``refuse_unported``)."""
+    known = {f.name for f in fields(SearchConfig)}
+    bad = set(kwargs) - known
+    if bad:
+        raise ValueError(f"unknown SearchConfig field(s): {sorted(bad)}")
+    refuse_unported(kwargs)
+    with _DEFAULTS_LOCK:
+        _CONFIG_DEFAULTS.update(kwargs)
+
+
+def default_search_config() -> SearchConfig:
+    """The dataclass defaults, overridden by ``NORNICDB_SEARCH_<FIELD>``
+    (coerced as ``config.load_from_env`` coerces, so a value parses the
+    same in served and embedded processes), then by
+    ``configure_defaults``."""
+    cfg = SearchConfig()
+    for f in fields(SearchConfig):
+        raw = os.environ.get(f"NORNICDB_SEARCH_{f.name.upper()}")
+        if raw is not None:
+            setattr(cfg, f.name, _coerce_env(getattr(cfg, f.name), raw))
+    with _DEFAULTS_LOCK:
+        overrides = dict(_CONFIG_DEFAULTS)
+    for name, value in overrides.items():
+        setattr(cfg, name, value)
+    return cfg
+
+
 class SearchService:
     """Hybrid search over a storage engine. ``storage`` and ``embedder`` are
     the JAX constructor's; without ``storage`` the service serves the vector
     leg only (``vector_candidates`` over ``index_node`` /
-    ``index_vectors``), and ``search`` needs one. ``device=None`` means CUDA
-    (DeviceUnavailable without a card); ``device="cpu"`` runs the kernels'
-    plain versions and the cross-encoder on the CPU."""
+    ``index_vectors``), and ``search`` needs one. ``config`` defaults to
+    ``default_search_config()``; ``brute_force_max`` is the JAX
+    constructor's (kept for parity, unused); ``vectorspaces`` is the DB's
+    registry. ``device=None`` means CUDA (DeviceUnavailable without a
+    card); ``device="cpu"`` runs the kernels' plain versions and the
+    cross-encoder on the CPU."""
 
     def __init__(
         self,
@@ -162,16 +244,17 @@ class SearchService:
         embedder: Optional[Embedder] = None,
         dims: int = 0,
         config: Optional[SearchConfig] = None,
+        brute_force_max: int = 0,
+        vectorspaces=None,
         device: DeviceLike = None,
     ):
+        del brute_force_max  # the JAX constructor's; unused there too
         self.device = resolve_device(device)
         self.storage = storage
         self.embedder = embedder
-        self.config = config or SearchConfig()
-        if self.config.backend == "sharded":
-            raise ValueError(
-                'backend="sharded" (the mesh-sharded corpus) is not ported '
-                "yet (ROADMAP A7); use \"auto\" or \"hnsw\"")
+        self.config = config or default_search_config()
+        self.vectorspaces = vectorspaces
+        refuse_unported(vars(self.config))
         if self.config.backend not in BACKENDS:
             raise ValueError(f"unknown search backend {self.config.backend!r}")
         self.stats = SearchStats()
@@ -200,7 +283,7 @@ class SearchService:
         self._rank_cache_ttl = 30.0
         # the last k-means fit (recluster)
         self.cluster_result: Optional[KMeansResult] = None
-        self.cluster_assignments: Optional[dict[str, int]] = None
+        self.cluster_assignments: dict[str, int] = {}
         # recall-governed IVF plan (n_probe + its measured-recall evidence),
         # the layout it was measured on, and the drift bookkeeping that
         # schedules background re-tunes
@@ -227,6 +310,10 @@ class SearchService:
             if self._corpus is not None or self._hnsw is not None:
                 return  # lost the creation race: drop ours
             self._dims = dims
+            if self.vectorspaces is not None:
+                from nornicdb_tpu_torch.vectorspace import VectorSpaceKey
+
+                self.vectorspaces.register(VectorSpaceKey("default", dims))
             self._corpus, self._hnsw = corpus, hnsw
             if corpus is not None and self.config.write_behind:
                 corpus.start_uploader(self.config.write_behind_interval)

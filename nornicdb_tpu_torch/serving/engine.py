@@ -9,7 +9,10 @@ Counterpart of ``nornicdb_tpu/serving/engine.py``:
   segment-masked forward per pack (``models/bge_m3.forward_packed``).
   Compute scales with real tokens, not bucket padding.
 * **Admission control.** Bounded queue (texts + tokens); a full queue
-  sheds at submit with :class:`ResourceExhausted`. Batch sizing is
+  sheds at submit with :class:`ResourceExhausted`, and so does the cost
+  model's predicted deadline, except on an idle engine (nothing queued,
+  staged or in flight), which admits the request as a probe: the JAX
+  engine sheds there too (ROADMAP §C). Batch sizing is
   queue-depth-aware: a deep queue dispatches full token budgets
   immediately, a shallow one waits ``batch_wait_ms`` for companions.
 * **Deadline shedding.** Requests carry a deadline; expired work is shed
@@ -248,11 +251,13 @@ class ServingEngine(Embedder):
                 # the queued backlog plus this request, conservatively
                 # scaled, must fit the deadline — shed at SUBMIT instead
                 # of after the queue burns device time (fails open while
-                # the cost model is cold)
+                # the cost model is cold; an idle engine probes)
                 decision = _costmodel.COST_MODEL.decide(
                     "embed", "serving", "embed", units=sum(est),
                     slack_s=cfg.deadline_ms / 1000.0,
                     units_ahead=self._queued_tokens,
+                    idle=(self._queued_texts == 0 and not self._device_busy
+                          and self._staged.empty()),
                 )
                 if not decision.admit:
                     self.stats.sheds_predicted += 1

@@ -2,8 +2,9 @@
 
 A copy of ``nornicdb_tpu/telemetry/costmodel.py`` (the port imports nothing of
 the JAX package): family names, help text, label names, span names and
-environment variables are the JAX package's, so one dashboard reads both. Only
-``_refresh_build_info`` differs: it reads the backend from torch.
+environment variables are the JAX package's, so one dashboard reads both. Two
+things differ: ``_refresh_build_info`` reads the backend from torch, and
+``decide`` takes ``idle`` (an idle backend probes instead of shedding).
 
 The deviceprof ledger (telemetry/deviceprof.py) records what every device
 dispatch *did* cost, keyed ``(subsystem, kind, shape-class)``.  This
@@ -379,7 +380,8 @@ class CostModel:
     def decide(self, route: str, subsystem: str, kind: str,
                units: Optional[int], slack_s: float,
                units_ahead: float = 0.0,
-               dispatches_ahead: float = 0.0) -> Decision:
+               dispatches_ahead: float = 0.0,
+               idle: bool = False) -> Decision:
         """Shed-at-submit verdict for one request.
 
         ``slack_s`` is the remaining deadline budget (<= 0 means no
@@ -388,10 +390,17 @@ class CostModel:
         the queue-aware term that makes overload shed *early* instead of
         after the queue has already burned the deadline.
 
+        ``idle`` says the backend has nothing queued and nothing in
+        flight: a would-be shed is then admitted as a probe, since it
+        waits behind no one and a shed would protect no one, and its
+        dispatch refreshes an estimate learned under another load (an
+        EWMA taught by a contended burst would otherwise turn away the
+        first requests to an idle engine).
+
         Decisions: ``admit`` / ``shed`` / ``fail_open`` (confidence too
         low to act on) / ``probe`` (half-open admission after
-        ``PROBE_EVERY`` consecutive sheds, keeping observations flowing
-        so an inflated EWMA can recover)."""
+        ``PROBE_EVERY`` consecutive sheds, or on an idle backend,
+        keeping observations flowing so an inflated EWMA can recover)."""
         if slack_s <= 0 or not self.predictive_admission:
             return Decision(True, "admit", 0.0, 0.0, slack_s)
         predicted_own, conf = self.predict(subsystem, kind, units)
@@ -413,11 +422,9 @@ class CostModel:
             # observations and an inflated EWMA can decay back down
             with self._lock:
                 streak = self._shed_streaks.get((subsystem, kind), 0) + 1
-                if streak >= PROBE_EVERY:
-                    self._shed_streaks[(subsystem, kind)] = 0
-                else:
-                    self._shed_streaks[(subsystem, kind)] = streak
-            if streak >= PROBE_EVERY:
+                probe = idle or streak >= PROBE_EVERY
+                self._shed_streaks[(subsystem, kind)] = 0 if probe else streak
+            if probe:
                 ADMISSIONS.labels(route, "probe").inc()
                 return Decision(True, "probe", predicted, conf, slack_s)
             ADMISSIONS.labels(route, "shed").inc()

@@ -126,7 +126,16 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.telemetry.deviceprof",
                      "nornicdb_tpu_torch.telemetry.costmodel",
                      "nornicdb_tpu_torch.serving.stats",
-                     "nornicdb_tpu_torch.genserve.stats"):
+                     "nornicdb_tpu_torch.genserve.stats",
+                     "nornicdb_tpu_torch.db",
+                     "nornicdb_tpu_torch.vectorspace",
+                     "nornicdb_tpu_torch.cache",
+                     "nornicdb_tpu_torch.inference",
+                     "nornicdb_tpu_torch.inference.engine",
+                     "nornicdb_tpu_torch.inference.integrations",
+                     "nornicdb_tpu_torch.heimdall.context",
+                     "nornicdb_tpu_torch.heimdall.registry",
+                     "nornicdb_tpu_torch.heimdall.plugins"):
             assert name in imported
 
 
@@ -208,6 +217,29 @@ class TestDevicePolicy:
         assert not (tmp_path / "out").exists()
         state = training.init_train_state(BGE_SMALL, opt, device="cpu")
         assert state.params["tok_emb"].device.type == "cpu"
+
+    def test_db_defaults_to_cuda(self, tmp_path):
+        from nornicdb_tpu_torch import DB, open_db
+
+        d = tmp_path / "db"
+        if torch.cuda.is_available():
+            db = open_db(str(d))
+            try:
+                assert db.device.type == "cuda"
+            finally:
+                db.close()
+            return
+        with pytest.raises(DeviceUnavailable, match="device='cpu'"):
+            open_db(str(d))
+        with pytest.raises(DeviceUnavailable):
+            DB(str(d))
+        # the device is resolved before the data directory is opened
+        assert not d.exists()
+        db = open_db(str(d), device="cpu")
+        try:
+            assert db.device.type == "cpu" and d.exists()
+        finally:
+            db.close()
 
     def test_cpu_only_when_named(self):
         assert resolve_device("cpu") == torch.device("cpu")

@@ -166,6 +166,24 @@ class TestDecide:
         assert model.decide("search", "search", "dense", None,
                             slack_s=0.005).decision == "shed"
 
+    def test_idle_backend_probes_a_would_be_shed(self, model):
+        """An idle backend (nothing queued or in flight) admits what the
+        model would shed, as a probe, and the streak starts again."""
+        self._warm(model, seconds=10.0)  # a contended burst's estimate
+        assert model.decide("search", "search", "dense", None,
+                            slack_s=0.005).decision == "shed"
+        d = model.decide("search", "search", "dense", None, slack_s=0.005,
+                         idle=True)
+        assert d.admit and d.decision == "probe"
+        assert d.predicted_s == pytest.approx(10.0, rel=0.01)
+        assert model._shed_streaks[("search", "dense")] == 0
+        # busy again: the same request sheds
+        assert not model.decide("search", "search", "dense", None,
+                                slack_s=0.005).admit
+        # an idle request that fits is a plain admit
+        assert model.decide("search", "search", "dense", None, slack_s=100.0,
+                            idle=True).decision == "admit"
+
     def test_predictive_admission_off_admits_everything(self, model):
         self._warm(model, seconds=10.0)
         model.configure(predictive_admission=False)

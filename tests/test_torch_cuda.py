@@ -1119,3 +1119,86 @@ def test_pagerank_on_the_card_over_a_snapshot(card):
                                         device="cpu"))
     finally:
         st.close()
+
+
+def test_learning_loop_on_the_card(card, tmp_path, monkeypatch):
+    """The DB's learning loop at a small width on the card: 256 stores
+    through ``DB.store`` beside 2,048 embedded nodes, the EmbedWorker
+    drains them, on_store's similarity lookups run the bf16 streaming
+    kernel (forced at this size: the service streams from 65,536 rows),
+    every node is found by ``recall`` of its text, and no swallowed-error
+    counter moved."""
+    from nornicdb_tpu_torch import open_db
+    from nornicdb_tpu_torch.embed import CachedEmbedder, HashEmbedder
+    from nornicdb_tpu_torch.ops import similarity
+    from nornicdb_tpu_torch.storage import Node
+    from nornicdb_tpu_torch.telemetry.metrics import REGISTRY
+
+    monkeypatch.setattr(similarity, "STREAMING_MIN_ROWS", 1024)
+
+    errors = REGISTRY._families["nornicdb_component_errors_total"]
+    watched = ("embed_queue", "inference.similarity",
+               "inference.create_edge")
+    before = {c: errors.labels(c).value for c in watched}
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(40)]
+    texts = [" ".join(rng.choice(words, 4)) + f" u{i}" for i in range(256)]
+    db = open_db(str(tmp_path / "db"))
+    try:
+        assert db.device.type == "cuda"
+        emb = CachedEmbedder(HashEmbedder(64))
+        for i in range(2048):
+            text = " ".join(rng.choice(words, 6)) + f" p{i}"
+            db.storage.create_node(Node(id=f"p{i}",
+                                        properties={"content": text},
+                                        embedding=emb.embed(text)))
+        db.set_embedder(emb)
+        k0 = K.launch_counts()["streaming_topk_bf16"]
+        nodes = [db.store(t) for t in texts]
+        deadline = time.monotonic() + 60
+        while db.storage.pending_embed_ids():
+            assert time.monotonic() < deadline, "queue did not drain"
+            time.sleep(0.05)
+        time.sleep(0.5)  # the last batch's on_embedded
+        stats = db._embed_worker.stats
+        assert (stats.processed, stats.failed, stats.retries) == (256, 0, 0)
+        assert K.launch_counts()["streaming_topk_bf16"] > k0
+        assert db.search.corpus().device.type == "cuda"
+        for n, t in zip(nodes, texts):
+            assert n.id in [r["id"] for r in db.recall(t, limit=10)], t
+        assert {c: errors.labels(c).value for c in watched} == before
+    finally:
+        db.close()
+
+
+def test_heimdall_pages_through_the_ragged_kernel(card, tmp_path,
+                                                  monkeypatch):
+    """``NORNICDB_ASSISTANT_MODEL`` mounts a tiny checkpoint on the card;
+    ``db.heimdall`` fronts it with the paged GenerationEngine, whose steps
+    run the ragged attention kernel; GraphRAG answers through it."""
+    from nornicdb_tpu_torch import open_db
+    from nornicdb_tpu_torch.embed import HashEmbedder
+    from nornicdb_tpu_torch.heimdall import EngineGenerator
+    from nornicdb_tpu_torch.models import pretrain
+
+    out = str(tmp_path / "ckpt")
+    pretrain.train_assistant(out, steps=2, batch=2, seq_len=16, hidden=64,
+                             layers=1)
+    monkeypatch.setenv("NORNICDB_ASSISTANT_MODEL", out)
+    db = open_db("")
+    try:
+        db.set_embedder(HashEmbedder(32))
+        db.store("the capital of norway is oslo", node_id="n1")
+        db.process_pending_embeddings()
+        assert isinstance(db.heimdall.generator, EngineGenerator)
+        assert db.genserve_engine().device.type == "cuda"
+        r0 = K.launch_counts()["ragged_paged_attention"]
+        reply = db.heimdall.chat([{"role": "user", "content": "hi"}],
+                                 max_tokens=8)
+        assert reply["choices"][0]["finish_reason"] == "stop"
+        assert K.launch_counts()["ragged_paged_attention"] > r0
+        ans = db.graphrag().answer("capital of norway")
+        assert ans["mode"] == "paged" and "n1" in [
+            s["id"] for s in ans["sources"]]
+    finally:
+        db.close()

@@ -519,6 +519,36 @@ class TestServingEngine:
         # deadline + 1s grace + wait granularity, not the 5s embed
         assert time.monotonic() - t0 < 4.0
 
+    def test_idle_engine_admits_past_a_stale_prediction(self):
+        """A cost model taught by a contended burst predicts a request past
+        its deadline; on an idle engine the request is admitted as a probe
+        and served, and its dispatch re-teaches the model. A busy engine
+        still sheds it at submit."""
+        from nornicdb_tpu_torch.telemetry.costmodel import COST_MODEL
+
+        COST_MODEL.reset()
+        try:
+            for _ in range(32):  # 1 s a token: any request looks late
+                COST_MODEL.observe("serving", "embed", "t8", 8.0)
+            eng = _engine(HashEmbedder(8), deadline_ms=500.0,
+                          batch_wait_ms=0.0)
+            out = eng.embed_batch(["an idle engine", "serves this"])
+            assert len(out) == 2 and eng.stats.sheds_predicted == 0
+            assert COST_MODEL.per_unit("serving", "embed") < 1.0
+            for _ in range(32):
+                COST_MODEL.observe("serving", "embed", "t8", 8.0)
+            with eng._cond:
+                eng._device_busy = True  # a dispatch in flight
+            try:
+                with pytest.raises(ResourceExhausted) as ei:
+                    eng.embed_batch(["a busy engine sheds this"])
+                assert ei.value.reason == "predicted_deadline"
+            finally:
+                with eng._cond:
+                    eng._device_busy = False
+        finally:
+            COST_MODEL.reset()
+
     def test_stop_fails_pending_fast(self):
         class NeverEmbedder(HashEmbedder):
             def embed_batch(self, texts):
