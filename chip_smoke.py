@@ -106,7 +106,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``deviceprof.capture_profile(2.0)`` while 8 threads search holds #2's
    launches (made on the batcher's thread); the tracer's ``search.embed``,
    ``search.rank`` and ``search.vector`` span p50s beside the script's.
-   10.8, the learning loop: 4,096 new texts of phase 8's mix (from
+   10.8, the learning loop: 2,048 new texts of phase 8's mix (from
    ``--seed`` + 1, none equal to a stored text) stored through
    ``db.store`` by 8 clients; the DB's EmbedWorker embeds them through
    phase 8's engine and ``_on_embedded`` feeds
@@ -115,7 +115,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    reaches ``min_evidence``). Checks: the queue drains within 300 s; the
    worker processed every node with no failure or retry; no swallowed
    error was counted (``embed_queue``, ``inference.*``); each embedding is
-   the CachedEmbedder's for its text; ``db.recall`` finds >= 0.99 of 256
+   the CachedEmbedder's for its text; ``db.recall`` finds >= 0.99 of 128
    learned texts in its top 10; every SIMILAR_TO edge joins nodes whose
    float32 cosine on the card is >= 0.85 - 1e-3, its confidence the mean
    of its observations. Logged: stores/s, embeddings/s,
@@ -129,6 +129,25 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    stored embeddings at k = 100; the directory copied while no write is in
    flight (the image a kill then leaves). The chain is closed after phase
    9 (its close-time snapshot).
+   10.9, Cypher through ``db.cypher`` on the card (the process-default
+   device owner gating every offload): 256 ``CALL
+   db.index.vector.queryNodes('default', 10, $v)`` calls from 8 clients
+   over phase 10's DB, each answer's ids and scores those of
+   ``db.search.vector_candidates`` (#2 launches, no IVF plan serves); in
+   an in-memory ``open_db("")`` on the card (synchronous storage, no
+   result cache), 131,072 ``:Item`` nodes through ``UNWIND ... CREATE``
+   (scores tied in runs of 16, exact in float32) and 32 ``ORDER BY
+   i.score DESC LIMIT 100`` queries over >= 100,352 rows each (the top-k
+   offload, ``torch.topk`` on the card), then 16,384 ``:Doc`` nodes with
+   phase 8's embeddings and 32 ``ORDER BY vector.similarity.cosine(d.emb,
+   $q) DESC LIMIT 10`` queries over >= 8,192 rows each (VectorTopK,
+   ``graph_masked_scores`` on the card), at the default thresholds: each
+   offload ``used`` once a query, never ``unavailable``, and 4 answers of
+   each shape equal to the generic engine's (columnar off); plan-cache
+   hits on the repeated shapes (``db.cypher_stats()``); Heimdall's
+   ``query`` action on phase 10's DB counting its nodes and refusing a
+   CREATE. Logged: each shape's p50 / p99 and each offload's device time
+   (the ``deviceprof`` ledger).
 9. a checkpoint and GraphRAG answers: a ``QWEN25_05B`` checkpoint directory
    (weights from ``--seed``, a ``VocabTokenizer`` over phase 8's texts and
    the prompt header) written to a temporary directory and mounted with
@@ -213,6 +232,18 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    two databases with shared ids apart (counts, search answers) and brings
    both and an alias back after a reopen. The data directories' sizes are
    logged and the directories deleted.
+15. the device owner, after phase 14: a private ``BackendManager`` over
+   ``FakeHooks("hang")`` (acquire timeout 0.5 s) and a 65,536 x 1024
+   corpus on the card. A search raises ``DeviceUnavailable`` within 1.5 s
+   (the port's one policy, "fail"; nothing answers from the host); after
+   ``set_mode("ok")`` the manager goes through RECOVERING to READY with one
+   recovery and the card answers with the ids a corpus of the same rows
+   under the process default gave. Then the card hangs again: the manager
+   degrades, a search raises at once, a row written meanwhile lands on
+   the host; after the second recovery the card answers with that row,
+   patched into the resident buffer with no whole-corpus upload. A second
+   private manager with the real hooks (CUDA init and a round trip on its
+   own stream) acquires the card and reports its name.
 13. the registry, last: the port's ``REGISTRY`` rendered and parsed
    strictly (a parser of this script's); non-zero program-ledger samples
    for search/dense, search/ivf, serving/embed and genserve/ragged, the
@@ -227,7 +258,13 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``adjacency.build`` spans; ``nornicdb_embed_retries_total`` at 0, no
    swallowed error of the embed worker, inference or the checkpoint load,
    and Heimdall's named metrics (registered by phase 9 as the JAX HTTP
-   server registers them) counting phase 9's chats.
+   server registers them) counting phase 9's chats. The process-default
+   device owner, started before phase 1 (it acquires the card on its own
+   thread and probes it every 5 s with a kernel on its own stream, policy
+   "fail"), READY one-hot, with no degrade, acquire timeout or fallback;
+   its probe count, latency p50 / max (the probe kernel's device time,
+   held under half the 1.0 s threshold) and failure reasons logged; the ``nornicdb_backend_*`` and
+   ``nornicdb_cypher_*`` families rendered.
 
 The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
 centres with 100 rows each (shuffled), so each query's true top-100 is
@@ -444,9 +481,10 @@ LINK_SCALE, LINK_LIMIT, LINK_TOL = 13, 20, 1e-5
 # the DB's similarity_threshold less SIM_TOL (the vector leg's scores are
 # exact float32 rescores)
 # (8,192 texts took the run to 1,157.6 s on an H100 against the 1,080 s it
-# must stay under; PERF.md section 4)
-LEARN_TEXTS, LEARN_CLIENTS, LEARN_DRAIN_S = 4096, 8, 300.0
-LEARN_RECALLS, LEARN_REEMBED, SIM_TOL = 256, 256, 1e-3
+# must stay under; with 10.9 and phase 15 added, 4,096 texts and 256
+# recalls took it to 1,143.5 s, so 2,048 and 128; PERF.md section 4)
+LEARN_TEXTS, LEARN_CLIENTS, LEARN_DRAIN_S = 2048, 8, 300.0
+LEARN_RECALLS, LEARN_REEMBED, SIM_TOL = 128, 256, 1e-3
 # phase 9: Heimdall chat completions from CHAT_CLIENTS clients through
 # db.heimdall (the engine over the mounted checkpoint), CHAT_TOKENS each
 CHATS, CHAT_CLIENTS, CHAT_TOKENS = 8, 8, 64
@@ -479,6 +517,19 @@ SEG_QUERIES, MDB_DOCS = 64, 512
 CHAIN_MIN_FREE = 8 << 30
 # trace ids whose spans phase 13 reads (phase 14's traced write and build)
 TRACED: dict = {}
+# 10.9, Cypher: CYPHER_VEC_QUERIES db.index.vector.queryNodes calls from
+# CYPHER_CLIENTS clients over phase 10's DB; CYPHER_ITEMS :Item nodes and
+# CYPHER_DOCS :Doc nodes (phase 8's embeddings) in an in-memory DB on the
+# card, CYPHER_SHAPE_QUERIES queries of each offload shape, CYPHER_CHECKED
+# of them held against the generic engine; CYPHER_BATCH rows an UNWIND
+CYPHER_VEC_QUERIES, CYPHER_CLIENTS = 256, 8
+CYPHER_ITEMS, CYPHER_DOCS = 131_072, 16_384
+CYPHER_SHAPE_QUERIES, CYPHER_CHECKED, CYPHER_BATCH = 32, 4, 8192
+# phase 15, the device owner: a private manager over FakeHooks, a corpus of
+# OWNER_ROWS x DIMS on the card, OWNER_QUERIES queries
+OWNER_ROWS, OWNER_QUERIES = 65_536, 16
+# the process-default device owner (started first, read by phase 13)
+OWNER: dict = {}
 
 
 def log(*a) -> None:
@@ -527,7 +578,9 @@ def graph_ms(fn, calls: int, replays: int = 6) -> float:
         fn()  # warm-up off the default stream, as capture requires
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread_local: the device owner's probe thread may copy and
+    # synchronise its own stream while this thread captures
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -5136,6 +5189,458 @@ def phase_registry() -> None:
             assert v >= CHATS if fam == "heimdall_chat_requests" else v > 0
         else:
             assert v == 0, (fam, v)
+    # the process-default device owner: READY for the whole run
+    mgr = OWNER["manager"]
+    st = mgr.stats()
+    owner = {
+        "state": {s: sample_total(fams, "nornicdb_backend_state", state=s)
+                  for s in ("PROBING", "READY", "DEGRADED_CPU",
+                            "RECOVERING")},
+        **{f: sample_total(fams, f"nornicdb_backend_{f}") for f in (
+            "degrades_total", "acquire_timeouts_total", "recoveries_total",
+            "probe_failures_total", "lock_violations_total")},
+        "fallbacks_total": {op: sample_total(
+            fams, "nornicdb_backend_fallbacks_total", op=op)
+            for op in ("search", "embed", "generate")},
+        "probe_seconds_count": sample_total(
+            fams, "nornicdb_backend_probe_seconds", "_count"),
+    }
+    cypher_fams = sorted(f for f in fams if f.startswith("nornicdb_cypher_"))
+    backend_fams = sorted(f for f in fams
+                          if f.startswith("nornicdb_backend_"))
+    log(f"[phase13] device owner: {st['state']}, {st['probes_total']} "
+        f"probes, probe latency p50 {st['probe_latency_p50_s'] * 1e3:.3f}ms "
+        f"max {st['probe_latency_max_s'] * 1e3:.3f}ms, acquired in "
+        f"{OWNER['acquire_s']:.2f}s, probe failures "
+        f"{json.dumps(st['probe_failures'])}; registry {json.dumps(owner)}; "
+        f"families {backend_fams + cypher_fams}")
+    assert st["state"] == "READY", st
+    assert owner["state"] == {"PROBING": 0.0, "READY": 1.0,
+                              "DEGRADED_CPU": 0.0, "RECOVERING": 0.0}, owner
+    for f in ("degrades_total", "acquire_timeouts_total"):
+        assert owner[f] == 0 and st[f] == 0, (f, owner[f], st[f])
+    assert set(owner["fallbacks_total"].values()) == {0.0}, owner
+    assert owner["probe_seconds_count"] > 0, owner
+    # the probe's device time stays far from the threshold that degrades
+    assert st["probe_latency_max_s"] < 0.5 * mgr.probe_latency_threshold, st
+    for fam in ("nornicdb_backend_state", "nornicdb_backend_probe_seconds",
+                "nornicdb_backend_fallbacks_total",
+                "nornicdb_cypher_offloads_total",
+                "nornicdb_cypher_plan_cache_hits_total"):
+        assert fam in fams, (fam, backend_fams + cypher_fams)
+
+
+# ---------------------------------------------------------------- 10.9
+def phase_cypher(K, db, served: dict, seed: int) -> None:
+    """Phase 10.9: Cypher through ``db.cypher`` on the card. (a) over phase
+    10's DB: CYPHER_VEC_QUERIES ``CALL db.index.vector.queryNodes`` calls
+    from CYPHER_CLIENTS clients, each answer's ids equal to
+    ``db.search.vector_candidates``; #2 launches, no IVF plan serves.
+    (b) and (c) in an in-memory DB on the card: CYPHER_ITEMS :Item nodes
+    with scores tied in runs, and ORDER BY ... LIMIT 100 over >= 100,000
+    rows a query (the top-k offload, ``torch.topk`` on the card); then
+    CYPHER_DOCS :Doc nodes with phase 8's embeddings, and ORDER BY
+    ``vector.similarity.cosine`` LIMIT 10 over >= 8,192 rows (VectorTopK,
+    ``graph_masked_scores`` on the card). Each offload is used once a
+    query at the default thresholds, never ``unavailable``, and
+    CYPHER_CHECKED answers equal the generic engine's. (d) plan-cache
+    hits; (e) Heimdall's ``query`` action on phase 10's DB. Logged: each
+    shape's p50 / p99 and the offloads' device time from ``deviceprof``.
+    The items use ``sku``, not ``id``: the columnar engine (the JAX
+    package's too) sends ``n.id`` to its generic tail, which would take
+    the query off the offload."""
+    import torch
+
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.cypher import CypherExecutor
+    from nornicdb_tpu_torch.cypher.plan import OFFLOAD_CELLS
+    from nornicdb_tpu_torch.db import Config
+    from nornicdb_tpu_torch.heimdall import Generator, HeimdallManager
+    from nornicdb_tpu_torch.telemetry import deviceprof
+
+    for var in ("NORNICDB_CYPHER_OFFLOAD_MIN_ROWS",
+                "NORNICDB_VECTOR_TOPK_MIN_ROWS",
+                "NORNICDB_VECTOR_TOPK_CUTOVER"):
+        assert var not in os.environ, ("10.9 runs at the defaults", var)
+    rng = np.random.default_rng(seed + 109)
+    retry = _Backoff()
+    device_s: dict = {"topk_offload": [], "vector_topk": []}
+
+    def observe(sub, kind, shape, seconds):
+        if sub == "cypher" and kind in device_s:
+            device_s[kind].append(seconds)
+
+    def pcts(xs) -> str:
+        ms = np.asarray(xs) * 1e3
+        return f"p50 {np.median(ms):.2f}ms p99 {np.percentile(ms, 99):.2f}ms"
+
+    deviceprof.PROFILER.add_time_observer(observe)
+    try:
+        # -- (a) queryNodes over phase 10's corpus
+        t_a = time.perf_counter()
+        embs = served["embs"]
+        rows = rng.choice(len(embs), CYPHER_VEC_QUERIES, replace=False)
+        vecs = (embs[rows] + 0.01 * rng.standard_normal(
+            (CYPHER_VEC_QUERIES, embs.shape[1]))).astype(np.float32)
+        q_a = ("CALL db.index.vector.queryNodes('default', 10, $v) "
+               "YIELD node, score RETURN node.id, score")
+        n_nodes = db.storage.node_count()
+        ivf0 = ivf_dispatches()
+        c0 = K.launch_counts()["streaming_topk_bf16"]
+        answers: list = [None] * CYPHER_VEC_QUERIES
+        lat_a: list = []
+        errors: list = []
+
+        def client(c: int) -> None:
+            try:
+                for i in range(c, CYPHER_VEC_QUERIES, CYPHER_CLIENTS):
+                    t = time.perf_counter()
+                    answers[i] = retry(db.cypher, q_a,
+                                       {"v": vecs[i].tolist()}).rows
+                    lat_a.append(time.perf_counter() - t)
+            except Exception as e:  # re-raised on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CYPHER_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        if errors:
+            raise errors[0]
+        assert not any(th.is_alive() for th in threads), "cypher client hung"
+        wall_a = time.perf_counter() - t_a
+        launches_a = K.launch_counts()["streaming_topk_bf16"] - c0
+        ivf_a = ivf_dispatches() - ivf0
+        # ids equal; scores within one step of #2's packed decode: both
+        # sides decode bins of the same corpus (tile_bits from its
+        # capacity; a biased score in [2, 4) keeps 22 - tile_bits mantissa
+        # bits), and a fused batch's product may land one bin away from a
+        # lone query's
+        from nornicdb_tpu_torch.ops.kernels import (
+            pick_tile_n,
+            streaming_geometry,
+        )
+
+        cap = db.search.corpus().capacity
+        tile_bits = streaming_geometry(cap, pick_tile_n(cap), 1)[2]
+        score_tol = 2.0 ** (tile_bits - 22)
+        score_diff = 0.0
+        for i in range(CYPHER_VEC_QUERIES):
+            want = db.search.vector_candidates(vecs[i], k=10)
+            got = answers[i]
+            assert [r[0] for r in got] == [w[0] for w in want], (
+                "queryNodes ids", i)
+            score_diff = max(score_diff, float(np.max(np.abs(
+                np.asarray([r[1] for r in got])
+                - np.asarray([w[1] for w in want])))))
+        assert score_diff <= score_tol, ("queryNodes scores", score_diff,
+                                         score_tol)
+        t_check = time.perf_counter() - t_a - wall_a
+        log(f"[phase10.9] (a) {CYPHER_VEC_QUERIES} queryNodes calls from "
+            f"{CYPHER_CLIENTS} clients over {n_nodes} nodes x "
+            f"{embs.shape[1]} in {wall_a:.2f}s: {pcts(lat_a)}; each "
+            f"answer's ids equal db.search.vector_candidates; #2 launched "
+            f"{launches_a} times, IVF-pruned searches {ivf_a:.0f}, sheds "
+            f"retried {retry.sheds}; max |score - vector_candidates'| "
+            f"{score_diff:.6g} (bound: #2's decode step {score_tol:.6g} at "
+            f"capacity {cap}, tile_bits {tile_bits}); the check "
+            f"{t_check:.2f}s")
+        assert launches_a > 0, "queryNodes missed #2"
+        assert ivf_a == 0, ("an IVF plan served queryNodes", ivf_a)
+
+        # -- (b) ORDER BY ... LIMIT over the top-k offload
+        # synchronous storage (the async chain's label scans copy every
+        # node a query) and no result cache (a repeated query would be
+        # answered from it, never reaching the offload)
+        mem = nornicdb_tpu_torch.open_db(
+            "", Config(async_writes=False, embed_enabled=False,
+                       query_cache_enabled=False))
+        try:
+            assert mem.device.type == "cuda"
+            t0 = time.perf_counter()
+            for s0 in range(0, CYPHER_ITEMS, CYPHER_BATCH):
+                batch = [{"sku": i, "score": float((i // 16) % 4096) / 8,
+                          "bucket": i % 128}
+                         for i in range(s0, min(s0 + CYPHER_BATCH,
+                                                CYPHER_ITEMS))]
+                mem.cypher("UNWIND $rows AS r CREATE (:Item {sku: r.sku, "
+                           "score: r.score, bucket: r.bucket})",
+                           {"rows": batch})
+            t_items = time.perf_counter() - t0
+            gen = CypherExecutor(mem.storage, schema=mem.schema, db=mem,
+                                 device="cuda")
+            gen.columnar.enabled = False
+            q_b = ("MATCH (i:Item) WHERE i.bucket < $b RETURN i.sku, "
+                   "i.score ORDER BY i.score DESC LIMIT 100")
+            used0 = OFFLOAD_CELLS["used"].value
+            un0 = OFFLOAD_CELLS["unavailable"].value
+            lat_b: list = []
+            checked_b, t_gen_b = 0, 0.0
+            for j in range(CYPHER_SHAPE_QUERIES):
+                b = 98 + j % 30  # >= 98 of 128 buckets: >= 100,352 rows
+                t = time.perf_counter()
+                got = mem.cypher(q_b, {"b": b}).rows
+                lat_b.append(time.perf_counter() - t)
+                assert len(got) == 100
+                if j % (CYPHER_SHAPE_QUERIES // CYPHER_CHECKED) == 0:
+                    t = time.perf_counter()
+                    assert got == gen.execute(q_b, {"b": b}).rows, (
+                        "top-k offload vs generic", b)
+                    t_gen_b += time.perf_counter() - t
+                    checked_b += 1
+            used_b = OFFLOAD_CELLS["used"].value - used0
+            un_b = OFFLOAD_CELLS["unavailable"].value - un0
+            log(f"[phase10.9] (b) {CYPHER_ITEMS} :Item nodes through "
+                f"UNWIND ... CREATE in {t_items:.2f}s; "
+                f"{CYPHER_SHAPE_QUERIES} ORDER BY i.score DESC LIMIT 100 "
+                f"over >= 100,352 rows: {pcts(lat_b)}; offloads used "
+                f"{used_b:.0f}, unavailable {un_b:.0f}; {checked_b} equal to "
+                f"the generic engine ({t_gen_b:.2f}s); the offload's device "
+                f"time "
+                f"{pcts(device_s['topk_offload'])} "
+                f"({len(device_s['topk_offload'])} calls)")
+            assert used_b == CYPHER_SHAPE_QUERIES, ("offloads used", used_b)
+            assert un_b == 0, ("offloads unavailable", un_b)
+
+            # -- (c) VectorTopK over phase 8's embeddings
+            t0 = time.perf_counter()
+            for s0 in range(0, CYPHER_DOCS, 1024):
+                batch = [{"doc": i, "topic": i % 16,
+                          "emb": embs[i].tolist()}
+                         for i in range(s0, min(s0 + 1024, CYPHER_DOCS))]
+                mem.cypher("UNWIND $rows AS r CREATE (:Doc {doc: r.doc, "
+                           "topic: r.topic, emb: r.emb})", {"rows": batch})
+            t_docs = time.perf_counter() - t0
+            q_c = ("MATCH (d:Doc) WHERE d.topic IN $t RETURN d.doc ORDER BY "
+                   "vector.similarity.cosine(d.emb, $q) DESC LIMIT 10")
+            used0 = OFFLOAD_CELLS["used"].value
+            un0 = OFFLOAD_CELLS["unavailable"].value
+            lat_c: list = []
+            checked_c, t_gen_c = 0, 0.0
+            for j in range(CYPHER_SHAPE_QUERIES):
+                topics = sorted(rng.choice(16, 8 + j % 8,
+                                           replace=False).tolist())
+                qv = embs[rng.integers(len(embs))].tolist()
+                p = {"t": topics, "q": qv}
+                t = time.perf_counter()
+                got = mem.cypher(q_c, p).rows
+                lat_c.append(time.perf_counter() - t)
+                assert len(got) == 10
+                if j % (CYPHER_SHAPE_QUERIES // CYPHER_CHECKED) == 0:
+                    t = time.perf_counter()
+                    assert got == gen.execute(q_c, p).rows, (
+                        "VectorTopK vs generic", j)
+                    t_gen_c += time.perf_counter() - t
+                    checked_c += 1
+            used_c = OFFLOAD_CELLS["used"].value - used0
+            un_c = OFFLOAD_CELLS["unavailable"].value - un0
+            log(f"[phase10.9] (c) {CYPHER_DOCS} :Doc nodes x "
+                f"{embs.shape[1]} in {t_docs:.2f}s; {CYPHER_SHAPE_QUERIES} "
+                f"ORDER BY vector.similarity.cosine LIMIT 10 over >= 8,192 "
+                f"rows: {pcts(lat_c)}; offloads used {used_c:.0f}, "
+                f"unavailable {un_c:.0f}; {checked_c} equal to the generic "
+                f"engine ({t_gen_c:.2f}s); graph_masked_scores' device time "
+                f"{pcts(device_s['vector_topk'])} "
+                f"({len(device_s['vector_topk'])} calls)")
+            assert used_c == CYPHER_SHAPE_QUERIES, ("vector used", used_c)
+            assert un_c == 0, ("vector unavailable", un_c)
+
+            # -- (d) the plan cache on the repeated shapes
+            stats_mem, stats_db = mem.cypher_stats(), db.cypher_stats()
+            log(f"[phase10.9] (d) cypher_stats: in-memory DB "
+                f"{json.dumps(stats_mem)}; phase 10's DB "
+                f"{json.dumps(stats_db)}")
+            # most repeats hit (a few concurrent first calls may each
+            # miss before one plan lands)
+            assert stats_mem["plan_cache"]["hits"] >= 0.9 * (
+                2 * CYPHER_SHAPE_QUERIES - 2), stats_mem
+            assert stats_db["plan_cache"]["hits"] >= 0.9 * (
+                CYPHER_VEC_QUERIES - 1), stats_db
+        finally:
+            mem.close()
+
+        # -- (e) Heimdall's query action on phase 10's DB
+        class Echo(Generator):
+            def __init__(self, reply: str):
+                self.reply = reply
+
+            def generate(self, prompt, max_tokens=128):
+                return self.reply
+
+        count = HeimdallManager(Echo(
+            '{"action": "query", "params": {"cypher": '
+            '"MATCH (n) RETURN count(n)"}}'), db=db).chat(
+            [{"role": "user", "content": "how many nodes?"}])
+        refused = HeimdallManager(Echo(
+            '{"action": "query", "params": {"cypher": '
+            '"CREATE (n:Intruder) RETURN n"}}'), db=db).chat(
+            [{"role": "user", "content": "add one"}])
+        log(f"[phase10.9] (e) Heimdall's query action: count "
+            f"{count['action_result']}, a CREATE "
+            f"{refused['action_result']}")
+        assert count["action_result"]["rows"] == [[
+            db.storage.node_count()]], count
+        assert "read-only" in refused["action_result"]["error"], refused
+        assert not db.storage.get_nodes_by_label("Intruder")
+    finally:
+        deviceprof.PROFILER.remove_time_observer(observe)
+
+
+# ---------------------------------------------------------------- phase 15
+def start_device_owner() -> None:
+    """The process-default device owner, started before any consumer: it
+    acquires the card on its own thread (CUDA init, a round trip) and
+    probes it every probe_interval with a kernel on its own stream, under
+    the port's one policy "fail". Every CUDA consumer of the run gates through
+    it; phase 13 reads it."""
+    from nornicdb_tpu_torch import backend
+
+    mgr = backend.manager()
+    t0 = time.perf_counter()
+    assert mgr.await_ready(120.0), ("device owner", mgr.stats())
+    OWNER["acquire_s"] = time.perf_counter() - t0
+    OWNER["manager"] = mgr
+    s = mgr.stats()
+    log(f"[owner] the process-default device owner acquired the card in "
+        f"{OWNER['acquire_s']:.2f}s: {json.dumps(s['device'])}, probe every "
+        f"{s['probe_interval_s']}s, threshold "
+        f"{mgr.probe_latency_threshold}s")
+
+
+def phase_device_owner(seed: int) -> None:
+    """Phase 15: the device owner's transitions on the card, with a
+    private manager (the process default keeps serving). A
+    ``BackendManager(hooks=FakeHooks("hang"), acquire_timeout=0.5)`` over
+    an OWNER_ROWS x DIMS corpus on the card: a search raises
+    DeviceUnavailable within 1.5 s; after ``set_mode("ok")`` the manager
+    goes through RECOVERING to READY with one recovery, and the card
+    answers with the ids a corpus of the same rows under the process
+    default gave. A second hang degrades the manager: a search raises at
+    once, and a row written meanwhile is patched into the resident buffer
+    after the second recovery (no whole-corpus upload), where the card
+    finds it. A second private manager with the real hooks acquires the
+    card and reports its name."""
+    import torch
+
+    from nornicdb_tpu_torch.backend import (
+        DEGRADED_CPU,
+        READY,
+        RECOVERING,
+        BackendManager,
+        FakeHooks,
+        RealHooks,
+    )
+    from nornicdb_tpu_torch.errors import DeviceUnavailable
+    from nornicdb_tpu_torch.ops.similarity import DeviceCorpus
+
+    rng = np.random.default_rng(seed + 15)
+    data = rng.standard_normal((OWNER_ROWS, DIMS), dtype=np.float32)
+    data /= np.linalg.norm(data, axis=1, keepdims=True)
+    ids = [f"o{i}" for i in range(OWNER_ROWS)]
+    # each query's top 10 planted at cosines 0.95, 0.91, ..., 0.59: gaps
+    # of 0.04, far above the card's bf16 scoring error, where random rows
+    # stay under ~0.15
+    qs = rng.standard_normal((OWNER_QUERIES, DIMS), dtype=np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    planted = rng.choice(OWNER_ROWS, (OWNER_QUERIES, 10), replace=False)
+    for j in range(OWNER_QUERIES):
+        for r, slot in enumerate(planted[j]):
+            c = 0.95 - 0.04 * r
+            w = data[slot] - (data[slot] @ qs[j]) * qs[j]
+            w /= np.linalg.norm(w)
+            data[slot] = c * qs[j] + np.sqrt(1 - c * c) * w
+    ref = DeviceCorpus(dims=DIMS, device="cuda")  # the process default
+    ref.add_batch(ids, data)
+    card = ref.search(qs, k=10, exact=True)
+    del ref
+    card_ids = [[i for i, _ in r] for r in card]
+    assert card_ids == [[ids[x] for x in planted[j]]
+                        for j in range(OWNER_QUERIES)], (
+        "the card's top 10 are the planted rows")
+
+    def wait(mgr, state, limit):
+        t0 = time.perf_counter()
+        while mgr.state != state and time.perf_counter() - t0 < limit:
+            time.sleep(0.005)
+        assert mgr.state == state, (state, mgr.stats())
+        return time.perf_counter() - t0
+
+    def refused(c) -> tuple[float, str]:
+        t0 = time.perf_counter()
+        try:
+            c.search(qs, k=10, exact=True)
+        except DeviceUnavailable as e:
+            return time.perf_counter() - t0, str(e)
+        raise AssertionError("a card that is not serving answered")
+
+    hooks = FakeHooks("hang")
+    mgr = BackendManager(hooks=hooks, acquire_timeout=0.5,
+                         probe_interval=0.1, probe_timeout=0.3,
+                         recover_after=2)
+    try:
+        c = DeviceCorpus(dims=DIMS, device="cuda", backend=mgr)
+        c.add_batch(ids, data)
+        t_fail, err = refused(c)
+        assert t_fail < 1.5, ("DeviceUnavailable took", t_fail)
+        wait(mgr, DEGRADED_CPU, 2)  # the acquire thread's own timeout
+        t_again, _ = refused(c)
+        assert t_again < 0.05, ("a degraded owner made a caller wait",
+                                t_again)
+        hooks.set_mode("ok")
+        t_recover = wait(mgr, READY, 10)
+        path = [t["to"] for t in mgr.stats()["transitions"]]
+        assert path[-2:] == [RECOVERING, READY], path
+        assert mgr.counters.recoveries == 1, mgr.counters
+        t0 = time.perf_counter()
+        got = c.search(qs, k=10, exact=True)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        assert [[i for i, _ in r] for r in got] == card_ids, (
+            "the card after recovery")
+        fulls = c.sync_stats.full_uploads
+        # a second hang: the probes fail, the owner degrades, and a row
+        # overwritten meanwhile (an unplanted row set to query 0 itself)
+        # lands on the host only
+        hooks.set_mode("hang")
+        t_degrade = wait(mgr, DEGRADED_CPU, 10)
+        t_refused, _ = refused(c)
+        assert t_refused < 0.05, t_refused
+        taken = set(planted.ravel().tolist())
+        spare = ids[next(i for i in range(OWNER_ROWS) if i not in taken)]
+        c.add(spare, qs[0])
+        hooks.set_mode("ok")
+        t_recover2 = wait(mgr, READY, 10)
+        assert mgr.counters.recoveries == 2, mgr.counters
+        got = c.search(qs, k=10, exact=True)
+        assert [i for i, _ in got[0]] == [spare] + card_ids[0][:9], got[0]
+        assert [[i for i, _ in r] for r in got[1:]] == card_ids[1:]
+        assert c.sync_stats.full_uploads == fulls, c.sync_stats
+        log(f"[phase15] private owner over FakeHooks('hang') and "
+            f"{OWNER_ROWS}x{DIMS} on the card: a search raised "
+            f"DeviceUnavailable in {t_fail:.3f}s ({err!r}), {t_again:.4f}s "
+            f"once degraded; set_mode('ok') -> {' -> '.join(path)} in "
+            f"{t_recover:.2f}s, recoveries 1; the card answered "
+            f"{OWNER_QUERIES} queries in {t_card:.3f}s with the reference "
+            f"ids. A second hang degraded it in {t_degrade:.2f}s (a search "
+            f"raised in {t_refused:.4f}s); a row written meanwhile was "
+            f"patched in after the recovery ({t_recover2:.2f}s, recoveries "
+            f"{mgr.counters.recoveries}, whole-corpus uploads still "
+            f"{fulls}, patches {c.sync_stats.patches}) and ranks first for "
+            f"its query; no request was served from the host")
+    finally:
+        mgr.stop()
+    real = BackendManager(hooks=RealHooks(), acquire_timeout=30.0)
+    try:
+        t0 = time.perf_counter()
+        assert real.await_ready(), real.stats()
+        info = real.stats()["device"]
+        log(f"[phase15] a second private owner with the real hooks "
+            f"acquired {json.dumps(info)} in {time.perf_counter() - t0:.2f}s")
+        assert info["name"] == torch.cuda.get_device_name(0), info
+    finally:
+        real.stop()
 
 
 def main() -> int:
@@ -5201,6 +5706,9 @@ def main() -> int:
             for line in rep.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[ptxas] {name}: {line.strip()}")
+
+    # -- the device owner, before any consumer touches the card
+    start_device_owner()
 
     # -- data
     rng = np.random.default_rng(args.seed)
@@ -5397,6 +5905,9 @@ def main() -> int:
         hybrid = phase_hybrid(K, args.seed, served)
         log(f"[phase10] {time.perf_counter() - t0:.1f}s")
         db = hybrid["db"]
+        t0 = time.perf_counter()
+        phase_cypher(K, db, served, args.seed)
+        log(f"[phase10.9] {time.perf_counter() - t0:.1f}s")
         # 14b's replay and 14c's crash children, beside phases 9 to 12
         start_children(args.seed)
         try:
@@ -5446,6 +5957,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase14] {time.perf_counter() - t0:.1f}s")
+
+    # -- phase 15: the device owner's transitions (private managers)
+    t0 = time.perf_counter()
+    phase_device_owner(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase15] {time.perf_counter() - t0:.1f}s")
 
     # -- phase 13: the registry after the whole run
     t0 = time.perf_counter()

@@ -7,9 +7,12 @@ package. Precedence: explicit args > YAML > env > defaults.
 
 ``ServingConfig`` (embedding) and ``GenServeConfig`` (generation) are the
 port's own copies with ``from_env``; they are the ``serving`` and
-``genserve`` sections of ``AppConfig``. ``BackendConfig.fallback`` is kept
-as a field, but nothing in the port reads it as "go to the CPU": the port
-never falls back to the CPU unasked.
+``genserve`` sections of ``AppConfig``. ``BackendConfig`` configures the
+port's device owner (``nornicdb_tpu_torch.backend``). Its ``fallback`` and
+``GenServeConfig.fallback`` default to ``"fail"`` where the JAX package has
+``"cpu"``, and ``"fail"`` is the only value the port takes: it never serves
+a request meant for the card from the host, and refuses a config that
+names ``"cpu"``.
 
 Behavioral reference: the upstream NornicDB pkg/config/config.go:82-420
 (Config, LoadFromFile/LoadFromEnv, FindConfigFile discovery),
@@ -127,10 +130,14 @@ class TelemetryConfig:
 
 @dataclass
 class BackendConfig:
-    """Device lifecycle knobs of the JAX package's backend manager, kept
-    for config compatibility. The port's device owner is not ported yet
-    (ROADMAP A4), so nothing reads them; in particular ``fallback`` never
-    sends work to the CPU."""
+    """Device lifecycle knobs of the port's device owner
+    (``nornicdb_tpu_torch.backend.manager``; ``backend.manager()`` layers
+    them over the environment). The fields are the JAX package's, so its
+    config files load here. ``fallback`` defaults to ``"fail"``, where the
+    JAX package has ``"cpu"``, and the manager refuses any other value. The
+    port reads no ``recovery_reupload``: a failure CUDA recovers from loses
+    no device memory, so a recovery always keeps the resident buffers and
+    patches the blocks written meanwhile (JAX's ``"dirty"``)."""
 
     # seconds a caller waits for device init + first touch
     acquire_timeout: float = 15.0
@@ -144,12 +151,10 @@ class BackendConfig:
     # consecutive green probes before DEGRADED_CPU -> RECOVERING
     degrade_after: int = 3
     recover_after: int = 2
-    # "cpu" serves degraded requests from host arrays; "fail" raises
-    # DeviceUnavailable to the caller instead (strict deployments)
-    fallback: str = "cpu"
-    # recovery re-upload: "full" re-ships the whole corpus (device memory
-    # assumed lost), "dirty" trusts a surviving resident buffer and only
-    # patches blocks written while degraded
+    # "fail" raises DeviceUnavailable to the caller; the only value the
+    # port takes (the JAX package's "cpu" is refused)
+    fallback: str = "fail"
+    # the JAX package's recovery re-upload mode; not read by the port
     recovery_reupload: str = "full"
 
 
@@ -207,8 +212,8 @@ class GenServeConfig:
 
     ``GraphRAGService`` reads ``rag_context_nodes`` and
     ``rag_max_new_tokens``; ``DB`` reads ``enabled`` (off: Heimdall keeps
-    the synchronous ``QwenGenerator``). ``fallback`` is read by nothing:
-    the engine never falls back to the CPU."""
+    the synchronous ``QwenGenerator``); the engine refuses a ``fallback``
+    other than ``"fail"``."""
 
     # master switch: off = Heimdall keeps the synchronous per-request path
     enabled: bool = True
@@ -230,9 +235,9 @@ class GenServeConfig:
     max_queue: int = 64
     # per-request deadline; expired requests are shed (0 disables)
     deadline_ms: float = 10000.0
-    # degraded backend policy of the JAX package; ignored: the port has no
-    # CPU fallback, the field is kept for config compatibility
-    fallback: str = "cpu"
+    # degraded backend policy: "fail" raises DeviceUnavailable, the only
+    # value the port takes (the JAX package's "cpu" is refused)
+    fallback: str = "fail"
     # GraphRAG answer endpoint: retrieved context nodes + decode budget
     rag_context_nodes: int = 5
     rag_max_new_tokens: int = 64

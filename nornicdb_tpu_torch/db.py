@@ -25,10 +25,18 @@ malformed file) falls back to ``TemplateGenerator``, as in the JAX
 package; DeviceUnavailable and CUDA errors propagate, so a template answer
 never hides a dead card.
 
-Not ported yet (ROADMAP): ``executor``, ``cypher``, ``session_executor``,
-``executor_for`` and ``cypher_stats`` (A5); ``decay``, ``temporal`` and
-``qdrant_registry`` (A6). ``Config.decay_enabled`` (default False) is
-refused until decay is ported.
+Cypher: ``cypher`` / ``execute_cypher`` run on ``executor``, a
+``CypherExecutor`` on the DB's device over the default database with the
+query cache as its result cache; ``executor_for`` keeps one executor per
+database (dropped by ``invalidate_database_cache``, which the
+``DatabaseManager`` calls on DROP DATABASE and limit changes) and
+``session_executor`` makes a fresh one for a session's explicit
+transactions. ``cypher_stats`` reads the columnar engine's counters
+without building an executor. APOC and GDS come with ROADMAP A5b.
+
+Not ported yet (ROADMAP A6): ``decay``, ``temporal`` and
+``qdrant_registry``. ``Config.decay_enabled`` (default False) is refused
+until decay is ported.
 
 Behavioral reference: the upstream NornicDB pkg/nornicdb/db.go (Open :750,
 DB :434, Store/Recall/Remember/Link/Neighbors/Forget :1365-1776).
@@ -104,7 +112,7 @@ class Config:
     query_cache_enabled: bool = True
     query_cache_size: int = 1000
     query_cache_ttl: float = 60.0
-    log_queries: bool = False  # read by the Cypher executor (ROADMAP A5)
+    log_queries: bool = False  # the Cypher executor logs each statement
     feature_flags: dict[str, bool] = field(default_factory=dict)
 
 
@@ -147,6 +155,8 @@ class DB:
         self._search = None
         self._inference = None
         self._dbmanager = None
+        self._executor = None
+        self._db_executors: dict[str, Any] = {}
         self._query_cache = None
         self._heimdall = None
         self._genserve = None
@@ -180,6 +190,12 @@ class DB:
             if ":" not in migrated.end_node:
                 migrated.end_node = f"{namespace}:{migrated.end_node}"
             base.create_edge(migrated)
+
+    def invalidate_database_cache(self, name: str) -> None:
+        """Drop the cached per-database executor after DROP DATABASE or a
+        limit change."""
+        with self._lock:
+            self._db_executors.pop(name, None)
 
     # -- subsystem wiring --------------------------------------------------
     def set_embedder(self, embedder) -> None:
@@ -293,8 +309,8 @@ class DB:
     @property
     def query_cache(self):
         """The query-result cache, invalidated by every storage mutation
-        (store/forget and direct writes, not just Cypher's). Its reader,
-        the Cypher executor, comes with ROADMAP A5."""
+        (store/forget and direct writes, not just Cypher's); the Cypher
+        executor reads it."""
         if self._query_cache is None:
             from nornicdb_tpu_torch.cache import QueryCache
 
@@ -332,6 +348,80 @@ class DB:
             self.storage.on_event(_on_event)
             self._query_cache = cache
         return self._query_cache
+
+    @property
+    def executor(self):
+        """The Cypher executor over the default database, on the DB's
+        device, with the query cache as its result cache. Built once under
+        the DB lock: concurrent first calls share one executor (and one
+        plan cache)."""
+        with self._lock:
+            if self._executor is None:
+                from nornicdb_tpu_torch.cypher.executor import CypherExecutor
+
+                cache = (self.query_cache if self.config.query_cache_enabled
+                         else None)
+                self._executor = CypherExecutor(
+                    self.storage, schema=self.schema, db=self, cache=cache,
+                    log_queries=self.config.log_queries, device=self.device,
+                )
+            return self._executor
+
+    def session_executor(self, database: Optional[str] = None):
+        """A FRESH executor with its own explicit-transaction scope, for
+        per-connection sessions. Shares storage, schema, facade hooks and
+        the query cache (another database's executor shares that database's
+        cached schema instead)."""
+        from nornicdb_tpu_torch.cypher.executor import CypherExecutor
+
+        if (database and self.database_manager.resolve(database)
+                != self.default_database):
+            # share the database's CACHED schema: a fresh SchemaManager per
+            # session would forget DDL of earlier requests and leak an
+            # event subscription and a full scan per session
+            base = self.executor_for(database)
+            return CypherExecutor(base.storage, schema=base.schema, db=self,
+                                  log_queries=self.config.log_queries,
+                                  device=self.device)
+        cache = self.query_cache if self.config.query_cache_enabled else None
+        return CypherExecutor(self.storage, schema=self.schema, db=self,
+                              cache=cache,
+                              log_queries=self.config.log_queries,
+                              device=self.device)
+
+    def executor_for(self, database: str):
+        """Per-database Cypher executor over the namespaced engine, cached
+        under the RESOLVED name so alias-routed executors die with their
+        target database."""
+        database = self.database_manager.resolve(database)
+        if database == self.default_database:
+            return self.executor
+        with self._lock:
+            ex = self._db_executors.get(database)
+            if ex is None:
+                from nornicdb_tpu_torch.cypher.executor import CypherExecutor
+
+                storage = self.database_manager.get_storage(database)
+                schema = SchemaManager()
+                schema.attach(storage)
+                ex = CypherExecutor(storage, schema=schema, db=self,
+                                    log_queries=self.config.log_queries,
+                                    device=self.device)
+                self._db_executors[database] = ex
+            return ex
+
+    def cypher(self, query: str, params: Optional[dict[str, Any]] = None):
+        """Execute a Cypher query (ref: ExecuteCypher db.go)."""
+        return self.executor.execute(query, params or {})
+
+    execute_cypher = cypher
+
+    def cypher_stats(self) -> Optional[dict[str, Any]]:
+        """Columnar Cypher engine counters (plan-cache hit/miss/
+        invalidations and per-outcome query counts), or None before the
+        executor exists: stats never force its construction."""
+        col = getattr(self._executor, "columnar", None)
+        return col.stats_snapshot() if col is not None else None
 
     @property
     def heimdall(self):
@@ -453,7 +543,10 @@ class DB:
             if self._dbmanager is None:
                 from nornicdb_tpu_torch.multidb import DatabaseManager
 
-                self._dbmanager = DatabaseManager(self._base_storage)
+                self._dbmanager = DatabaseManager(
+                    self._base_storage,
+                    on_invalidate=self.invalidate_database_cache,
+                )
             return self._dbmanager
 
     def _similarity_candidates(self, embedding, k: int = 10):

@@ -95,11 +95,13 @@ class DeviceEmbedder(Embedder):
     runs one token-packed grid of the serving engine in one forward.
 
     The parameters' bytes are reported as ``nornicdb_hbm_bytes
-    {component="embedder_params"}``. Not ported (ROADMAP): the backend
-    manager gate and the DEGRADED_CPU host mirror of the weights. The
-    embedder runs where its ``device`` says, and a forward that fails
-    raises; so the reference's ``cpu_fallback_batches`` counter has no
-    counterpart in ``stats``."""
+    {component="embedder_params"}``.
+
+    The device owner (``nornicdb_tpu_torch.backend``): every forward gates
+    through it first (a CUDA embedder through the process default, or an
+    injected ``backend``; a CPU embedder with none never creates one). A
+    card that is not serving raises DeviceUnavailable; the batch never
+    runs on the host instead."""
 
     _LEN_BUCKETS = (32, 64, 128, 256, 512)
 
@@ -112,8 +114,10 @@ class DeviceEmbedder(Embedder):
         seed: int = 0,
         opt_batch: int = 32,
         device: DeviceLike = None,
+        backend=None,
     ):
         self.device = resolve_device(device)
+        self._backend = backend  # injected BackendManager; None: default
         self.cfg = cfg if cfg is not None else bge_m3.BGE_SMALL
         self.params = (
             tree_to(params, self.device) if params is not None
@@ -154,6 +158,13 @@ class DeviceEmbedder(Embedder):
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _gate(self) -> None:
+        """The device owner's gate before a forward: raises
+        DeviceUnavailable when the card is not serving."""
+        from nornicdb_tpu_torch import backend as _backend
+
+        _backend.gate(self.device, self._backend)
+
     @torch.inference_mode()
     def embed_batch(self, texts: Sequence[str]) -> list[np.ndarray]:
         if not texts:
@@ -166,6 +177,7 @@ class DeviceEmbedder(Embedder):
         buckets: dict[int, list[int]] = {}
         for i, s in enumerate(seqs):
             buckets.setdefault(self._bucket_len(len(s)), []).append(i)
+        self._gate()
         out: list[Optional[np.ndarray]] = [None] * len(texts)
         pad_id = self.tokenizer.pad_id
         for blen, positions in sorted(buckets.items()):
@@ -193,6 +205,7 @@ class DeviceEmbedder(Embedder):
         single forward: segment-masked attention and per-segment CLS
         pooling, equivalent to the per-request path. Returns (S_cap, dims)
         float32; callers slice the live segments via ``packed.order``."""
+        self._gate()
         emb = bge_m3.forward_packed(
             self.params, self.cfg,
             self._tensor(packed.ids),

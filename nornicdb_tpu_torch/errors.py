@@ -1,6 +1,7 @@
 """Error types of the port: copies of the ones the search, storage,
-generation and training slices raise or catch (``nornicdb_tpu/errors.py``),
-kept here so the port imports nothing of the JAX package."""
+generation, training, device-owner and Cypher slices raise or catch
+(``nornicdb_tpu/errors.py``), kept here so the port imports nothing of the
+JAX package."""
 
 
 class NornicError(Exception):
@@ -18,6 +19,23 @@ class AlreadyExistsError(NornicError):
 
 class ConstraintViolationError(NornicError):
     """Schema constraint violated."""
+
+
+class CypherSyntaxError(NornicError):
+    """Cypher query failed to parse."""
+
+    def __init__(self, message: str, position: int = -1, line: int = -1):
+        super().__init__(message)
+        self.position = position
+        self.line = line
+
+
+class CypherTypeError(NornicError):
+    """Runtime type error during Cypher evaluation."""
+
+
+class TransactionError(NornicError):
+    """Transaction lifecycle error."""
 
 
 class WALCorruptionError(NornicError):
@@ -61,4 +79,12 @@ class StudentGateError(NornicError):
 
 class DeviceUnavailable(NornicError):
     """The accelerator is not available. The port never falls back to the
-    CPU on its own: a caller that wants the CPU passes ``device="cpu"``."""
+    CPU on its own: a caller that wants the CPU passes ``device="cpu"``,
+    and the device owner (``nornicdb_tpu_torch.backend``) raises this for a
+    card that is not serving."""
+
+
+class BackendLockHeldError(NornicError):
+    """A backend acquisition ran while the caller held a lock (the
+    deadlock shape a hung first touch makes). Detection requires an
+    instrumented-lock shim, so this raises only where one is installed."""

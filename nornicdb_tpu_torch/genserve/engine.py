@@ -37,8 +37,15 @@ admission and the deadline budget at submit; the program ledger
 "ragged", ...)`` per fused step, timed until its token ids reached the
 host); and the page pool's bytes as ``nornicdb_hbm_bytes``.
 
-Not ported (ROADMAP): the backend gate and its DEGRADED_CPU host mirror
-(the engine runs where its ``device`` says and fails a step that raises).
+The device owner (``nornicdb_tpu_torch.backend``): every scheduler step
+and the boot warmup gate through it before any device dispatch (a CUDA
+engine through the process default, or an injected ``manager``; a CPU
+engine with none never creates one). A card that is not serving raises
+DeviceUnavailable, which fails the step's requests; no step runs on the
+host instead, and a ``GenServeConfig.fallback`` other than ``"fail"`` (the
+JAX package's ``"cpu"``) is refused at construction. The pool stays
+resident across a recovery: a failure CUDA recovers from loses no device
+memory.
 
 Thread model: caller threads do admission and block on their handle; the
 single scheduler thread owns the page pool, page tables and running set, so
@@ -304,7 +311,7 @@ class GenerationEngine:
     without a card; pass ``device="cpu"`` to serve from the CPU."""
 
     def __init__(self, params, cfg, tokenizer=None, config=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, manager=None):
         if config is None:
             from nornicdb_tpu_torch.genserve import current_config
 
@@ -312,9 +319,15 @@ class GenerationEngine:
         if config.mode not in ("paged", "dense"):
             raise ValueError(f"genserve mode {config.mode!r} is neither "
                              "'paged' nor 'dense'")
+        if (config.fallback or "fail") != "fail":
+            raise ValueError(
+                f"genserve fallback {config.fallback!r} is not supported: "
+                "a card that is not serving raises DeviceUnavailable; pass "
+                "device='cpu' to serve from the CPU")
         self.device = resolve_device(device)
         self.params = qwen2.with_f32_logit_weights(
             tree_to(params, self.device))
+        self._manager = manager  # injected BackendManager; None: default
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.config = config
@@ -454,6 +467,9 @@ class GenerationEngine:
             while not handle.done and time.monotonic() < deadline:
                 time.sleep(0.01)
             return
+        # the boot check: a bounded wait on the device owner; a card that
+        # is not serving raises
+        self._gate(timeout)
         w, lmax = self._table_width, self._lmax
         pool = qwen2.init_kv_pages(self.cfg, self._usable_pages + 1,
                                    self._page_size, self.device)
@@ -752,6 +768,15 @@ class GenerationEngine:
             self._prefix_cache[key] = pid
             self._page_hash[pid] = key
 
+    # -- device gating -----------------------------------------------------
+    def _gate(self, timeout: Optional[float] = None) -> None:
+        """The device owner's gate BEFORE any device dispatch (no locks
+        held: the scheduler thread owns what it touches here). Raises
+        DeviceUnavailable when the card is not serving."""
+        from nornicdb_tpu_torch import backend
+
+        self._manager = backend.gate(self.device, self._manager, timeout)
+
     def _ensure_pool(self) -> Optional[torch.Tensor]:
         if self._pages is None and self.config.mode != "dense":
             self._pages = qwen2.init_kv_pages(
@@ -761,6 +786,7 @@ class GenerationEngine:
 
     # -- one scheduler iteration -------------------------------------------
     def _step(self) -> None:
+        self._gate()
         self._ensure_pool()
         self._admit()
         if self.config.mode == "dense":

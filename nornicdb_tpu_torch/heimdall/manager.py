@@ -14,8 +14,8 @@ without a model, when no checkpoint is mounted.
 per-request ``PromptContext``, action parsing from the model's output and
 dispatch (``status``, ``hello``, ``query``), the ``Bifrost`` notification
 bus, the model and metrics registries and the plugin hooks. The ``query``
-action runs Cypher, which the port does not have yet (ROADMAP A5): until
-then its dispatch fails through the error path of a failing action.
+action classifies its statement, refuses writes and answers reads through
+``db.cypher``.
 
 Behavioral reference: the upstream NornicDB pkg/heimdall/ --
 Manager.Generate (scheduler.go:178), Handler.handleChatCompletions
@@ -373,18 +373,26 @@ class HeimdallManager:
     def _action_query(self, params: dict) -> dict:
         """Cypher pass-through action, read-only (ref: heimdall.watcher.query
         in the reference plugin + the CypherPrimer ACTION MODE examples).
-        The port has no Cypher executor yet (ROADMAP A5): a request that
-        passes the checks raises, and ``_dispatch_action`` turns that into
-        the action's ``{"error": ...}`` result, as it does for a failing
-        executor."""
+
+        The statement is classified first (``classify_query_text``): a
+        model steered into emitting a write must not become a privilege
+        escalation, so write-classified Cypher is refused. Reads answer
+        through ``db.cypher``; an executor error becomes the action's
+        ``{"error": ...}`` result in ``_dispatch_action``."""
         if self.db is None:
             return {"error": "no database attached"}
         cypher = str(params.get("cypher", "")).strip()
         if not cypher:
             return {"error": "params.cypher required"}
-        raise NotImplementedError(
-            "the query action runs Cypher, which is not ported yet "
-            "(ROADMAP A5)")
+        from nornicdb_tpu_torch.cypher.executor import classify_query_text
+
+        if classify_query_text(cypher) == "write":
+            return {"error": "query action is read-only; use the Cypher "
+                             "API for writes"}
+        result = self.db.cypher(cypher)
+        rows = [[_brief(v) for v in row] for row in result.rows[:50]]
+        return {"columns": result.columns, "rows": rows,
+                "row_count": len(result.rows)}
 
     @staticmethod
     def try_parse_action(text: str) -> Optional[dict[str, Any]]:

@@ -28,10 +28,17 @@ ledger (``search/dense`` or ``search/ivf``, timed until the results reached
 the host); and a corpus reports its resident bytes as
 ``nornicdb_hbm_bytes`` (``corpus_f32``, ``corpus_int8``, ``ivf``).
 
-Deferred to later slices: the BackendManager lifecycle gate and the
-DEGRADED_CPU host serving (with it the stash of a cluster fit delivered
-while degraded), and the sharded serving families. Here the device gate is
-a plain device check: the port never falls back to the CPU on its own.
+The device owner (``nornicdb_tpu_torch.backend``): a corpus on a CUDA
+device gates every device path through the process-default manager (or an
+injected one) BEFORE it takes a lock (``device_gate``). A card that is not
+serving raises DeviceUnavailable within the manager's ``acquire_timeout``;
+no search meant for the card runs on the host. Writes made meanwhile land
+in the host rows and their dirty blocks; the resident buffer survives (a
+failure CUDA recovers from loses no device memory), and after a recovery
+the uploader patches those blocks (``_on_backend_ready``). A corpus on the
+CPU with no injected manager never creates one.
+
+Deferred to later slices: the sharded serving families (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -369,10 +376,17 @@ class HostCorpus:
         align: int = LANE,
         capacity: int = 0,
         compact_ratio: float = 0.3,
+        backend=None,
     ):
         self.dims = dims
         self.align = align
         self.compact_ratio = compact_ratio
+        # device owner (nornicdb_tpu_torch.backend): every device path gates
+        # through it BEFORE taking any lock. None -> the process default for
+        # a CUDA corpus, resolved lazily at the first device use; a CPU
+        # corpus with no injected manager never consults one.
+        self._backend = backend
+        self._backend_registered = False
         cap = max(capacity, align)
         cap = ((cap + align - 1) // align) * align
         self._ids: list[Optional[str]] = []
@@ -647,6 +661,51 @@ class HostCorpus:
         self._epoch += 1
         self._layout_epoch += 1
 
+    # -- device owner gate -------------------------------------------------
+    def _backend_mgr(self):
+        """This corpus's BackendManager: the injected one, else the process
+        default for a CUDA corpus (registered for recovery re-upload at
+        first resolution), else None (a CPU corpus never creates one)."""
+        mgr = self._backend
+        if mgr is None:
+            if getattr(getattr(self, "device", None), "type", None) != "cuda":
+                return None
+            from nornicdb_tpu_torch import backend as _backend
+
+            mgr = self._backend = _backend.manager()
+        if not self._backend_registered:
+            self._backend_registered = True
+            mgr.register_corpus(self)
+        return mgr
+
+    @property
+    def backend(self):
+        """This corpus's device owner once resolved (the injected manager,
+        or the process default after a CUDA corpus's first device use);
+        None for a CPU corpus without one."""
+        return self._backend
+
+    def _device_ok_nowait(self) -> bool:
+        """Non-blocking state read for code already inside a lock
+        (``_sync``), where waiting on acquisition is the deadlock shape."""
+        mgr = self._backend_mgr()
+        return mgr is None or mgr.ready()
+
+    def device_gate(self) -> None:
+        """The entry of every device path, run with NO lock held: returns
+        once the card serves (waiting at most the manager's acquire
+        timeout, on the manager's thread) and raises DeviceUnavailable when
+        it does not."""
+        from nornicdb_tpu_torch import backend as _backend
+
+        _backend.gate(getattr(self, "device", None), self._backend_mgr())
+
+    def _on_backend_ready(self) -> None:
+        """Called by the manager AFTER a recovery's READY transition
+        lands: the uploader patches, in the background, the blocks written
+        while the card was not serving (``_sync`` skipped them)."""
+        self._wake_uploader()
+
     # -- device sync engine ------------------------------------------------
     # Subclasses provide the device buffers through three hooks:
     # _device_ready (is there a patchable resident buffer), _upload_full
@@ -676,7 +735,14 @@ class HostCorpus:
         post-patch buffer, never a half-patched one: while a search borrows
         the buffer the patch writes a new one, and it patches in place only
         when nobody borrows it (the JAX package's buffer donation). The
-        uploader's passes (``_record_stall=False``) are not query stall."""
+        uploader's passes (``_record_stall=False``) are not query stall.
+
+        While the device owner reports the card not serving, dirty state
+        accumulates on the host and the uploader patches it after the
+        recovery; this NEVER waits on the owner (it runs under
+        ``_sync_lock``)."""
+        if not self._device_ok_nowait():
+            return
         with self._sync_lock:
             if self._compact_pending:
                 self._compact()  # coalesced: one rewrite for the whole burst
@@ -743,6 +809,8 @@ class HostCorpus:
             i8 = getattr(self, "_dev_i8", None)
             ids, slot_of = self._ids, self._slot_of
         if dev is None:
+            # the card stopped serving between the caller's gate and the
+            # sync (or was never acquired): no resident buffer to borrow
             with self._sync_lock:
                 self._readers -= 1
             raise DeviceUnavailable("no resident device buffer")
@@ -844,10 +912,11 @@ class DeviceCorpus(HostCorpus):
         compact_ratio: float = 0.3,
         quantize: bool = False,
         device: DeviceLike = None,
+        backend=None,
     ):
         self.device = resolve_device(device)
         super().__init__(dims, align=LANE, capacity=capacity,
-                         compact_ratio=compact_ratio)
+                         compact_ratio=compact_ratio, backend=backend)
         self.dtype = dtype
         self.quantize = quantize
         self._dev: Optional[torch.Tensor] = None
@@ -884,13 +953,6 @@ class DeviceCorpus(HostCorpus):
                 if isinstance(t, torch.Tensor):
                     out["ivf"] += t.numel() * t.element_size()
         return out
-
-    def _device_gate(self) -> None:
-        """Plain device check: the card must still be there. No fallback."""
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise DeviceUnavailable(
-                "CUDA is not available; pass device='cpu' to run on the CPU"
-            )
 
     def _to_device(self, a: np.ndarray, dtype: Optional[torch.dtype] = None
                    ) -> torch.Tensor:
@@ -953,7 +1015,7 @@ class DeviceCorpus(HostCorpus):
         snapshot pins the layout epoch, and the fit installs only if it is
         unchanged (an overwrite of a snapshot row or a compaction would
         otherwise stamp a layout built from stale slots as current)."""
-        self._device_gate()
+        self.device_gate()
         with self._sync_lock:
             live = [i for i, id_ in enumerate(self._ids) if id_ is not None]
             if len(live) < 2:
@@ -1025,7 +1087,7 @@ class DeviceCorpus(HostCorpus):
         without running k-means again. The id -> slot resolution sees one
         slot space under the lock; the transfer and the layout build run
         outside it, installed only if the layout epoch did not move."""
-        self._device_gate()
+        self.device_gate()
         centroids_dev = torch.tensor(np.asarray(centroids, np.float32),
                                      dtype=self.dtype, device=self.device)
         with self._sync_lock:
@@ -1141,10 +1203,12 @@ class DeviceCorpus(HostCorpus):
         """Unguarded access to the resident buffers. Callers may hold the
         returned tensors indefinitely, so in-place patching is disabled for
         this corpus from now on. Prefer _borrow_device."""
-        self._device_gate()
+        self.device_gate()
         with self._sync_lock:
             self._donation_ok = False
             self._sync()
+            if self._dev is None:
+                raise DeviceUnavailable("no resident device buffer")
             return self._dev, self._dev_valid
 
     def search(
@@ -1165,7 +1229,8 @@ class DeviceCorpus(HostCorpus):
         q = np.array(queries, np.float32, ndmin=2)
         if len(self._slot_of) == 0:
             return [[] for _ in range(q.shape[0])]
-        self._device_gate()
+        # the device owner's gate FIRST, before any lock
+        self.device_gate()
         if n_probe > 0:
             t0 = time.perf_counter()
             pruned = self._pruned_search(q, k, min_similarity, n_probe)
@@ -1201,7 +1266,7 @@ class DeviceCorpus(HostCorpus):
     ) -> list[tuple[str, float]]:
         """Re-score of the given ids (bf16 product, as the JAX package);
         unknown/removed ids are omitted."""
-        self._device_gate()
+        self.device_gate()
         with self._borrow_device() as (corpus, _, _i8, _ids, slot_of):
             present = [(i, slot_of[i]) for i in ids if i in slot_of]
             if not present:

@@ -28,11 +28,14 @@ Configuration is layered as in the JAX package: an explicit
 (``default_search_config``). With a ``vectorspaces`` registry the service
 registers its ``default`` space when the vector index is created.
 
-Not ported (ROADMAP): shard promotion and ``backend="sharded"`` (with them
-the sharded IVF layout, the tuner's ``local_k`` and the ``nornicdb_shard_*``
-families; a non-default value of their config fields is refused, as
-``backend="sharded"`` is) and ``graph_masked_scores`` (with the backend
-manager).
+``graph_masked_scores`` is the Cypher ``VectorTopK`` operator's device
+scoring: one masked float32 product over the label's normalized embedding
+matrix, resident on the caller's device, gated by the device owner.
+
+Not ported (ROADMAP A7): shard promotion and ``backend="sharded"`` (with
+them the sharded IVF layout, the tuner's ``local_k`` and the
+``nornicdb_shard_*`` families; a non-default value of their config fields
+is refused, as ``backend="sharded"`` is).
 """
 
 from __future__ import annotations
@@ -88,6 +91,78 @@ _REGISTRY.histogram(
     "nornicdb_search_queue_wait_seconds",
     "Time a batched search waited for its batch to dispatch",
 )
+
+
+# -- graph x vector fusion -----------------------------------------------------
+def _pow2_row_bucket(n: int) -> int:
+    """Row/k counts padded to power-of-two shape classes, so the resident
+    corpus is reused across queries whose survivor count varies."""
+    return 1 << (int(n) - 1).bit_length() if n > 1 else 1
+
+
+def graph_masked_scores(
+    qn: np.ndarray,
+    corpus: np.ndarray,
+    valid: np.ndarray,
+    k: int,
+    desc: bool,
+    dev_ref: Optional[list] = None,
+    device: DeviceLike = None,
+    backend=None,
+):
+    """Device scoring for the Cypher ``VectorTopK`` operator: one masked
+    float32 product (``ops.similarity.masked_dot_topk``) over a
+    row-normalized ``corpus`` (n, d) with the graph-predicate survivors as
+    ``valid``, on ``device`` (None: CUDA). Returns ``(scores, boundary)``:
+    per-row cosine scores (length n, original orientation, float64) and
+    the kth best masked score in that orientation. ``desc=False`` (ORDER
+    BY ... ASC) runs on the negated query. ``dev_ref`` is a one-slot list
+    caching the padded device-resident corpus across queries of the same
+    shape bucket.
+
+    The device owner gates the call (``backend``, else the process default
+    for a CUDA device): a card that is not serving raises
+    DeviceUnavailable. Device errors propagate."""
+    import torch
+
+    from nornicdb_tpu_torch import backend as _bk
+    from nornicdb_tpu_torch.ops.similarity import LANE, masked_dot_topk
+    from nornicdb_tpu_torch.telemetry import deviceprof as _deviceprof
+
+    dev = resolve_device(device)
+    _bk.gate(dev, backend)
+    n = corpus.shape[0]
+    rows_pad = max(_pow2_row_bucket(n), LANE)
+    k_pad = min(_pow2_row_bucket(max(k, 1)), rows_pad)
+    t0 = time.perf_counter()
+    resident = None
+    if dev_ref and dev_ref[0] is not None:
+        cached_pad, cached_dev, cached = dev_ref[0]
+        if cached_pad == rows_pad and cached_dev == dev:
+            resident = cached
+    if resident is None:
+        buf = np.zeros((rows_pad, corpus.shape[1]), np.float32)
+        buf[:n] = corpus
+        resident = torch.from_numpy(buf).to(dev)
+        if dev_ref is not None:
+            dev_ref[0] = (rows_pad, dev, resident)
+    vpad = np.zeros(rows_pad, bool)
+    vpad[:n] = valid
+    q = np.asarray(qn if desc else -qn, np.float32)
+    scores, top = masked_dot_topk(
+        torch.from_numpy(q).to(dev), resident,
+        torch.from_numpy(vpad).to(dev), k_pad)
+    scores = scores[:n].double().cpu().numpy()
+    boundary = float(top[min(k, k_pad) - 1])
+    _deviceprof.record_execute(
+        "cypher", "vector_topk", _deviceprof.pow2_class(rows_pad, "n"),
+        time.perf_counter() - t0)
+    if not desc:
+        # undo the ASC negation; masked rows become +inf, which can never
+        # pass the caller's `score <= boundary + eps` cut
+        scores = -scores
+        boundary = -boundary
+    return scores, boundary
 
 
 @dataclass
@@ -655,6 +730,11 @@ class SearchService:
             out["ivf_tuner"] = tuner
         if corpus is not None:
             out["corpus"] = corpus.stats()
+            mgr = corpus.backend
+            if mgr is not None:
+                # the corpus's device owner: the process default once a
+                # CUDA corpus resolved it, or an injected one
+                out["backend"] = mgr.stats()
         if batcher is not None:
             out["batcher"] = batcher.stats.as_dict()
         return out
@@ -670,6 +750,9 @@ class SearchService:
             corpus = self._corpus
             if corpus is None:
                 return None
+        # the device owner's gate before the fit touches the device and
+        # before any lock: a card that is not serving raises
+        corpus.device_gate()
         with corpus._sync_lock:
             live = [i for i, id_ in enumerate(corpus._ids) if id_ is not None]
             ids = [corpus._ids[i] for i in live]

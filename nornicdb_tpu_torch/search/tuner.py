@@ -197,7 +197,7 @@ class IVFTuner:
         base = TuneState(outcome="error", recall_target=self.recall_target,
                          k=k, corpus_rows=len(corpus))
         try:
-            corpus._device_gate()
+            corpus.device_gate()
         except DeviceUnavailable:
             base.outcome = "degraded"
             return base

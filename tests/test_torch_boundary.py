@@ -28,6 +28,26 @@ from nornicdb_tpu_torch.storage import MemoryEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# the device owner and the Cypher engine (ROADMAP A4, A5a)
+NEW_MODULES = (
+    "nornicdb_tpu_torch.backend",
+    "nornicdb_tpu_torch.backend.manager",
+    "nornicdb_tpu_torch.cypher",
+    "nornicdb_tpu_torch.cypher.ast",
+    "nornicdb_tpu_torch.cypher.lexer",
+    "nornicdb_tpu_torch.cypher.parser",
+    "nornicdb_tpu_torch.cypher.validator",
+    "nornicdb_tpu_torch.cypher.functions",
+    "nornicdb_tpu_torch.cypher.temporal_fns",
+    "nornicdb_tpu_torch.cypher.expr",
+    "nornicdb_tpu_torch.cypher.matcher",
+    "nornicdb_tpu_torch.cypher.plan",
+    "nornicdb_tpu_torch.cypher.parallel",
+    "nornicdb_tpu_torch.cypher.colindex",
+    "nornicdb_tpu_torch.cypher.columnar",
+    "nornicdb_tpu_torch.cypher.executor",
+)
+
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
 import nornicdb_tpu_torch as pkg
@@ -135,8 +155,32 @@ class TestImportBoundary:
                      "nornicdb_tpu_torch.inference.integrations",
                      "nornicdb_tpu_torch.heimdall.context",
                      "nornicdb_tpu_torch.heimdall.registry",
-                     "nornicdb_tpu_torch.heimdall.plugins"):
+                     "nornicdb_tpu_torch.heimdall.plugins",
+                     *NEW_MODULES):
             assert name in imported
+
+    def test_device_owner_and_cypher_import_neither_jax_nor_jax_package(self):
+        """A static scan of every import statement in ``backend/`` and
+        ``cypher/`` (the runtime check above sees only what an import
+        executes, not the imports a function makes when it runs)."""
+        import ast
+
+        for mod in NEW_MODULES:
+            path = os.path.join(ROOT, *mod.split(".")) + ".py"
+            if not os.path.exists(path):
+                path = os.path.join(ROOT, *mod.split("."), "__init__.py")
+            tree = ast.parse(open(path).read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                else:
+                    continue
+                for name in names:
+                    top = name.split(".")[0]
+                    assert top not in ("jax", "jaxlib", "nornicdb_tpu"), (
+                        mod, name)
 
 
 class TestDevicePolicy:
@@ -240,6 +284,71 @@ class TestDevicePolicy:
             assert db.device.type == "cpu" and d.exists()
         finally:
             db.close()
+
+    def test_cypher_executor_and_devices_default_to_cuda(self, tmp_path):
+        from nornicdb_tpu_torch import backend
+        from nornicdb_tpu_torch.cypher import CypherExecutor
+
+        if torch.cuda.is_available():
+            assert CypherExecutor(MemoryEngine()).device.type == "cuda"
+            assert all(d.type == "cuda" for d in backend.devices())
+            return
+        with pytest.raises(DeviceUnavailable, match="device='cpu'"):
+            CypherExecutor(MemoryEngine())
+        ex = CypherExecutor(MemoryEngine(), device="cpu")
+        assert ex.device.type == "cpu"
+        assert ex.execute("RETURN 1 AS one").rows == [[1]]
+        # devices() waits (bounded) for the device owner to acquire the
+        # card; without one that is DeviceUnavailable, never the CPU
+        backend.reset_default()
+        try:
+            backend.configure(acquire_timeout=2.0)
+            with pytest.raises(DeviceUnavailable):
+                backend.devices()
+        finally:
+            backend.reset_default()
+            backend.configure()
+
+    def test_offloads_never_catch_into_the_host_path(self):
+        """The two Cypher offloads, their device scoring and the corpus's
+        and the embedder's device paths raise device errors instead of
+        serving from the host: no ``except`` clause in them catches
+        Exception (or everything) or DeviceUnavailable."""
+        import ast
+
+        targets = {
+            ("cypher", "columnar.py"): {"_offload_candidates",
+                                        "_vector_rank"},
+            ("search", "service.py"): {"graph_masked_scores"},
+            ("ops", "similarity.py"): {"search", "score_subset",
+                                       "device_gate"},
+            ("embed", "base.py"): {"embed_batch", "embed_packed"},
+        }
+        for parts, names in targets.items():
+            path = os.path.join(ROOT, "nornicdb_tpu_torch", *parts)
+            tree = ast.parse(open(path).read())
+            found = set()
+            for fn in ast.walk(tree):
+                if not (isinstance(fn, ast.FunctionDef)
+                        and fn.name in names):
+                    continue
+                found.add(fn.name)
+                for node in ast.walk(fn):
+                    if not isinstance(node, ast.ExceptHandler):
+                        continue
+                    caught = node.type
+                    broad = caught is None or any(
+                        isinstance(n, ast.Name)
+                        and n.id in ("Exception", "BaseException",
+                                     "RuntimeError", "DeviceUnavailable")
+                        for n in ast.walk(caught))
+                    # _vector_rank's exact rescore re-raises scoring
+                    # errors as _Bail for the generic engine, which
+                    # reproduces the user-facing error: not a host path
+                    reraises = any(isinstance(n, ast.Raise)
+                                   for n in node.body)
+                    assert not broad or reraises, (fn.name, node.lineno)
+            assert found == names
 
     def test_cpu_only_when_named(self):
         assert resolve_device("cpu") == torch.device("cpu")

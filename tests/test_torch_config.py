@@ -10,6 +10,7 @@ without a config takes it (before this layer the port ignored both).
 """
 
 import dataclasses
+import copy
 import os
 
 import pytest
@@ -85,11 +86,26 @@ def env(monkeypatch):
     return monkeypatch
 
 
+def _assert_same(got: dict, want: dict) -> None:
+    """The port's sections equal the JAX package's but for the one
+    recorded difference: where JAX falls back to the CPU by default
+    (``fallback="cpu"``), the port's device owner fails
+    (``fallback="fail"``); a value set in a file or the environment is the
+    same in both."""
+    got, want = copy.deepcopy(got), copy.deepcopy(want)
+    for sec in ("backend", "genserve"):
+        j = want[sec].pop("fallback")
+        assert got[sec].pop("fallback") == ("fail" if j == "cpu" else j)
+    assert got == want
+
+
 class TestAppConfig:
     def test_same_sections_and_fields(self):
         got = _sections(PC.AppConfig())
         want = _sections(JC.AppConfig())
-        assert got == want
+        assert got["backend"]["fallback"] == "fail"
+        assert want["backend"]["fallback"] == "cpu"
+        _assert_same(got, want)
         assert PC.ENV_ALIASES == JC.ENV_ALIASES
         assert PC.CONFIG_FILENAMES == JC.CONFIG_FILENAMES
 
@@ -97,7 +113,7 @@ class TestAppConfig:
         path = tmp_path / "nornicdb.yaml"
         path.write_text(YAML)
         got = _sections(PC.load_from_file(str(path)))
-        assert got == _sections(JC.load_from_file(str(path)))
+        _assert_same(got, _sections(JC.load_from_file(str(path))))
         assert got["server"]["http_port"] == 8474
         assert got["serving"]["max_queue"] == 77
         assert got["genserve"]["mode"] == "dense"
@@ -106,7 +122,7 @@ class TestAppConfig:
 
     def test_env_and_aliases(self, env):
         got = _sections(PC.load_from_env())
-        assert got == _sections(JC.load_from_env())
+        _assert_same(got, _sections(JC.load_from_env()))
         assert got["server"]["http_port"] == 9100
         assert got["server"]["auth_enabled"] is True
         assert got["database"]["wal_sync"] is True
@@ -121,7 +137,7 @@ class TestAppConfig:
         assert PC.find_config_file(str(deep)) == JC.find_config_file(
             str(deep)) == str(tmp_path / ".nornicdb.yaml")
         got = _sections(PC.load(str(deep)))
-        assert got == _sections(JC.load(str(deep)))
+        _assert_same(got, _sections(JC.load(str(deep))))
         # the env overrides the file: 9100 beats 8474, 250 beats 1500
         assert got["server"]["http_port"] == 9100
         assert got["serving"]["deadline_ms"] == 250.0

@@ -1202,3 +1202,82 @@ def test_heimdall_pages_through_the_ragged_kernel(card, tmp_path,
             s["id"] for s in ans["sources"]]
     finally:
         db.close()
+
+
+def _cypher_twins(device, n=3000, dim=32, seed=5):
+    """One store, an executor on ``device`` and a generic (columnar off)
+    one: Items with tied integer scores and Docs with embeddings."""
+    from nornicdb_tpu_torch.cypher import CypherExecutor
+    from nornicdb_tpu_torch.storage import MemoryEngine, Node
+
+    rng = np.random.default_rng(seed)
+    eng = MemoryEngine()
+    for i in range(n):
+        eng.create_node(Node(id=f"i{i}", labels=["Item"], properties={
+            "sku": i, "score": float(i % 97), "bucket": i % 10}))
+        emb = rng.standard_normal(dim).astype(np.float32)
+        eng.create_node(Node(id=f"d{i}", labels=["Doc"], properties={
+            "doc": i, "topic": i % 8, "emb": [float(x) for x in emb]}))
+    ex = CypherExecutor(eng, device=device)
+    gen = CypherExecutor(eng, device="cpu")
+    gen.columnar.enabled = False
+    return ex, gen, rng
+
+
+def test_cypher_offloads_on_the_card_equal_the_generic_engine(
+        card, monkeypatch):
+    from nornicdb_tpu_torch import backend
+    from nornicdb_tpu_torch.cypher.plan import OFFLOAD_CELLS
+
+    monkeypatch.setenv("NORNICDB_CYPHER_OFFLOAD_MIN_ROWS", "1000")
+    monkeypatch.setenv("NORNICDB_VECTOR_TOPK_MIN_ROWS", "1000")
+    ex, gen, rng = _cypher_twins(card)
+    used = OFFLOAD_CELLS["used"].value
+    # not n.id: the columnar engine sends it to the generic tail
+    q1 = ("MATCH (i:Item) WHERE i.bucket < $b RETURN i.sku, i.score "
+          "ORDER BY i.score DESC LIMIT 20")
+    q2 = ("MATCH (d:Doc) WHERE d.topic IN $t RETURN d.doc ORDER BY "
+          "vector.similarity.cosine(d.emb, $q) DESC LIMIT 10")
+    for b in (7, 9):
+        assert ex.execute(q1, {"b": b}).rows == gen.execute(q1, {"b": b}).rows
+    for t in ([0, 1, 2, 3, 4], [1, 3, 5, 7, 0, 2]):
+        p = {"t": t, "q": rng.standard_normal(32).tolist()}
+        assert ex.execute(q2, p).rows == gen.execute(q2, p).rows
+    assert OFFLOAD_CELLS["used"].value == used + 4
+    assert backend.manager().state == backend.READY
+
+
+def test_graph_masked_scores_on_the_card_equal_the_cpu(card):
+    from nornicdb_tpu_torch.search.service import graph_masked_scores
+
+    rng = np.random.default_rng(1)
+    m = _unit(rng, 20000, 1024)
+    valid = rng.random(20000) < 0.7
+    q = m[11]
+    for desc in (True, False):
+        cs, cb = graph_masked_scores(q, m, valid, 10, desc, device="cpu")
+        gs, gb = graph_masked_scores(q, m, valid, 10, desc, device=card)
+        np.testing.assert_allclose(gs[valid], cs[valid], atol=1e-5)
+        assert gb == pytest.approx(cb, abs=1e-5)
+
+
+def test_real_probe_runs_on_its_own_stream(card):
+    """The probe waits on the manager's stream only: a long kernel on the
+    default stream does not hold it, and the device time it reports (its
+    kernel between two events) is a tiny kernel's."""
+    from nornicdb_tpu_torch.backend import RealHooks
+
+    hooks = RealHooks()
+    info = hooks.touch()
+    assert info["platform"] == "cuda" and info["device_count"] >= 1
+    assert hooks.stream != torch.cuda.default_stream()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(4_000_000_000)  # ~2 s of spinning on the default stream
+    device_s = hooks.probe()
+    probe_s = time.perf_counter() - t0
+    busy = not torch.cuda.default_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "the default stream finished before the probe returned"
+    assert probe_s < 1.0, probe_s
+    assert 0.0 <= device_s < 0.1, device_s

@@ -396,8 +396,11 @@ class TestConstructionAndConfig:
             _engine(pool_pages=4, max_seq_tokens=128)
 
     def test_config_matches_jax_and_reads_env(self, monkeypatch):
-        assert dataclasses.asdict(GenServeConfig()) == dataclasses.asdict(
-            JaxGenServeConfig())
+        got = dataclasses.asdict(GenServeConfig())
+        want = dataclasses.asdict(JaxGenServeConfig())
+        # the recorded difference: the port fails where JAX goes to the CPU
+        assert (got.pop("fallback"), want.pop("fallback")) == ("fail", "cpu")
+        assert got == want
         env = {"NORNICDB_GENSERVE_PAGE_SIZE": "8",
                "NORNICDB_GENSERVE_DEADLINE_MS": "250",
                "NORNICDB_GENSERVE_ENABLED": "false",

@@ -200,16 +200,25 @@ class TestChatMachinery:
         assert out["action_result"] == {"status": "ok", "nodes": 2,
                                         "edges": 1}
 
-    def test_query_action_needs_the_executor(self, db):
-        """The port has no Cypher executor yet: the action stays
-        registered and its dispatch fails through the error path a
-        failing executor takes in the JAX package."""
-        gen = _echo(PH, '{"action": "query", "params": {"cypher": '
-                        '"MATCH (n) RETURN count(n)"}}')
-        mgr = PH.HeimdallManager(gen, db=db)
+    def test_query_action_needs_the_executor(self, pkg, db):
+        """The action runs through the DB's Cypher executor (JAX
+        ``heimdall/manager.py:373-395``): reads answer, a write is refused
+        before it reaches the executor, a missing statement is an error."""
+        H = pkg[0]
+        db.cypher("CREATE (:T {v: 1}), (:T {v: 2})")
+        gen = _echo(H, '{"action": "query", "params": {"cypher": '
+                       '"MATCH (n:T) RETURN count(n)"}}')
+        mgr = H.HeimdallManager(gen, db=db)
         assert "- query:" in mgr.action_prompt()
         out = mgr.chat([{"role": "user", "content": "count"}])
-        assert "ROADMAP A5" in out["action_result"]["error"]
+        assert out["action_result"] == {
+            "columns": ["count(n)"], "rows": [[2]], "row_count": 1}
+        wipe = _echo(H, '{"action": "query", "params": {"cypher": '
+                        '"MATCH (n) DETACH DELETE n"}}')
+        out = H.HeimdallManager(wipe, db=db).chat(
+            [{"role": "user", "content": "wipe it"}])
+        assert "read-only" in out["action_result"]["error"]
+        assert db.storage.node_count() == 2  # nothing deleted
         missing = mgr._dispatch_action({"action": "query", "params": {}})
         assert missing == {"error": "params.cypher required"}
 
