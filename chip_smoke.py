@@ -106,7 +106,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``deviceprof.capture_profile(2.0)`` while 8 threads search holds #2's
    launches (made on the batcher's thread); the tracer's ``search.embed``,
    ``search.rank`` and ``search.vector`` span p50s beside the script's.
-   10.8, the learning loop: 2,048 new texts of phase 8's mix (from
+   10.8, the learning loop: 1,024 new texts of phase 8's mix (from
    ``--seed`` + 1, none equal to a stored text) stored through
    ``db.store`` by 8 clients; the DB's EmbedWorker embeds them through
    phase 8's engine and ``_on_embedded`` feeds
@@ -148,6 +148,35 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``query`` action on phase 10's DB counting its nodes and refusing a
    CREATE. Logged: each shape's p50 / p99 and each offload's device time
    (the ``deviceprof`` ledger).
+   16, GDS and APOC through ``db.cypher`` on the card, after 10.9 (no
+   kernel: ``index_add_``, ``scatter_reduce_`` and float32
+   ``torch.matmul`` behind the device owner's gate). (a) over phase 10's
+   DB, which it leaves as it was (node and edge counts before and after):
+   ``gds.pageRank.stream`` over every node held to phase 12's bounds
+   against a float64 power iteration over the adjacency snapshot's
+   ``edge_arrays()``, its rows the snapshot's ids; ``gds.wcc.stream``
+   equal to scipy's components; ``gds.degree.stream`` to ``np.bincount``;
+   ``gds.linkPrediction.adamicAdar.stream`` from 8 seeded sources to
+   ``score_pair``'s ranking over ``graph_view()``; ``apoc.path.expand``
+   (8 sources) and ``apoc.neighbors.byhop`` (2) to depth 2 to a BFS;
+   ``apoc.algo.pageRank(collect(i))`` over 4,096 ids within PR_L1_TOL of
+   float64 on that subgraph; ``apoc.text`` / ``coll`` / ``map`` over
+   10,000 rows; ``kalman.smooth`` / ``filter`` / ``predict`` equal to the
+   filter module's ``Kalman``. (b) in-memory DBs on the card: a Graph500
+   Kronecker graph of SCALE 13 through the storage API;
+   ``gds.linkPrediction.suggest`` (the adjacency GEMMs on the card) for
+   commonNeighbors equal to the numpy branch and for adamicAdar the same
+   pairs but for ties within LINK_TOL; ``gds.fastRP.stream`` (128) unit
+   norms for linked nodes and equal to a CPU executor's; Louvain, SCC,
+   k-core and triangle counts equal to ``graph_algos`` over the
+   snapshot's arrays; ``gds.graph.project`` / ``list`` / ``drop``;
+   betweenness and closeness on the 512 highest-degree vertices'
+   subgraph; ``apoc.create`` / ``merge`` / ``refactor`` /
+   ``periodic.iterate`` with their counts, a trigger fired by 1,000
+   creates, ``apoc.export.json.all`` under ``.chip_scratch/apoc`` and
+   ``apoc.import.json`` into another DB with equal counts. Logged: each
+   call's wall time and the PageRank, WCC and GEMM device time (CUDA
+   events).
 9. a checkpoint and GraphRAG answers: a ``QWEN25_05B`` checkpoint directory
    (weights from ``--seed``, a ``VocabTokenizer`` over phase 8's texts and
    the prompt header) written to a temporary directory and mounted with
@@ -226,7 +255,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    card, again after 1,000 edges created and 1,000 deleted through the
    chain; ``linkpredict.build_graph`` served by the snapshot and equal to
    its scan; BFS from 16 starts against ``bfs_distances_csr``. 14e: the
-   segment store keeps 8,192 documents across a reopen and serves 64
+   segment store keeps 4,096 documents across a reopen and serves 64
    vector queries bit for bit as a ``MemoryEngine`` with the same
    documents in the same order; a ``DatabaseManager`` over the chain keeps
    two databases with shared ids apart (counts, search answers) and brings
@@ -238,7 +267,9 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    (the port's one policy, "fail"; nothing answers from the host); after
    ``set_mode("ok")`` the manager goes through RECOVERING to READY with one
    recovery and the card answers with the ids a corpus of the same rows
-   under the process default gave. Then the card hangs again: the manager
+   under the process default gave; a ``CypherExecutor`` behind the same
+   manager refuses ``gds.pageRank.stream`` while it hangs and serves it
+   on the card after the recovery. Then the card hangs again: the manager
    degrades, a search raises at once, a row written meanwhile lands on
    the host; after the second recovery the card answers with that row,
    patched into the resident buffer with no whole-corpus upload. A second
@@ -482,8 +513,9 @@ LINK_SCALE, LINK_LIMIT, LINK_TOL = 13, 20, 1e-5
 # exact float32 rescores)
 # (8,192 texts took the run to 1,157.6 s on an H100 against the 1,080 s it
 # must stay under; with 10.9 and phase 15 added, 4,096 texts and 256
-# recalls took it to 1,143.5 s, so 2,048 and 128; PERF.md section 4)
-LEARN_TEXTS, LEARN_CLIENTS, LEARN_DRAIN_S = 2048, 8, 300.0
+# recalls took it to 1,143.5 s, so 2,048 and 128; with phase 16 added,
+# 1,145.7 s on a slower host, so 1,024; PERF.md section 4)
+LEARN_TEXTS, LEARN_CLIENTS, LEARN_DRAIN_S = 1024, 8, 300.0
 LEARN_RECALLS, LEARN_REEMBED, SIM_TOL = 128, 256, 1e-3
 # phase 9: Heimdall chat completions from CHAT_CLIENTS clients through
 # db.heimdall (the engine over the mounted checkpoint), CHAT_TOKENS each
@@ -507,11 +539,12 @@ PREDICTED_SHEDS: dict = {}
 # starts; 14e queries the segment store SEG_QUERIES times and fills two
 # databases with MDB_DOCS documents each. CHAIN_MIN_FREE: the disk the
 # chain's directories need (the WAL, its snapshot and the crash image of
-# phase 10 take ~4 GB)
+# phase 10 take ~4 GB). CRASH_DOCS went from 8,192 to 4,096 when phase
+# 16 took the run to 1,145.7 s (14c and 14e write them; PERF.md section 4)
 CHAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          ".chip_scratch", "storage")
 VEC_QUERIES, VEC_K = 256, 100
-CRASH_DOCS, CRASH_LATE, CRASH_SYNC = 8192, 1024, 2048
+CRASH_DOCS, CRASH_LATE, CRASH_SYNC = 4096, 1024, 2048
 ADJ_MUTATIONS, ADJ_STARTS = 1000, 16
 SEG_QUERIES, MDB_DOCS = 64, 512
 CHAIN_MIN_FREE = 8 << 30
@@ -525,6 +558,23 @@ TRACED: dict = {}
 CYPHER_VEC_QUERIES, CYPHER_CLIENTS = 256, 8
 CYPHER_ITEMS, CYPHER_DOCS = 131_072, 16_384
 CYPHER_SHAPE_QUERIES, CYPHER_CHECKED, CYPHER_BATCH = 32, 4, 8192
+# phase 16, GDS and APOC through db.cypher: (a) over phase 10's DB, link
+# prediction and depth-2 paths from GDS_SOURCES seeded nodes, hop levels
+# from GDS_HOP_SOURCES of them (apoc.neighbors.byhop reads every edge of
+# the DB a call: 2.5 s over 197,628 edges on the H100's host),
+# apoc.algo.pageRank over GDS_SUBSET of its nodes, pure APOC functions over
+# GDS_ROWS rows, the Kalman functions over a seeded series of GDS_SERIES;
+# (b) a Graph500 Kronecker graph of GDS_SCALE (phase 12c's size) in an
+# in-memory DB, FastRP at GDS_DIM, betweenness and closeness (host Brandes,
+# O(n m): 1.70 s and 1.09 s over its 56,583 edges on the H100's host, where
+# the whole graph would take minutes) over the subgraph of the GDS_CENTRAL
+# highest-degree vertices, a trigger fired by GDS_TRIGGERED creates, and
+# the export written under APOC_DIR
+GDS_SOURCES, GDS_HOP_SOURCES, GDS_SUBSET = 8, 2, 4096
+GDS_ROWS, GDS_SERIES = 10_000, 256
+GDS_SCALE, GDS_DIM, GDS_CENTRAL, GDS_TRIGGERED = LINK_SCALE, 128, 512, 1000
+APOC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chip_scratch", "apoc")
 # phase 15, the device owner: a private manager over FakeHooks, a corpus of
 # OWNER_ROWS x DIMS on the card, OWNER_QUERIES queries
 OWNER_ROWS, OWNER_QUERIES = 65_536, 16
@@ -3385,6 +3435,13 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
             f"as they were")
         assert svc._generation == gen0, "a recall's touch re-indexed"
         assert svc.corpus().stats()["epoch"] == epoch0
+        # a request the engine shed after its submit (past its deadline on
+        # a slow host, or for pages) was asked again: one submit more each
+        shed_late = ((st.sheds_deadline - st0.sheds_deadline)
+                     + (st.sheds_pool - st0.sheds_pool))
+        assert len(submitted) == RAG_QUESTIONS + shed_late, (
+            len(submitted), shed_late)
+        submitted = [s for s in submitted if not s[2].shed]
         assert len(submitted) == RAG_QUESTIONS
         for i, a in enumerate(answers):
             assert a["mode"] == "paged", a["mode"]
@@ -4045,6 +4102,27 @@ def pagerank_f64(src: np.ndarray, dst: np.ndarray, n: int,
         rank = (1.0 - damping) / n + damping * (
             incoming + rank[dangling].sum() / n)
     return rank
+
+
+def scipy_wcc(src: np.ndarray, dst: np.ndarray, n: int) -> np.ndarray:
+    """scipy's weak components of the (src, dst) graph, each node labelled
+    by its component's smallest member (``connected_components``' labels)."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components as scipy_cc
+
+    adj = sp.csr_matrix((np.ones(len(src), np.float32), (src, dst)),
+                        shape=(n, n))
+    _, comp = scipy_cc(adj, directed=False)
+    _, first = np.unique(comp, return_index=True)
+    return first[comp].astype(np.int32)
+
+
+def pagerank_error(ranks: np.ndarray, ref: np.ndarray) -> tuple:
+    """Phase 12's measures of ranks against the float64 reference: the L1
+    distance and the largest relative error of the PR_TOP highest ranks."""
+    l1 = float(np.abs(ranks.astype(np.float64) - ref).sum())
+    top = np.argsort(-ref)[:PR_TOP]
+    return l1, float(np.max(np.abs(ranks[top] - ref[top]) / ref[top]))
 
 
 def phase_graph(seed: int) -> None:
@@ -4708,10 +4786,7 @@ def pagerank_check(GA, view, tag: str) -> str:
     t0 = time.perf_counter()
     ranks = GA.pagerank(view.src, view.dst, n)  # device=None: the card
     t_pr = time.perf_counter() - t0
-    ref = pagerank_f64(view.src, view.dst, n)
-    l1 = float(np.abs(ranks.astype(np.float64) - ref).sum())
-    top = np.argsort(-ref)[:PR_TOP]
-    top_rel = float(np.max(np.abs(ranks[top] - ref[top]) / ref[top]))
+    l1, top_rel = pagerank_error(ranks, pagerank_f64(view.src, view.dst, n))
     assert l1 <= PR_L1_TOL, (tag, "pagerank L1", l1)
     assert top_rel <= PR_TOP_REL_TOL, (tag, "pagerank top ranks", top_rel)
     return (f"pagerank {t_pr * 1e3:.2f}ms, L1 {l1:.4e}, top-{PR_TOP} "
@@ -4724,9 +4799,6 @@ def phase_adjacency(seed: int, storage) -> None:
     them, mutations through the chain, build_graph's snapshot branch, BFS
     against graph_algos over build_csr."""
     import types
-
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import connected_components as scipy_cc
 
     from nornicdb_tpu_torch.linkpredict import build_graph as lp_graph
     from nornicdb_tpu_torch.ops import graph_algos as GA
@@ -4754,11 +4826,9 @@ def phase_adjacency(seed: int, storage) -> None:
     t0 = time.perf_counter()
     labels = GA.connected_components(view.src, view.dst, n)
     t_wcc = time.perf_counter() - t0
-    adj = sp.csr_matrix((np.ones(m, np.float32), (view.src, view.dst)),
-                        shape=(n, n))
-    n_comp, comp = scipy_cc(adj, directed=False)
-    _, first = np.unique(comp, return_index=True)
-    assert np.array_equal(labels, first[comp].astype(np.int32)), "WCC"
+    want = scipy_wcc(view.src, view.dst, n)
+    n_comp = len(np.unique(want))
+    assert np.array_equal(labels, want), "WCC"
     log(f"[phase14] 14d snapshot build {t_build * 1e3:.1f}ms ({n} nodes, "
         f"{m} edges), edge_arrays {t_view * 1e3:.1f}ms against a scan of "
         f"all_edges() {t_scan * 1e3:.1f}ms, equal (sorted ids, the same "
@@ -5488,6 +5558,530 @@ def phase_cypher(K, db, served: dict, seed: int) -> None:
         deviceprof.PROFILER.remove_time_observer(observe)
 
 
+# ---------------------------------------------------------------- phase 16
+class GraphDeviceTimes:
+    """CUDA events around the device work of the graph procedures:
+    ``graph_algos.pagerank_device`` and ``wcc_device`` and the link
+    prediction product (``topology._full_precision_matmul``'s upload,
+    ``torch.matmul`` and download), patched in for the ``with`` block.
+    The ``deviceprof`` ledger records no graph program in either package,
+    so this script times them itself. A no-op on a CPU device."""
+
+    def __init__(self, device) -> None:
+        self.on = getattr(device, "type", device) == "cuda"
+        self.ms: dict = {"pagerank": [], "wcc": [], "gemm": []}
+
+    def _timed(self, kind: str, fn):
+        import torch
+
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            end.synchronize()
+            self.ms[kind].append(start.elapsed_time(end))
+            return out
+
+        return call
+
+    def __enter__(self):
+        from nornicdb_tpu_torch.linkpredict import topology
+        from nornicdb_tpu_torch.ops import graph_algos as GA
+
+        self._saved = [(GA, "pagerank_device", GA.pagerank_device),
+                       (GA, "wcc_device", GA.wcc_device),
+                       (topology, "_full_precision_matmul",
+                        topology._full_precision_matmul)]
+        if self.on:
+            GA.pagerank_device = self._timed("pagerank", GA.pagerank_device)
+            GA.wcc_device = self._timed("wcc", GA.wcc_device)
+            mm = self._saved[2][2]
+            topology._full_precision_matmul = (
+                lambda dev: self._timed("gemm", mm(dev)))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def take(self, kind: str) -> str:
+        ms, self.ms[kind] = self.ms[kind], []
+        return ("device " + " + ".join(f"{t:.3f}" for t in ms) + " ms"
+                if ms else "device not measured (CPU)")
+
+
+def numpy_top(g, method: str, limit: int) -> list:
+    """``top_candidates`` ranked over ``batch_scores(use_device=False)``,
+    the port's numpy branch (the JAX package's own rule below 64 nodes)."""
+    from nornicdb_tpu_torch.linkpredict import batch_scores
+
+    s = batch_scores(g, method, use_device=False)
+    for i, nbrs in enumerate(g.neighbors):
+        for j in nbrs:
+            s[i, j] = 0.0
+    iu = np.triu_indices(g.n, k=1)
+    vals = s[iu]
+    out = []
+    for k in np.argsort(-vals)[:limit]:
+        if float(vals[k]) <= 0:
+            break
+        out.append((g.ids[int(iu[0][k])], g.ids[int(iu[1][k])],
+                    float(vals[k])))
+    return out
+
+
+def aa_ranking(g, source: str, top_k: int) -> list:
+    """``gds.linkPrediction.adamicAdar.stream``'s ranking of ``source``,
+    computed from ``score_pair`` over the candidates that share a
+    neighbour with it (no other pair scores above 0), in index order then
+    by score."""
+    from nornicdb_tpu_torch.linkpredict import score_pair
+
+    si = g.index[source]
+    near = g.neighbors[si]
+    cands = sorted({j for z in near for j in g.neighbors[z]} - near - {si})
+    scored = [(g.ids[j], score_pair(g, source, g.ids[j], "adamicAdar"))
+              for j in cands]
+    scored = [t for t in scored if t[1] > 0]
+    scored.sort(key=lambda t: -t[1])
+    return scored[:top_k]
+
+
+def gds_read(db, rng, times: GraphDeviceTimes) -> None:
+    """16a: GDS and APOC over phase 10's DB, which it leaves as it was."""
+    from nornicdb_tpu_torch.filter import Kalman, KalmanConfig
+    from nornicdb_tpu_torch.ops.graph_algos import (
+        bfs_distances_csr,
+        build_csr,
+    )
+    from nornicdb_tpu_torch.storage import attach_snapshot
+
+    n0, m0 = db.storage.node_count(), db.storage.edge_count()
+    snap = attach_snapshot(db.executor.storage)
+    assert snap.ensure(), "phase 10's adjacency snapshot"
+    view = snap.edge_arrays()
+    ids, src, dst = list(view.ids), view.src, view.dst
+    n = len(ids)
+    assert (n, len(src)) == (n0, m0), ((n, len(src)), (n0, m0))
+
+    def call(q: str, params=None) -> tuple:
+        t0 = time.perf_counter()
+        rows = db.cypher(q, params or {}).rows
+        return rows, time.perf_counter() - t0
+
+    # PageRank over every node
+    rows, t = call("CALL gds.pageRank.stream({maxIterations: 20, "
+                   "dampingFactor: 0.85}) YIELD node, score "
+                   "RETURN id(node), score")
+    assert [r[0] for r in rows] == ids, "pagerank rows vs the live ids"
+    ranks = np.asarray([r[1] for r in rows], np.float32)
+    t0 = time.perf_counter()
+    ref = pagerank_f64(src, dst, n)
+    t_ref = time.perf_counter() - t0
+    l1, top_rel = pagerank_error(ranks, ref)
+    log(f"[phase16] (a) gds.pageRank.stream over {n} nodes and {len(src)} "
+        f"edges of phase 10's DB: {t:.2f}s, {times.take('pagerank')}; L1 "
+        f"{l1:.4e} (at most {PR_L1_TOL:g}), top-{PR_TOP} relative error "
+        f"{top_rel:.4e} (at most {PR_TOP_REL_TOL:g}) against the float64 "
+        f"reference ({t_ref:.2f}s)")
+    assert np.isfinite(ranks).all()
+    assert l1 <= PR_L1_TOL, ("gds pagerank L1", l1)
+    assert top_rel <= PR_TOP_REL_TOL, ("gds pagerank top ranks", top_rel)
+
+    # components and degrees
+    rows, t = call("CALL gds.wcc.stream() YIELD node, componentId "
+                   "RETURN id(node), componentId")
+    labels = np.asarray([r[1] for r in rows], np.int32)
+    want = scipy_wcc(src, dst, n)
+    log(f"[phase16] (a) gds.wcc.stream: {t:.2f}s, {times.take('wcc')}; "
+        f"{len(np.unique(want))} components, equal to scipy's: "
+        f"{bool(np.array_equal(labels, want))}")
+    assert [r[0] for r in rows] == ids
+    assert np.array_equal(labels, want), "gds.wcc vs scipy"
+    rows, t = call("CALL gds.degree.stream() YIELD node, score "
+                   "RETURN id(node), score")
+    deg = np.bincount(src, minlength=n) + np.bincount(dst, minlength=n)
+    got = np.asarray([r[1] for r in rows])
+    log(f"[phase16] (a) gds.degree.stream: {t:.2f}s, equal to np.bincount: "
+        f"{bool(np.array_equal(got, deg))}")
+    assert [r[0] for r in rows] == ids and np.array_equal(got, deg)
+
+    # link prediction and paths from seeded sources
+    sources = [ids[i] for i in rng.choice(n, GDS_SOURCES, replace=False)]
+    g = snap.graph_view()
+    t_lp = 0.0
+    for s in sources:
+        rows, t = call("CALL gds.linkPrediction.adamicAdar.stream("
+                       "{sourceNode: $s, topK: 10}) YIELD node2, score "
+                       "RETURN id(node2), score", {"s": s})
+        t_lp += t
+        assert [tuple(r) for r in rows] == aa_ranking(g, s, 10), (
+            "adamicAdar.stream", s)
+    offsets, nbrs = build_csr(src, dst, n)
+    index = {nid: i for i, nid in enumerate(ids)}
+    t_path = t_hop = 0.0
+    n_paths = 0
+    for j, s in enumerate(sources):
+        dist = bfs_distances_csr(offsets, nbrs, index[s], n)
+        rows, t = call("CALL apoc.path.expand($s, null, null, 0, 2) "
+                       "YIELD path RETURN [x IN nodes(path) | id(x)]",
+                       {"s": s})
+        t_path += t
+        n_paths += len(rows)
+        reached: dict = {}
+        for (walk,) in rows:
+            assert walk[0] == s and len(walk) <= 3, walk
+            end = index[walk[-1]]
+            reached[end] = min(reached.get(end, 9), len(walk) - 1)
+        want = {int(i): int(dist[i])
+                for i in np.nonzero((dist >= 0) & (dist <= 2))[0]}
+        assert reached == want, ("apoc.path.expand vs BFS", s)
+        if j >= GDS_HOP_SOURCES:
+            continue
+        rows, t = call("CALL apoc.neighbors.byhop($s, null, 2) "
+                       "YIELD nodes, depth RETURN [x IN nodes | id(x)], depth",
+                       {"s": s})
+        t_hop += t
+        levels = {d: sorted(index[x] for x in xs) for xs, d in rows}
+        want = {d: np.nonzero(dist == d)[0].tolist() for d in (1, 2)}
+        assert levels == {d: v for d, v in want.items() if v}, (
+            "apoc.neighbors.byhop vs BFS", s)
+    log(f"[phase16] (a) {GDS_SOURCES} sources: adamicAdar.stream top 10 "
+        f"equal to score_pair's ranking over graph_view() ({t_lp:.2f}s); "
+        f"apoc.path.expand to depth 2 ({n_paths} paths, {t_path:.2f}s) and, "
+        f"from {GDS_HOP_SOURCES} of them, apoc.neighbors.byhop's levels "
+        f"({t_hop:.2f}s) equal to a BFS over the edge arrays")
+
+    # apoc.algo.pageRank over a subset, as an aggregate's argument
+    pick = np.sort(rng.choice(n, GDS_SUBSET, replace=False))
+    # the ids themselves (the function takes nodes or ids): a MATCH on
+    # id(x) IN $ids would test every node against the list
+    rows, t = call("UNWIND $ids AS i RETURN apoc.algo.pageRank(collect(i))",
+                   {"ids": [ids[i] for i in pick]})
+    got = rows[0][0]
+    remap = np.full(n, -1, np.int64)
+    remap[pick] = np.arange(len(pick))
+    keep = (remap[src] >= 0) & (remap[dst] >= 0)
+    ref = pagerank_f64(remap[src[keep]], remap[dst[keep]], len(pick))
+    sub = np.asarray([got[ids[i]] for i in pick], np.float32)
+    l1, top_rel = pagerank_error(sub, ref)
+    log(f"[phase16] (a) apoc.algo.pageRank(collect(i)) over {len(pick)} "
+        f"nodes ({int(keep.sum())} edges among them): {t:.2f}s, "
+        f"{times.take('pagerank')}; L1 {l1:.4e} against the float64 "
+        f"reference on the subgraph")
+    assert len(got) == len(pick) and l1 <= PR_L1_TOL, ("apoc pagerank", l1)
+
+    # pure APOC functions, then the Kalman functions
+    rows, t = call("UNWIND range(0, $n - 1) AS i RETURN i, "
+                   "apoc.text.join(['n', toString(i)], '-'), "
+                   "apoc.text.lpad(toString(i), 6, '0'), "
+                   "apoc.coll.sum([i, 2 * i, 3]), "
+                   "apoc.coll.sort([i % 7, i % 3, i % 5]), "
+                   "apoc.map.merge({a: i}, {b: i % 10})", {"n": GDS_ROWS})
+    want = [[i, f"n-{i}", str(i).rjust(6, "0"), 3 * i + 3,
+             sorted([i % 7, i % 3, i % 5]), {"a": i, "b": i % 10}]
+            for i in range(GDS_ROWS)]
+    log(f"[phase16] (a) apoc.text / apoc.coll / apoc.map over {GDS_ROWS} "
+        f"rows: {t:.2f}s, equal to Python's: {rows == want}")
+    assert rows == want, "pure APOC functions"
+    series = np.cumsum(rng.normal(0.0, 1.0, GDS_SERIES)).tolist()
+    k = Kalman(KalmanConfig(1e-3, 1e-1))
+    want = [k.process(x) for x in series]
+    smooth, t_s = call("RETURN kalman.smooth($xs)", {"xs": series})
+    filt, t_f = call("UNWIND $xs AS m RETURN kalman.filter('phase16', m)",
+                     {"xs": series})
+    pred, _ = call("RETURN kalman.predict('phase16')")
+    call("RETURN kalman.reset('phase16')")
+    log(f"[phase16] (a) kalman.smooth and kalman.filter over a seeded "
+        f"series of {GDS_SERIES}: {t_s * 1e3:.1f} / {t_f * 1e3:.1f}ms, equal "
+        f"to the filter module's Kalman: {smooth[0][0] == want} / "
+        f"{[r[0] for r in filt] == want}; predict {pred[0][0]:.4f}")
+    assert smooth[0][0] == want and [r[0] for r in filt] == want
+    assert pred[0][0] == k.predict()
+    assert (db.storage.node_count(), db.storage.edge_count()) == (n0, m0), (
+        "16a wrote to phase 10's DB")
+
+
+def gds_write(device, seed: int, times: GraphDeviceTimes) -> None:
+    """16b: the Graph500 graph in an in-memory DB on ``device``: the link
+    prediction GEMMs, FastRP, the host algorithms and the graph catalog;
+    then, in a second DB holding the subgraph of its GDS_CENTRAL
+    highest-degree vertices, the centralities, the writing procedures, a
+    trigger, and the export and import round trip into a third."""
+    import shutil
+
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.cypher import CypherExecutor
+    from nornicdb_tpu_torch.db import Config
+    from nornicdb_tpu_torch.ops import graph_algos as GA
+    from nornicdb_tpu_torch.storage import Edge, Node, attach_snapshot
+
+    cfg = Config(async_writes=False, embed_enabled=False,
+                 query_cache_enabled=False)
+    n = 1 << GDS_SCALE
+    ks, kd = kronecker_edges(GDS_SCALE, GRAPH_EDGEFACTOR, seed + 16)
+    ks, kd = ks.numpy(), kd.numpy()
+
+    def load(db, keep_nodes, s, d, tag: str) -> None:
+        for i in keep_nodes:
+            db.storage.create_node(Node(id=f"{tag}{i}", labels=["V"]))
+        for e, (a, b) in enumerate(zip(s.tolist(), d.tolist())):
+            db.storage.create_edge(Edge(
+                id=f"{tag}e{e}", start_node=f"{tag}{a}",
+                end_node=f"{tag}{b}", type="LINKS"))
+
+    def call(db, q: str, params=None) -> tuple:
+        t0 = time.perf_counter()
+        rows = db.cypher(q, params or {}).rows
+        return rows, time.perf_counter() - t0
+
+    mem = nornicdb_tpu_torch.open_db("", cfg, device=device)
+    other = nornicdb_tpu_torch.open_db("", cfg, device=device)
+    sub = nornicdb_tpu_torch.open_db("", cfg, device=device)
+    try:
+        assert mem.executor.device == mem.device
+        t0 = time.perf_counter()
+        load(mem, range(n), ks, kd, "g")
+        t_load = time.perf_counter() - t0
+        snap = attach_snapshot(mem.executor.storage)
+        assert snap.ensure()
+        view = snap.edge_arrays()
+        src, dst, ids = view.src, view.dst, list(view.ids)
+        g = snap.graph_view()
+        log(f"[phase16] (b) Graph500 SCALE {GDS_SCALE} (edgefactor "
+            f"{GRAPH_EDGEFACTOR}): {n} nodes and {len(ks)} edges through "
+            f"the storage API of an in-memory DB on {mem.device} in "
+            f"{t_load:.2f}s")
+
+        # suggest: the adjacency GEMMs on the card
+        for method in ("commonNeighbors", "adamicAdar"):
+            rows, t = call(mem, "CALL gds.linkPrediction.suggest($m, $k) "
+                           "YIELD node1, node2, score "
+                           "RETURN id(node1), id(node2), score",
+                           {"m": method, "k": LINK_LIMIT})
+            t0 = time.perf_counter()
+            want = numpy_top(g, method, LINK_LIMIT)
+            t_np = time.perf_counter() - t0
+            got = [tuple(r) for r in rows]
+            cut = want[-1][2] * (1 + LINK_TOL) + LINK_TOL
+            log(f"[phase16] (b) gds.linkPrediction.suggest({method}, "
+                f"{LINK_LIMIT}): {t:.2f}s, {times.take('gemm')}; the numpy "
+                f"branch {t_np:.2f}s; top {got[:2]}")
+            assert len(got) == len(want) == LINK_LIMIT
+            if method == "commonNeighbors":
+                assert got == want, ("suggest commonNeighbors", got, want)
+            else:
+                assert ({r[:2] for r in got if r[2] > cut}
+                        == {r[:2] for r in want if r[2] > cut}), (got, want)
+                for a, b in zip(got, want):
+                    assert abs(a[2] - b[2]) <= LINK_TOL * abs(b[2]), (a, b)
+
+        # FastRP: host numpy in both packages, so bit-equal on the CPU
+        q = (f"CALL gds.fastRP.stream({{embeddingDimension: {GDS_DIM}, "
+             "randomSeed: 42}) YIELD nodeId, embedding "
+             "RETURN nodeId, embedding")
+        rows, t = call(mem, q)
+        emb = np.asarray([r[1] for r in rows])
+        norms = np.linalg.norm(emb, axis=1)
+        linked = np.asarray([len(x) > 0 for x in g.neighbors])
+        same = CypherExecutor(mem.storage, schema=mem.schema,
+                              device="cpu").execute(q).rows == rows
+        log(f"[phase16] (b) gds.fastRP.stream({GDS_DIM}): {t:.2f}s, "
+            f"{emb.shape}, norms of the {int(linked.sum())} linked nodes in "
+            f"[{norms[linked].min():.6f}, {norms[linked].max():.6f}], "
+            f"{int((~linked).sum())} unlinked ones zero, equal to a CPU "
+            f"executor's: {same}")
+        assert emb.shape == (n, GDS_DIM) and [r[0] for r in rows] == ids
+        assert np.allclose(norms[linked], 1.0, atol=1e-5)
+        assert not norms[~linked].any() and same
+
+        # the host algorithms, each against the same function
+        for q, fn, col in (
+                ("gds.louvain.stream", GA.louvain, "communityId"),
+                ("gds.scc.stream", GA.strongly_connected_components,
+                 "componentId"),
+                ("gds.kcore.stream", GA.k_core, "coreValue"),
+                ("gds.triangleCount.stream", GA.triangle_counts,
+                 "triangleCount")):
+            rows, t = call(mem, f"CALL {q}() YIELD node, {col} "
+                           f"RETURN id(node), {col}")
+            want = fn(src, dst, n)
+            log(f"[phase16] (b) {q}: {t:.2f}s, equal to graph_algos over "
+                f"the snapshot's arrays: "
+                f"{[r[1] for r in rows] == [int(v) for v in want]}")
+            assert [r[0] for r in rows] == ids
+            assert [r[1] for r in rows] == [int(v) for v in want], q
+        steps = [("CALL gds.graph.project('g', 'V', 'LINKS')",
+                  [["g", n, len(ks)]]),
+                 ("CALL gds.graph.list()", [["g", n, len(ks)]]),
+                 ("CALL gds.graph.drop('g')", [["g"]]),
+                 ("CALL gds.graph.exists('g')", [["g", False]])]
+        for q, want in steps:
+            assert call(mem, q)[0] == want, q
+        log("[phase16] (b) gds.graph.project / list / drop / exists: counts "
+            f"{n} nodes, {len(ks)} relationships")
+
+        # betweenness and closeness (host Brandes, O(n m)) on a subgraph
+        deg = np.bincount(ks, minlength=n) + np.bincount(kd, minlength=n)
+        top = np.sort(np.argsort(-deg, kind="stable")[:GDS_CENTRAL])
+        inside = np.zeros(n, bool)
+        inside[top] = True
+        keep = inside[ks] & inside[kd]
+        load(sub, top.tolist(), ks[keep], kd[keep], "c")
+        csnap = attach_snapshot(sub.executor.storage)
+        assert csnap.ensure()
+        cview = csnap.edge_arrays()
+        for q, fn in (("gds.betweenness.stream", GA.betweenness_centrality),
+                      ("gds.closeness.stream", GA.closeness_centrality)):
+            rows, t = call(sub, f"CALL {q}() YIELD node, score "
+                           "RETURN id(node), score")
+            want = [float(v) for v in fn(cview.src, cview.dst,
+                                         len(cview.ids))]
+            log(f"[phase16] (b) {q} over the {GDS_CENTRAL} highest-degree "
+                f"vertices ({int(keep.sum())} edges): {t:.2f}s, equal to "
+                f"graph_algos: {[r[1] for r in rows] == want}")
+            assert [r[0] for r in rows] == list(cview.ids)
+            assert [r[1] for r in rows] == want, q
+
+        # writing procedures, each with its counts, then the trigger and
+        # the export, in the smaller DB (its 56,583 edges import in a third
+        # of the big one's time)
+        n_nodes, n_edges = sub.storage.node_count(), sub.storage.edge_count()
+        rows, _ = call(sub, "CALL apoc.create.nodes(['W'], $ps) YIELD node "
+                       "RETURN id(node)",
+                       {"ps": [{"k": i} for i in range(100)]})
+        made = [r[0] for r in rows]
+        rows, _ = call(sub, "CALL apoc.create.node(['W', 'Hub'], {k: -1}) "
+                       "YIELD node RETURN id(node)")
+        hub = rows[0][0]
+        rows, _ = call(sub, "MATCH (h:Hub), (w:W) WHERE w.k >= 0 "
+                       "CALL apoc.create.relationship(h, 'OWNS', {w: w.k}, w) "
+                       "YIELD rel RETURN count(rel)")
+        assert rows == [[100]], rows
+        merged = []
+        for k in (7, 7, 500, 500):  # k 7 exists; 500 is made once
+            rows, _ = call(sub, "CALL apoc.merge.node(['W'], {k: $k}, "
+                           "{fresh: true}) YIELD node RETURN id(node)",
+                           {"k": k})
+            merged.append(rows[0][0])
+        assert merged[0] == merged[1] in made and merged[2] == merged[3]
+        assert merged[2] not in made
+        rows, _ = call(sub, "MATCH (h:Hub), (w:W {k: 3}) CALL "
+                       "apoc.merge.relationship(h, 'OWNS', {w: 3}, {}, w) "
+                       "YIELD rel RETURN count(rel)")
+        assert rows == [[1]]
+        rows, _ = call(sub, "CALL apoc.refactor.rename.label('W', 'Owned') "
+                       "YIELD total RETURN total")
+        assert rows == [[102]], rows  # 100 + the hub + {k: 500}
+        rows, _ = call(sub, "CALL apoc.refactor.rename.type('OWNS', 'HOLDS') "
+                       "YIELD total RETURN total")
+        assert rows == [[100]], rows
+        rows, _ = call(sub, "MATCH (:Hub)-[r:HOLDS]->(w {k: 0}) "
+                       "CALL apoc.refactor.invert(r) YIELD output "
+                       "RETURN type(output)")
+        assert rows == [["HOLDS"]]
+        rows, _ = call(sub, "CALL apoc.periodic.iterate("
+                       "'MATCH (o:Owned) RETURN o', 'SET o.seen = true', "
+                       "{batchSize: 25}) YIELD batches, total, failedBatches "
+                       "RETURN batches, total, failedBatches")
+        assert rows == [[5, 102, 0]], rows
+        seen, _ = call(sub, "MATCH (o:Owned) WHERE o.seen RETURN count(o)")
+        assert seen == [[102]], seen
+        assert (sub.storage.node_count(), sub.storage.edge_count()) == (
+            n_nodes + 102, n_edges + 100), "writing procedures' counts"
+
+        # a trigger fired by GDS_TRIGGERED creates
+        call(sub, "CALL apoc.trigger.add('audit', 'UNWIND $createdNodes AS x "
+             "CREATE (:Audit {of: x.k})', {label: 'Watched', "
+             "event: 'create'}) YIELD name RETURN name")
+        rows, t = call(sub, "UNWIND range(1, $n) AS i "
+                       "CREATE (:Watched {k: i})", {"n": GDS_TRIGGERED})
+        audit, _ = call(sub, "MATCH (a:Audit) RETURN count(a), sum(a.of)")
+        fired, _ = call(sub, "CALL apoc.trigger.list() YIELD name, fired, "
+                        "errors RETURN name, fired, errors")
+        call(sub, "CALL apoc.trigger.remove('audit') YIELD name RETURN name")
+        log(f"[phase16] (b) apoc.create / merge / refactor / periodic.iterate "
+            f"with their counts; apoc.trigger.add fired by {GDS_TRIGGERED} "
+            f"creates in {t:.2f}s: audit {audit}, {fired}")
+        assert audit == [[GDS_TRIGGERED,
+                          GDS_TRIGGERED * (GDS_TRIGGERED + 1) // 2]], audit
+        assert fired == [["audit", GDS_TRIGGERED, 0]], fired
+
+        # export with the gate set, import into another in-memory DB
+        shutil.rmtree(APOC_DIR, ignore_errors=True)
+        os.makedirs(APOC_DIR)
+        path = os.path.join(APOC_DIR, "phase16.jsonl")
+        gates = ("NORNICDB_APOC_EXPORT_ENABLED",
+                 "NORNICDB_APOC_IMPORT_ENABLED")
+        saved = {v: os.environ.get(v) for v in gates}
+        os.environ.update({v: "1" for v in gates})
+        try:
+            rows, t_ex = call(sub, "CALL apoc.export.json.all($f, {}) YIELD "
+                              "nodes, relationships RETURN nodes, "
+                              "relationships", {"f": path})
+            back, t_im = call(other, "CALL apoc.import.json($f) YIELD nodes, "
+                              "relationships RETURN nodes, relationships",
+                              {"f": path})
+        finally:
+            for v, val in saved.items():
+                if val is None:
+                    os.environ.pop(v, None)
+                else:
+                    os.environ[v] = val
+        counts = [[sub.storage.node_count(), sub.storage.edge_count()]]
+        log(f"[phase16] (b) apoc.export.json.all {rows} in {t_ex:.2f}s "
+            f"({os.path.getsize(path)} bytes), apoc.import.json {back} in "
+            f"{t_im:.2f}s; counts {counts} and "
+            f"{[[other.storage.node_count(), other.storage.edge_count()]]}")
+        assert rows == back == counts, (rows, back, counts)
+        assert [[other.storage.node_count(),
+                 other.storage.edge_count()]] == counts
+        shutil.rmtree(APOC_DIR, ignore_errors=True)
+    finally:
+        for d in (mem, other, sub):
+            d.close()
+
+
+def phase_gds_apoc(K, db, seed: int) -> None:
+    """Phase 16: GDS and APOC through ``db.cypher`` on the executor's
+    device, after 10.9 and before phase 9. (a) over phase 10's DB, read
+    only: ``gds.pageRank.stream`` over every node (phase 12's bounds
+    against float64 over the snapshot's ``edge_arrays()``), ``gds.wcc``
+    (scipy's components), ``gds.degree`` (``np.bincount``),
+    ``adamicAdar.stream`` from GDS_SOURCES sources (``score_pair``'s
+    ranking), ``apoc.path.expand`` (and ``apoc.neighbors.byhop`` from
+    GDS_HOP_SOURCES of them) to depth 2 (a BFS),
+    ``apoc.algo.pageRank(collect(i))`` over GDS_SUBSET ids, pure
+    APOC functions over GDS_ROWS rows and the Kalman functions; node and
+    edge counts equal before and after. (b) in-memory DBs on the same
+    device: ``suggest`` (the GEMMs on the card) against the numpy branch,
+    FastRP against a CPU executor, Louvain / SCC / k-core / triangles
+    against ``graph_algos``, the graph catalog, betweenness and closeness
+    on a subgraph, the writing procedures, a trigger and the export /
+    import round trip. ``dbms.procedures()`` lists the new names. Logged:
+    each call's wall time and the device time of the PageRank, WCC and
+    GEMM calls (CUDA events). No kernel of the ``kernels`` line is on this
+    path: its launches are read and logged."""
+    rng = np.random.default_rng(seed + 16)
+    names = {r[0] for r in db.cypher("CALL dbms.procedures() YIELD name "
+                                     "RETURN name").rows}
+    for want in ("gds.pagerank.stream", "gds.linkprediction.suggest",
+                 "apoc.path.expand", "apoc.trigger.add"):
+        assert want in names, want
+    K.reset_launch_counts()
+    with GraphDeviceTimes(db.device) as times:
+        t0 = time.perf_counter()
+        gds_read(db, rng, times)
+        log(f"[phase16] (a) {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        gds_write(db.device, seed, times)
+        log(f"[phase16] (b) {time.perf_counter() - t0:.1f}s")
+    log(f"[phase16] kernel launches on this path: {K.launch_counts()} "
+        f"(none expected: torch ops and torch.matmul)")
+
+
 # ---------------------------------------------------------------- phase 15
 def start_device_owner() -> None:
     """The process-default device owner, started before any consumer: it
@@ -5509,6 +6103,27 @@ def start_device_owner() -> None:
         f"{mgr.probe_latency_threshold}s")
 
 
+GDS_PAGERANK = ("CALL gds.pageRank.stream({maxIterations: 20}) "
+                "YIELD node, score RETURN id(node), score")
+
+
+def gds_executors(seed: int, mgr) -> tuple:
+    """A Graph500 Kronecker graph of SCALE 10 in a MemoryEngine, an
+    executor on the card behind ``mgr`` and one on the CPU."""
+    from nornicdb_tpu_torch.cypher import CypherExecutor
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    ks, kd = kronecker_edges(10, GRAPH_EDGEFACTOR, seed + 151)
+    eng = MemoryEngine()
+    for i in range(1 << 10):
+        eng.create_node(Node(id=f"k{i}"))
+    for e, (a, b) in enumerate(zip(ks.tolist(), kd.tolist())):
+        eng.create_edge(Edge(id=f"ke{e}", start_node=f"k{a}",
+                             end_node=f"k{b}"))
+    return (CypherExecutor(eng, device="cuda", backend=mgr),
+            CypherExecutor(eng, device="cpu"))
+
+
 def phase_device_owner(seed: int) -> None:
     """Phase 15: the device owner's transitions on the card, with a
     private manager (the process default keeps serving). A
@@ -5517,7 +6132,10 @@ def phase_device_owner(seed: int) -> None:
     DeviceUnavailable within 1.5 s; after ``set_mode("ok")`` the manager
     goes through RECOVERING to READY with one recovery, and the card
     answers with the ids a corpus of the same rows under the process
-    default gave. A second hang degrades the manager: a search raises at
+    default gave; a ``CypherExecutor`` behind the same manager refuses
+    ``gds.pageRank.stream`` while it hangs and serves it on the card after
+    the recovery (ranks within PR_L1_TOL of a CPU executor's). A second
+    hang degrades the manager: a search raises at
     once, and a row written meanwhile is patched into the resident buffer
     after the second recovery (no whole-corpus upload), where the card
     finds it. A second private manager with the real hooks acquires the
@@ -5588,11 +6206,29 @@ def phase_device_owner(seed: int) -> None:
         t_again, _ = refused(c)
         assert t_again < 0.05, ("a degraded owner made a caller wait",
                                 t_again)
+        # a Cypher executor behind the same owner: GDS is refused too
+        ex, cpu_ex = gds_executors(seed, mgr)
+        t0 = time.perf_counter()
+        try:
+            ex.execute(GDS_PAGERANK)
+            raise AssertionError("gds.pageRank.stream on a hung owner")
+        except DeviceUnavailable:
+            t_gds = time.perf_counter() - t0
         hooks.set_mode("ok")
         t_recover = wait(mgr, READY, 10)
         path = [t["to"] for t in mgr.stats()["transitions"]]
         assert path[-2:] == [RECOVERING, READY], path
         assert mgr.counters.recoveries == 1, mgr.counters
+        got = {r[0]: r[1] for r in ex.execute(GDS_PAGERANK).rows}
+        want = {r[0]: r[1] for r in cpu_ex.execute(GDS_PAGERANK).rows}
+        assert got.keys() == want.keys()
+        l1_gds = float(sum(abs(got[k] - want[k]) for k in want))
+        assert l1_gds <= PR_L1_TOL, ("gds.pageRank.stream after recovery",
+                                     l1_gds)
+        log(f"[phase15] an executor behind the hung owner refused "
+            f"gds.pageRank.stream with DeviceUnavailable in {t_gds:.4f}s; "
+            f"after the recovery it served it on the card, L1 {l1_gds:.3e} "
+            f"to a CPU executor's ranks over {len(want)} nodes")
         t0 = time.perf_counter()
         got = c.search(qs, k=10, exact=True)
         torch.cuda.synchronize()
@@ -5908,6 +6544,9 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_cypher(K, db, served, args.seed)
         log(f"[phase10.9] {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        phase_gds_apoc(K, db, args.seed)
+        log(f"[phase16] {time.perf_counter() - t0:.1f}s")
         # 14b's replay and 14c's crash children, beside phases 9 to 12
         start_children(args.seed)
         try:

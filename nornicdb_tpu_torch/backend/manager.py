@@ -498,6 +498,13 @@ class BackendManager:
                 (time.time(), old, new, reason)
             )
             del self.counters.transitions[:-50]
+            # counted before a waiter can see the new state (JAX counts
+            # after the lock, so a caller woken on READY may read the
+            # previous count; ROADMAP §C)
+            if new == DEGRADED_CPU:
+                self.counters.degrades += 1
+            if old in (RECOVERING, DEGRADED_CPU) and new == READY:
+                self.counters.recoveries += 1
             self._cond.notify_all()
         logger.warning("backend %s -> %s (%s)", old, new, reason)
         if self._publish:
@@ -507,10 +514,6 @@ class BackendManager:
                 _DEGRADES.inc()
             if old in (RECOVERING, DEGRADED_CPU) and new == READY:
                 _RECOVERIES.inc()
-        if new == DEGRADED_CPU:
-            self.counters.degrades += 1
-        if old in (RECOVERING, DEGRADED_CPU) and new == READY:
-            self.counters.recoveries += 1
         # state transitions are recorded as single-span traces so
         # /admin/traces shows the lifecycle timeline next to request traces
         with _tracer.start_trace(

@@ -4,12 +4,13 @@
 Device policy: the executor takes ``device`` (None means CUDA and raises
 DeviceUnavailable without a card; the CPU only when the caller names it)
 and an optional ``backend`` (a BackendManager to gate through instead of
-the process default). Only the columnar engine's two offloads (ORDER BY ...
-LIMIT top-k and VectorTopK) run on it. ``db.index.vector.queryNodes`` goes
-through the DB's ``search.vector_candidates`` (the streaming top-k kernel
-at scale), ``db.index.fulltext.queryNodes`` through ``search/bm25.py``.
-APOC and GDS are not ported yet (ROADMAP A5b): calling one raises a
-CypherSyntaxError that says so.
+the process default). The columnar engine's two offloads (ORDER BY ...
+LIMIT top-k and VectorTopK) run on it, and so do the graph procedures'
+PageRank, weakly connected components and link-prediction GEMMs
+(``cypher/gds_procedures.py``, ``apoc/functions_graph2.py``), each after
+the device owner's gate. ``db.index.vector.queryNodes`` goes through the
+DB's ``search.vector_candidates`` (the streaming top-k kernel at scale),
+``db.index.fulltext.queryNodes`` through ``search/bm25.py``.
 
 Behavioral reference: upstream NornicDB pkg/cypher/executor.go (Execute
 :490-695), match.go, create.go, merge.go, executor_mutations.go, call.go,
@@ -1242,6 +1243,11 @@ class CypherExecutor:
             fn = FUNCTIONS.get(expr.name) or self.lookup_function(expr.name)
             if fn is None:
                 raise CypherSyntaxError(f"unknown function {expr.name}()")
+            if getattr(fn, "needs_executor", False):
+                # as evaluate() calls it: apoc.algo.pageRank(collect(n))
+                # (the JAX package passes no executor here and raises
+                # TypeError; ROADMAP §C, recorded differences)
+                return fn(self, *args)
             return fn(*args)
         raise CypherSyntaxError("invalid aggregate expression")
 
@@ -1267,7 +1273,6 @@ class CypherExecutor:
     def _call(self, clause: ast.CallClause, rows, params, stats) -> list[dict]:
         fn = PROCEDURES.get(clause.procedure)
         if fn is None:
-            _refuse_unported(clause.procedure, "procedure")
             raise CypherSyntaxError(f"unknown procedure {clause.procedure}")
         self._last_call_columns: list[str] = []
         out = []
@@ -1498,7 +1503,13 @@ class CypherExecutor:
         fn = self._plugin_functions.get(name)
         if fn is not None:
             return fn
-        _refuse_unported(name, "function")
+        if name.startswith("apoc."):
+            try:
+                from nornicdb_tpu_torch.apoc import lookup as apoc_lookup
+
+                return apoc_lookup(name)
+            except ImportError:
+                return None
         return None
 
     def register_function(self, name: str, fn: Callable) -> None:
@@ -2266,19 +2277,6 @@ def proc_prop_keys(ex: CypherExecutor, args, row):
     return ["propertyKey"], [[k] for k in sorted(keys)]
 
 
-_UNPORTED_PREFIXES = ("apoc.", "gds.", "kalman.")
-
-
-def _refuse_unported(name: str, kind: str) -> None:
-    """APOC and GDS (with the Kalman functions GDS registers) are not
-    ported yet (ROADMAP A5b): a call names that
-    instead of answering silently or as an unknown name."""
-    if name.lower().startswith(_UNPORTED_PREFIXES):
-        raise CypherSyntaxError(
-            f"{kind} {name} is not ported yet (ROADMAP A5b: APOC and GDS)"
-        )
-
-
 @procedure("dbms.components")
 def proc_components(ex: CypherExecutor, args, row):
     from nornicdb_tpu_torch import __version__
@@ -2508,6 +2506,11 @@ def proc_db_stats_retrieve(ex: CypherExecutor, args, row):
                 "nodes": ex.storage.node_count(),
                 "relationships": ex.storage.edge_count(),
             }]])
+
+
+@procedure("gds.version")
+def proc_gds_version(ex: CypherExecutor, args, row):
+    return ["version"], [["2.5.0-nornicdb-tpu"]]
 
 
 @procedure("nornicdb.version")

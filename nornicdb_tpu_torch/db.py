@@ -32,7 +32,9 @@ database (dropped by ``invalidate_database_cache``, which the
 ``DatabaseManager`` calls on DROP DATABASE and limit changes) and
 ``session_executor`` makes a fresh one for a session's explicit
 transactions. ``cypher_stats`` reads the columnar engine's counters
-without building an executor. APOC and GDS come with ROADMAP A5b.
+without building an executor. The GDS and APOC procedures run through
+the same executor; their PageRank, components and link-prediction GEMMs
+on its device.
 
 Not ported yet (ROADMAP A6): ``decay``, ``temporal`` and
 ``qdrant_registry``. ``Config.decay_enabled`` (default False) is refused

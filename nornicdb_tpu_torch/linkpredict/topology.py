@@ -125,6 +125,11 @@ def score_pair(g: Graph, a_id: str, b_id: str, method: str = "adamicAdar") -> fl
 
 
 # ---------------------------------------------------------------- batch (device)
+#: batch_scores runs its GEMMs on the device from this many nodes up (the
+#: JAX package's rule); below it numpy computes them
+DEVICE_MIN_NODES = 64
+
+
 def _full_precision_matmul(dev: torch.device):
     """``mm(x, y)`` for host float32 arrays: one float32 ``torch.matmul`` on
     ``dev`` at full precision. The process-wide float32 matmul precision is
@@ -164,7 +169,7 @@ def batch_scores(
         for j in nbrs:
             a[i, j] = 1.0
     deg = a.sum(axis=1)
-    if use_device and n >= 64:
+    if use_device and n >= DEVICE_MIN_NODES:
         mm = _full_precision_matmul(resolve_device(device))
     else:
         mm = np.matmul

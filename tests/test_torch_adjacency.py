@@ -7,9 +7,11 @@ flush), through bare engines and through the async overlay, go through
 twin engines of both packages; every read of the snapshot API
 (``expand_pairs``, ``expand_frontier``, ``bfs_distances``, ``csr_view``,
 ``export_arrays``, ``edge_arrays``, ``graph_view``) must agree.
-``build_graph``'s snapshot branch must equal its scan branch. The
-non-Cypher cases of ``tests/test_adjacency.py`` run against the port (its
-Cypher equivalence suite waits for the port's executor).
+``build_graph``'s snapshot branch must equal its scan branch. The cases
+of ``tests/test_adjacency.py`` run against the port, its Cypher
+equivalence suite (the CSR path against the engine-scan path, through the
+matcher and the GDS procedures) included, with the executor on the CPU;
+``TestStatsSurfacing`` waits for the port's server (ROADMAP A6).
 """
 
 import threading
@@ -22,11 +24,18 @@ import pytest
 import nornicdb_tpu.storage as jax_storage
 from nornicdb_tpu.linkpredict import build_graph as jax_build_graph
 import nornicdb_tpu_torch.storage as port_storage
+from nornicdb_tpu_torch.cypher import CypherExecutor as _PortExecutor
 from nornicdb_tpu_torch.linkpredict import build_graph
 from nornicdb_tpu_torch.ops import graph_algos
 from nornicdb_tpu_torch.storage import MemoryEngine, attach_snapshot
 from nornicdb_tpu_torch.storage.adjacency import AdjacencySnapshot
 from nornicdb_tpu_torch.storage.types import Edge, Node
+
+
+def CypherExecutor(*args, **kwargs):
+    """The port's executor on the CPU (``device=None`` would mean CUDA)."""
+    kwargs.setdefault("device", "cpu")
+    return _PortExecutor(*args, **kwargs)
 
 
 # ---- cases of tests/test_adjacency.py, against the port
@@ -48,6 +57,209 @@ def _populate(engines, n_people=14, seed=5):
         for eid, s, d, t in edges:
             eng.create_edge(Edge(id=eid, start_node=s, end_node=d, type=t))
     return k  # next edge serial
+
+
+class Twins:
+    """Fast executor (CSR snapshot) and slow executor (engine-scan paths
+    forced) over identical engines; every mutation is applied to both."""
+
+    def __init__(self, n_people=14, seed=5):
+        self.fast_eng = MemoryEngine()
+        self.slow_eng = MemoryEngine()
+        self.serial = _populate([self.fast_eng, self.slow_eng],
+                                n_people, seed)
+        self.fast = CypherExecutor(self.fast_eng)
+        self.slow = CypherExecutor(self.slow_eng)
+        # force every engine-scan fallback on the slow twin
+        self.slow.matcher._snapshot = False
+        self.slow._adj_snapshot_cache = False
+        self.snap = attach_snapshot(self.fast_eng)
+        assert self.snap.ensure()
+
+    def both(self, fn):
+        fn(self.fast_eng)
+        fn(self.slow_eng)
+
+    def add_edge(self, s, d, t="KNOWS"):
+        eid = f"e{self.serial}"
+        self.serial += 1
+        self.both(lambda e: e.create_edge(
+            Edge(id=eid, start_node=s, end_node=d, type=t)))
+        return eid
+
+    def del_edge(self, eid):
+        self.both(lambda e: e.delete_edge(eid))
+
+    def retype_edge(self, eid, new_type):
+        def upd(eng):
+            e = eng.get_edge(eid)
+            e.type = new_type
+            eng.update_edge(e)
+        self.both(upd)
+
+    def add_node(self, nid, labels=("Person",)):
+        k = int(nid.lstrip("p")) if nid.lstrip("p").isdigit() else 99
+        self.both(lambda e: e.create_node(
+            Node(id=nid, labels=list(labels),
+                 properties={"k": k, "name": nid})))
+
+    def del_node(self, nid):
+        self.both(lambda e: e.delete_node(nid))
+
+    def assert_rows_equal(self, query, params=None):
+        f = self.fast.execute(query, params or {}).rows
+        s = self.slow.execute(query, params or {}).rows
+        assert f == s, f"{query}\nfast={f}\nslow={s}"
+
+    def assert_close(self, query, params=None):
+        f = self.fast.execute(query, params or {}).rows
+        s = self.slow.execute(query, params or {}).rows
+        assert len(f) == len(s), query
+        for rf, rs in zip(sorted(f), sorted(s)):
+            np.testing.assert_allclose(rf[1:], rs[1:], rtol=1e-5,
+                                       atol=1e-6, err_msg=query)
+            assert rf[0] == rs[0], query
+
+    def assert_partition_equal(self, query):
+        """Community/component labels are arbitrary ids: compare the
+        induced partitions, not the raw values."""
+        def parts(rows):
+            groups = {}
+            for nid, label in rows:
+                groups.setdefault(label, set()).add(nid)
+            return sorted(frozenset(g) for g in groups.values())
+        f = self.fast.execute(query).rows
+        s = self.slow.execute(query).rows
+        assert parts(f) == parts(s), query
+
+
+MATCH_QUERIES = [
+    # var-length, typed and untyped, directed and not, zero-length
+    "MATCH (a:Person {k: 0})-[:KNOWS*1..3]->(b) RETURN b.k ORDER BY b.k",
+    "MATCH (a:Person {k: 2})-[:KNOWS|LIKES*1..2]-(b) RETURN count(*)",
+    "MATCH (a:Person {k: 1})-[r:KNOWS*2]->(b:Person) "
+    "RETURN size(r), b.k ORDER BY b.k",
+    "MATCH p = (a:Person {k: 3})-[:KNOWS*0..2]->(b) "
+    "RETURN length(p), b.k ORDER BY length(p), b.k",
+    # plain expansion riding the snapshot one-hop path
+    "MATCH (a:Person {k: 4})-[:KNOWS]->(b) RETURN b.k ORDER BY b.k",
+    # bound target: both endpoints fixed before the var-length expansion
+    "MATCH (a:Person {k: 0}), (b:Person {k: 9}) "
+    "MATCH (a)-[*1..3]->(b) RETURN count(*)",
+    # shortest paths
+    "MATCH p = shortestPath((a:Person {k: 0})-[*..6]->(b:Person {k: 9})) "
+    "RETURN length(p), [n IN nodes(p) | n.k]",
+    "MATCH p = shortestPath((a:Person {k: 5})-[:KNOWS*..8]-(b:Person {k: 11})) "
+    "RETURN length(p)",
+    "MATCH p = allShortestPaths((a:Person {k: 1})-[*..5]->(b:Person {k: 8})) "
+    "RETURN length(p), [n IN nodes(p) | n.k] ORDER BY 2",
+]
+
+GDS_FLOAT_QUERIES = [
+    "CALL gds.pagerank.stream() YIELD node, score RETURN node.k, score",
+    "CALL gds.degree.stream({orientation: 'NATURAL'}) "
+    "YIELD node, score RETURN node.k, score",
+    "CALL gds.closeness.stream() YIELD node, score RETURN node.k, score",
+    "CALL gds.betweenness.stream() YIELD node, score RETURN node.k, score",
+    "CALL gds.localclusteringcoefficient.stream() "
+    "YIELD node, localClusteringCoefficient AS c RETURN node.k, c",
+]
+
+GDS_EXACT_QUERIES = [
+    "CALL gds.trianglecount.stream() YIELD node, triangleCount "
+    "RETURN node.k, triangleCount ORDER BY node.k",
+    "CALL gds.kcore.stream() YIELD node, coreValue "
+    "RETURN node.k, coreValue ORDER BY node.k",
+    "CALL gds.graph.density() YIELD density RETURN density",
+]
+
+GDS_PARTITION_QUERIES = [
+    "CALL gds.wcc.stream() YIELD node, componentId RETURN node.k, componentId",
+    "CALL gds.scc.stream() YIELD node, componentId RETURN node.k, componentId",
+    "CALL gds.labelpropagation.stream() YIELD node, communityId "
+    "RETURN node.k, communityId",
+    "CALL gds.louvain.stream() YIELD node, communityId "
+    "RETURN node.k, communityId",
+]
+
+LINKPRED_QUERIES = [
+    "CALL gds.linkprediction.adamicadar('p0', 'p7') YIELD score RETURN score",
+    "CALL gds.linkprediction.jaccard('p2', 'p9') YIELD score RETURN score",
+    "CALL gds.linkprediction.commonneighbors('p1', 'p5') "
+    "YIELD score RETURN score",
+    "CALL gds.linkprediction.preferentialattachment('p3', 'p8') "
+    "YIELD score RETURN score",
+    "CALL gds.linkprediction.resourceallocation('p0', 'p11') "
+    "YIELD score RETURN score",
+    "CALL gds.linkprediction.suggest('adamicAdar', 5) "
+    "YIELD node1, node2, score RETURN node1.name, node2.name, score",
+]
+
+
+class TestEquivalence:
+    """CSR path vs engine-scan path: identical results, including under
+    interleaved create / retype / delete mutations of edges and nodes."""
+
+    def _check_all(self, tw: Twins):
+        for q in MATCH_QUERIES:
+            tw.assert_rows_equal(q)
+        for q in GDS_FLOAT_QUERIES:
+            tw.assert_close(q)
+        for q in GDS_EXACT_QUERIES:
+            tw.assert_rows_equal(q)
+        for q in GDS_PARTITION_QUERIES:
+            tw.assert_partition_equal(q)
+        for q in LINKPRED_QUERIES:
+            tw.assert_rows_equal(q)
+
+    def test_equivalence_under_mutations(self):
+        tw = Twins()
+        self._check_all(tw)
+
+        # round 1: adds (delta-buffer path, no merge)
+        e_new = tw.add_edge("p0", "p9", "KNOWS")
+        tw.add_edge("p9", "p12", "LIKES")
+        self._check_all(tw)
+
+        # round 2: deletes (CSR tombstones) incl. a delta-buffered edge
+        tw.del_edge(e_new)
+        tw.del_edge("e1")
+        self._check_all(tw)
+
+        # round 3: type update (remove+add in the snapshot)
+        tw.retype_edge("e4", "LIKES")
+        self._check_all(tw)
+
+        # round 4: node churn — cascade deletes + a new node wired in
+        tw.del_node("p13")
+        tw.add_node("p14")
+        tw.add_edge("p14", "p0", "KNOWS")
+        tw.add_edge("p6", "p14", "KNOWS")
+        self._check_all(tw)
+
+        # round 5: force a delta merge, then verify again
+        tw.snap.merge_threshold = 1
+        assert tw.snap.ensure()
+        assert tw.snap.stats_snapshot()["delta_merges"] >= 1
+        self._check_all(tw)
+
+    def test_equivalence_after_node_resurrection(self):
+        tw = Twins()
+        tw.del_node("p3")
+        tw.add_node("p3")
+        tw.add_edge("p3", "p0", "KNOWS")
+        self._check_all(tw)
+
+    def test_breadth_cap_falls_back_to_generic_walk(self, monkeypatch):
+        """Past MAX_BATCHED_PATHS live partial paths the batched walk hands
+        the query to the lazy generic DFS — results stay identical."""
+        from nornicdb_tpu_torch.cypher import matcher as matcher_mod
+
+        tw = Twins()
+        monkeypatch.setattr(matcher_mod, "MAX_BATCHED_PATHS", 4)
+        for q in MATCH_QUERIES:
+            tw.assert_rows_equal(q)
+
 
 
 class CountingEngine(MemoryEngine):
@@ -350,6 +562,33 @@ class TestMicrobench:
 
 
 class TestGenerationInvalidation:
+    def test_pagerank_sees_count_neutral_topology_change(self):
+        """Regression: the old `_edge_arrays` cache keyed on (node_count,
+        edge_count) served stale topology when a CREATE+DELETE pair left
+        the counts unchanged. The generation-tagged snapshot must not."""
+        eng = MemoryEngine()
+        for nid in ("a", "b", "c"):
+            eng.create_node(Node(id=nid, labels=["T"]))
+        eng.create_edge(Edge(id="ab", start_node="a", end_node="b", type="R"))
+        ex = CypherExecutor(eng)
+        q = ("CALL gds.pagerank.stream() YIELD node, score "
+             "RETURN node.id, score ORDER BY node.id")
+        before = ex.execute(q).rows
+        # count-neutral mutation: +1 edge, -1 edge
+        eng.create_edge(Edge(id="bc", start_node="b", end_node="c", type="R"))
+        eng.delete_edge("ab")
+        after = ex.execute(q).rows
+        assert after != before
+        # ground truth: a fresh executor over an identical engine
+        eng2 = MemoryEngine()
+        for nid in ("a", "b", "c"):
+            eng2.create_node(Node(id=nid, labels=["T"]))
+        eng2.create_edge(Edge(id="bc", start_node="b", end_node="c", type="R"))
+        expected = CypherExecutor(eng2).execute(q).rows
+        for (ida, sa), (idb, sb) in zip(after, expected):
+            assert ida == idb
+            assert sa == pytest.approx(sb)
+
     def test_unchanged_graph_reuses_arrays(self):
         """Repeated calls on an unchanged graph get the *same* array
         objects back (generation tag unchanged); a count-neutral
@@ -375,6 +614,32 @@ class TestGenerationInvalidation:
 
 
 class TestNoRescan:
+    def test_no_all_edges_scan_on_repeated_query_paths(self):
+        eng = CountingEngine()
+        _populate([eng])
+        ex = CypherExecutor(eng)
+        queries = [
+            "CALL gds.pagerank.stream() YIELD node, score RETURN count(*)",
+            "CALL gds.wcc.stream() YIELD node, componentId RETURN count(*)",
+            "CALL gds.linkprediction.adamicadar('p0', 'p7') "
+            "YIELD score RETURN score",
+            "MATCH (a:Person {k: 0})-[:KNOWS*1..3]->(b) RETURN count(*)",
+            "MATCH p = shortestPath((a:Person {k: 0})-[*..6]->"
+            "(b:Person {k: 9})) RETURN length(p)",
+        ]
+        for q in queries:
+            ex.execute(q)
+        assert eng.all_edges_calls == 1, "only the first snapshot build scans"
+        assert eng.all_node_ids_calls == 1
+        # mutations keep the snapshot fresh through events — still no rescan
+        eng.create_edge(Edge(id="fresh", start_node="p0", end_node="p9",
+                             type="KNOWS"))
+        eng.delete_edge("e0")
+        for q in queries:
+            ex.execute(q)
+        assert eng.all_edges_calls == 1
+        assert eng.all_node_ids_calls == 1
+
     def test_no_all_edges_scan_on_repeated_reads(self):
         """The array consumers (edge_arrays, build_graph, bfs) scan the
         engine once, at the snapshot's first build; later mutations reach

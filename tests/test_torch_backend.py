@@ -120,6 +120,32 @@ class TestStateMachine:
         assert mgr.await_ready() is False
         _wait_state(mgr, backend_mod.DEGRADED_CPU, timeout=2.0)
 
+    def test_counters_are_current_when_the_state_is_seen(self, monkeypatch):
+        """A caller that sees READY after a recovery reads the recovery's
+        count (the JAX manager counts after releasing its lock, so a
+        reader woken on the new state can read the old count). The
+        transition's log line is slowed to widen that window."""
+        import importlib
+
+        # the module (the package's ``manager`` is the default-manager call)
+        manager_mod = importlib.import_module(
+            "nornicdb_tpu_torch.backend.manager")
+        real = manager_mod.logger.warning
+
+        def slow_warning(*a, **kw):
+            real(*a, **kw)
+            time.sleep(0.2)
+
+        monkeypatch.setattr(manager_mod.logger, "warning", slow_warning)
+        hooks = FakeHooks("hang")
+        mgr = _mgr(hooks, acquire_timeout=0.2)
+        mgr.await_ready()
+        _wait_state(mgr, backend_mod.DEGRADED_CPU, timeout=5.0)
+        assert mgr.counters.degrades == 1
+        hooks.set_mode("ok")
+        _wait_state(mgr, backend_mod.READY, timeout=10.0)
+        assert mgr.counters.recoveries == 1, mgr.counters
+
     def test_degraded_await_fails_fast(self):
         mgr = _mgr(FakeHooks("hang"), acquire_timeout=0.2)
         mgr.await_ready()

@@ -28,7 +28,8 @@ from nornicdb_tpu_torch.storage import MemoryEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# the device owner and the Cypher engine (ROADMAP A4, A5a)
+# the device owner, the Cypher engine, GDS, APOC and the Kalman filters
+# (ROADMAP A4, A5a, A5b)
 NEW_MODULES = (
     "nornicdb_tpu_torch.backend",
     "nornicdb_tpu_torch.backend.manager",
@@ -46,6 +47,21 @@ NEW_MODULES = (
     "nornicdb_tpu_torch.cypher.colindex",
     "nornicdb_tpu_torch.cypher.columnar",
     "nornicdb_tpu_torch.cypher.executor",
+    "nornicdb_tpu_torch.cypher.gds_procedures",
+    "nornicdb_tpu_torch.filter",
+    "nornicdb_tpu_torch.filter.kalman",
+    "nornicdb_tpu_torch.apoc",
+    "nornicdb_tpu_torch.apoc.registry",
+    "nornicdb_tpu_torch.apoc.functions",
+    "nornicdb_tpu_torch.apoc.functions_ext",
+    "nornicdb_tpu_torch.apoc.functions_pure",
+    "nornicdb_tpu_torch.apoc.functions_tail",
+    "nornicdb_tpu_torch.apoc.functions_graph",
+    "nornicdb_tpu_torch.apoc.functions_graph2",
+    "nornicdb_tpu_torch.apoc.functions_ops",
+    "nornicdb_tpu_torch.apoc.triggers",
+    "nornicdb_tpu_torch.apoc.procedures",
+    "nornicdb_tpu_torch.apoc.export_import",
 )
 
 _IMPORT_ALL = r"""
@@ -160,8 +176,8 @@ class TestImportBoundary:
             assert name in imported
 
     def test_device_owner_and_cypher_import_neither_jax_nor_jax_package(self):
-        """A static scan of every import statement in ``backend/`` and
-        ``cypher/`` (the runtime check above sees only what an import
+        """A static scan of every import statement in ``backend/``,
+        ``cypher/``, ``apoc/`` and ``filter/`` (the runtime check above sees only what an import
         executes, not the imports a function makes when it runs)."""
         import ast
 

@@ -1281,3 +1281,86 @@ def test_real_probe_runs_on_its_own_stream(card):
     assert busy, "the default stream finished before the probe returned"
     assert probe_s < 1.0, probe_s
     assert 0.0 <= device_s < 0.1, device_s
+
+
+# -- GDS and APOC through Cypher on the card -----------------------------------
+
+def _graph_executors(card, scale=11, seed=21, **kw):
+    """One Kronecker graph in a store, an executor on the card (``kw``:
+    its ``backend``) and one on the CPU."""
+    from nornicdb_tpu_torch.cypher import CypherExecutor
+    from nornicdb_tpu_torch.storage import Edge, MemoryEngine, Node
+
+    src, dst, n = _kronecker(scale, seed)
+    eng = MemoryEngine()
+    for i in range(n):
+        eng.create_node(Node(id=f"v{i:05d}", labels=["V"]))
+    for e, (a, b) in enumerate(zip(src.tolist(), dst.tolist())):
+        eng.create_edge(Edge(id=f"e{e}", start_node=f"v{a:05d}",
+                             end_node=f"v{b:05d}", type="R"))
+    return (CypherExecutor(eng, device=card, **kw),
+            CypherExecutor(eng, device="cpu"))
+
+
+def _by_node(rows):
+    return {r[0].id: r[1] for r in rows}
+
+
+def test_gds_pagerank_and_wcc_on_the_card_give_the_cpu_answer(card):
+    import chip_smoke
+
+    ex, cpu = _graph_executors(card)
+    q = ("CALL gds.pageRank.stream({maxIterations: 20, dampingFactor: 0.85})"
+         " YIELD node, score RETURN node, score")
+    got, want = _by_node(ex.execute(q).rows), _by_node(cpu.execute(q).rows)
+    assert got.keys() == want.keys() and len(got) == 1 << 11
+    ids = sorted(want)
+    l1 = float(np.abs(np.asarray([got[i] for i in ids], np.float64)
+                      - np.asarray([want[i] for i in ids])).sum())
+    assert l1 <= chip_smoke.PR_L1_TOL, l1
+    q = "CALL gds.wcc.stream() YIELD node, componentId RETURN node, componentId"
+    assert _by_node(ex.execute(q).rows) == _by_node(cpu.execute(q).rows)
+    q = ("MATCH (n:V) WITH collect(n) AS ns "
+         "RETURN apoc.community.weaklyConnectedComponents(ns)")
+    assert ex.execute(q).rows == cpu.execute(q).rows
+
+
+def test_gds_suggest_at_256_nodes_runs_its_gemm_on_the_card(card, monkeypatch):
+    from nornicdb_tpu_torch.linkpredict import topology
+
+    seen = []
+    real = topology._full_precision_matmul
+
+    def spy(dev):
+        seen.append(torch.device(dev).type)
+        return real(dev)
+
+    monkeypatch.setattr(topology, "_full_precision_matmul", spy)
+    ex, cpu = _graph_executors(card, scale=8, seed=4)
+    q = ("CALL gds.linkPrediction.suggest('commonNeighbors', 20) "
+         "YIELD node1, node2, score RETURN node1.id, node2.id, score")
+    got = ex.execute(q).rows
+    assert seen == ["cuda"]
+    assert got == cpu.execute(q).rows and len(got) == 20
+    assert seen == ["cuda", "cpu"]
+
+
+@pytest.mark.parametrize("query", [
+    "CALL gds.pageRank.stream({maxIterations: 20})",
+    "CALL apoc.algo.pageRank()",
+    "MATCH (n:V) RETURN apoc.algo.pageRank(collect(n))",
+])
+def test_hung_owner_refuses_gds_and_apoc_on_the_card(card, query):
+    from nornicdb_tpu_torch import DeviceUnavailable
+    from nornicdb_tpu_torch.backend import BackendManager, FakeHooks
+
+    mgr = BackendManager(hooks=FakeHooks("hang"), acquire_timeout=0.3,
+                         probe_interval=0.03, probe_timeout=0.25)
+    try:
+        ex, _ = _graph_executors(card, scale=6, seed=2, backend=mgr)
+        t0 = time.perf_counter()
+        with pytest.raises(DeviceUnavailable):
+            ex.execute(query)
+        assert time.perf_counter() - t0 < mgr.acquire_timeout + 1.0
+    finally:
+        mgr.stop()

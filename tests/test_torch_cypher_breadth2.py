@@ -1,7 +1,7 @@
 """The port's Cypher engine: the cases of ``tests/test_cypher_breadth2.py``
 run against the port on the CPU, unchanged but for their imports (the
-executor takes ``device="cpu"``). The cases that call APOC wait for
-ROADMAP A5b; here they hold the port's refusal of APOC instead.
+executor takes ``device="cpu"``), those that call GDS, APOC and the Kalman
+functions included.
 """
 
 from __future__ import annotations
@@ -150,6 +150,56 @@ class TestDialectExtensions:
         )
         assert rows.rows == [["Alice", ["Bob"]], ["Bob", []]]
 
+    def test_named_argument_call(self, ex):
+        res = ex.execute(
+            "CALL gds.linkPrediction.adamicAdar.stream"
+            "(sourceNode: 'missing', topK: 5) YIELD node1 RETURN node1"
+        )
+        assert res.rows == []
+
+
+class TestStreamProcedures:
+    @pytest.fixture
+    def graph(self, ex):
+        # triangle + pendant so link prediction has candidates
+        ex.execute(
+            "CREATE (x:N {name:'x'}), (y:N {name:'y'}), (z:N {name:'z'}),"
+            " (w:N {name:'w'}), (x)-[:R]->(y), (y)-[:R]->(z), (y)-[:R]->(w)"
+        )
+        xid = ex.execute("MATCH (n:N {name:'x'}) RETURN n").rows[0][0].id
+        return ex, xid
+
+    def test_adamic_adar_stream(self, graph):
+        ex, xid = graph
+        res = ex.execute(
+            "CALL gds.linkPrediction.adamicAdar.stream"
+            "({sourceNode: $src, topK: 5}) "
+            "YIELD node1, node2, score RETURN node2.name, score",
+            {"src": xid},
+        )
+        names = {r[0] for r in res.rows}
+        assert names == {"z", "w"}  # share neighbor y; not adjacent to x
+        assert all(r[1] > 0 for r in res.rows)
+
+    def test_predict_stream_hybrid(self, graph):
+        ex, xid = graph
+        res = ex.execute(
+            "CALL gds.linkPrediction.predict.stream({sourceNode: $src, "
+            "topK: 3, algorithm: 'adamic_adar', topologyWeight: 0.6, "
+            "semanticWeight: 0.4}) YIELD node2, score RETURN node2.name",
+            {"src": xid},
+        )
+        assert res.rows  # candidates streamed
+
+    def test_fastrp_stats(self, graph):
+        ex, _ = graph
+        res = ex.execute(
+            "CALL gds.fastRP.stats('s', {embeddingDimension: 32}) "
+            "YIELD nodeCount RETURN nodeCount"
+        )
+        assert res.rows[0][0] >= 4
+
+
 class TestAdminProcedures:
     def test_db_info_and_ping(self, ex):
         res = ex.execute("CALL db.info() YIELD name, nodeCount "
@@ -216,6 +266,19 @@ class TestReviewFixes:
         )
         assert rows.rows == [["KNOWS"]]
 
+    def test_stream_accepts_node_object(self, ex):
+        ex.execute(
+            "CREATE (x:M {name:'x'})-[:R]->(y:M {name:'y'})"
+            "-[:R]->(z:M {name:'z'})"
+        )
+        res = ex.execute(
+            "MATCH (n:M {name:'x'}) "
+            "CALL gds.linkPrediction.adamicAdar.stream"
+            "({sourceNode: n, topK: 5}) "
+            "YIELD node2 RETURN node2.name"
+        )
+        assert [r[0] for r in res.rows] == ["z"]
+
     def test_composite_alias_collision_surfaces(self):
         db = nornicdb_tpu_torch.open_db("", device="cpu")
         try:
@@ -251,33 +314,52 @@ class TestNewFunctions:
         assert ex.execute("RETURN rpad('5', 3, '0') AS r").rows == [["500"]]
         assert ex.execute("RETURN lpad('abcd', 3, '0') AS r").rows == [["abcd"]]
 
+    def test_kalman_init_process_state(self, ex):
+        res = ex.execute(
+            "RETURN kalman.init({measurementNoise: 5.0}) AS s"
+        )
+        state = res.rows[0][0]
+        assert isinstance(state, str)
+        out = ex.execute(
+            "RETURN kalman.process(10.0, $s) AS r", {"s": state}
+        ).rows[0][0]
+        assert out["value"] == 10.0  # first measurement initializes
+        out2 = ex.execute(
+            "RETURN kalman.process(20.0, $s) AS r", {"s": out["state"]}
+        ).rows[0][0]
+        assert 10.0 < out2["value"] < 20.0  # smoothed toward measurement
+        parsed = ex.execute(
+            "RETURN kalman.state($s) AS r", {"s": out["state"]}
+        ).rows[0][0]
+        assert parsed["r"] == 5.0
 
-class TestNotPortedYet:
-    """The cases of ``tests/test_cypher_breadth2.py`` that call GDS, APOC
-    or the Kalman functions (``test_named_argument_call``,
-    ``TestStreamProcedures``, ``test_stream_accepts_node_object``,
-    ``test_kalman_init_process_state``, ``TestApocPathStartForms``) wait
-    for ROADMAP A5b. Until then each of their statements is refused with a
-    CypherSyntaxError that names A5b, never answered silently."""
 
-    @pytest.mark.parametrize("query", [
-        "CALL gds.linkPrediction.adamicAdar.stream"
-        "(sourceNode: 'missing', topK: 5) YIELD node1 RETURN node1",
-        "CALL gds.linkPrediction.adamicAdar.stream({sourceNode: 'x', "
-        "topK: 5}) YIELD node1, node2, score RETURN node2.name, score",
-        "CALL gds.linkPrediction.predict.stream({sourceNode: 'x', topK: 3, "
-        "algorithm: 'adamic_adar'}) YIELD node2, score RETURN node2.name",
-        "CALL gds.fastRP.stats('s', {embeddingDimension: 32}) "
-        "YIELD nodeCount RETURN nodeCount",
-        "MATCH (n:Person {name:'Alice'}) CALL "
-        "gds.linkPrediction.adamicAdar.stream({sourceNode: n, topK: 5}) "
-        "YIELD node2 RETURN node2.name",
-        "RETURN kalman.init({measurementNoise: 5.0}) AS s",
-        "CALL apoc.path.spanningTree({id: 'x'}, {bfs: false}) "
-        "YIELD path RETURN path",
-        "CALL apoc.path.expand('x', null, null, 0, 2) YIELD path RETURN path",
-        "RETURN apoc.text.join(['a', 'b'], '-') AS s",
-    ])
-    def test_refused_with_roadmap_item(self, ex, query):
-        with pytest.raises(CypherSyntaxError, match="ROADMAP A5b"):
-            ex.execute(query)
+class TestApocPathStartForms:
+    def test_spanning_tree_map_start(self, ex):
+        node_id = ex.execute(
+            "MATCH (a:Person {name:'Alice'}) RETURN a"
+        ).rows[0][0].id
+        res = ex.execute(
+            "CALL apoc.path.spanningTree({id: $id}, {bfs: false}) "
+            "YIELD path RETURN path",
+            {"id": node_id},
+        )
+        assert res.rows
+
+    def test_expand_id_string_start(self, ex):
+        node_id = ex.execute(
+            "MATCH (a:Person {name:'Alice'}) RETURN a"
+        ).rows[0][0].id
+        res = ex.execute(
+            "CALL apoc.path.expand($id, null, null, 0, 2) "
+            "YIELD path RETURN path",
+            {"id": node_id},
+        )
+        assert res.rows
+
+    def test_unknown_start_errors(self, ex):
+        with pytest.raises(CypherTypeError):
+            ex.execute(
+                "CALL apoc.path.expand({id: 'ghost'}, null, null, 0, 2)"
+            )
+

@@ -8,11 +8,12 @@ are seeded counters and ``random`` is seeded for each package's pass, so
 both packages mint the same ids, read the same clock and draw the same
 random numbers: entities compare by id, labels (or type) and properties. Queries that read the clock (``timestamp()``,
 ``datetime()`` and kin) or the decay manager (ROADMAP A6) compare their
-outcome, columns and row count only. A query that calls APOC, GDS or the Kalman functions (ROADMAP A5b)
-runs only in the port, where it must raise (the port's refusal, or a
-parse error first); JAX skips it, so both stores stay the same. The
-procedure and function listings compare with JAX's less those names. Also the JAX suite's own checks of the
-corpus against the port: no unexplained failure in a sample of passing
+outcome, columns and row count only. Queries that call APOC, GDS or
+the Kalman functions run in both packages and compare like every other
+query, and so do the procedure and function listings; PageRank's float32
+ranks agree within rtol 1e-5 (``index_add_`` against XLA's
+``segment_sum`` sums in another order). Also the JAX
+suite's own checks of the corpus against the port: no unexplained failure in a sample of passing
 queries, and negative queries still error.
 """
 
@@ -53,9 +54,26 @@ _CLOCK = re.compile(
     r"localtime|localdatetime|now\s*\(|\.realtime|\.statement|"
     r"\.transaction|dbms\.|db\.stats|db\.info|apoc\.date|decay",
     re.IGNORECASE)
-_UNPORTED = re.compile(r"\b(apoc|gds|kalman)\.", re.IGNORECASE)
-_LISTING = re.compile(r"dbms\.(procedures|functions)|SHOW\s+(PROCEDURES|"
-                      r"FUNCTIONS)", re.IGNORECASE)
+
+
+_PAGERANK = re.compile(r"pagerank", re.IGNORECASE)
+PR_RTOL, PR_ATOL = 1e-5, 1e-9
+
+
+def _close(a, b) -> bool:
+    """``a`` and ``b`` (``norm`` forms) equal but for floats, which agree
+    within PR_RTOL / PR_ATOL (``norm`` writes a float as its repr)."""
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_close(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_close(a[k], b[k]) for k in a)
+    if a == b:
+        return True
+    try:
+        return math.isclose(float(a), float(b), rel_tol=PR_RTOL,
+                            abs_tol=PR_ATOL)
+    except (TypeError, ValueError):
+        return False
 
 
 def build_fixture(db, embedder_cls):
@@ -128,13 +146,18 @@ def norm(v):
 
 class _Clock:
     """A seeded stand-in for ``time.time``: 1 ms a call from a fixed
-    start, the same readings for each package's pass."""
+    start, the same readings for each package's pass. JAX's own timing of
+    its tracing and compiles (the PageRank and components programs that
+    APOC and GDS reach) reads the clock without advancing it, so the JAX
+    pass's readings stay those of the port's."""
 
     def __init__(self):
         self.t = 1.7e9
 
     def __call__(self):
-        self.t += 0.001
+        caller = sys._getframe(1).f_globals.get("__name__", "")
+        if caller.split(".")[0] not in ("jax", "jaxlib"):
+            self.t += 0.001
         return self.t
 
 
@@ -162,11 +185,6 @@ def run_pass(monkeypatch, pkg, config_cls, embedder_cls, errors, lo, hi):
         build_fixture(db, embedder_cls)
         out = []
         for q in QUERIES[lo:hi]:
-            if pkg is nornicdb_tpu and _UNPORTED.search(q):
-                # the port refuses it: skipped here too, so both stores
-                # stay the same for the queries after it
-                out.append(("skipped",))
-                continue
             got = None
             for params in _guess_params(q):
                 try:
@@ -193,22 +211,13 @@ def test_corpus_chunk_same_results(monkeypatch, lo, hi):
                    PortHashEmbedder, PortNornicError, lo, hi)
     diffs = []
     for q, g, w in zip(QUERIES[lo:hi], got, want):
-        if _UNPORTED.search(q):
-            # refused (the roadmap item, or a parse error first): never
-            # answered
-            if g[0] != "err":
+        if _PAGERANK.search(q) and g[0] == w[0] == "ok":
+            # float32 ranks summed in another order (index_add_ against
+            # XLA's segment_sum): within the PageRank tolerance of
+            # tests/test_torch_graph_algos.py
+            if not _close(g, w):
                 diffs.append((q[:100], g, w))
-            continue
-        if _LISTING.search(q) and w[0] == "ok":
-            # the registries the port lists lack APOC and GDS until A5b
-            # (a LIMIT cuts JAX's list before the filter: columns only)
-            if re.search(r"\bLIMIT\b", q, re.IGNORECASE):
-                if g[:2] != w[:2]:
-                    diffs.append((q[:100], g, w))
-                continue
-            w = (w[0], w[1], [r for r in w[2] if not (
-                r and isinstance(r[0], str) and _UNPORTED.match(r[0]))])
-        if _CLOCK.search(q) or g[0] == "crash":
+        elif _CLOCK.search(q) or g[0] == "crash":
             if g[0] != w[0] or (g[0] == "ok" and (
                     g[1] != w[1] or len(g[2]) != len(w[2]))):
                 diffs.append((q[:100], g, w))
@@ -242,8 +251,6 @@ class TestCorpusDisposition:
         try:
             broken = []
             for r in sample:
-                if _UNPORTED.search(r["query"]):
-                    continue  # ROADMAP A5b: refused, held above
                 err = None
                 for params in _guess_params(r["query"]):
                     try:
