@@ -24,7 +24,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    weights from ``--seed``) behind ``GenerationEngine`` with the default
    ``GenServeConfig``. The ragged paged attention kernel is held against
    its plain version on the inputs of a real fused step (decode block
-   L = 10, Tq = 1 and chunk block L = 1, Tq = 64) and timed; then 32
+   L = 10, Tq = 1 and chunk block L = 1, Tq = 64) and timed; then 16
    requests of the qc/chat/rag mix of ``scripts/bench_generate.py`` from 8
    client threads: every request completes, the prefix cache hits, the
    kernel ran 24 x (steps + chunk steps) times, and every greedy token is
@@ -136,10 +136,10 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``db.search.vector_candidates`` (#2 launches, no IVF plan serves); in
    an in-memory ``open_db("")`` on the card (synchronous storage, no
    result cache), 131,072 ``:Item`` nodes through ``UNWIND ... CREATE``
-   (scores tied in runs of 16, exact in float32) and 32 ``ORDER BY
+   (scores tied in runs of 16, exact in float32) and 16 ``ORDER BY
    i.score DESC LIMIT 100`` queries over >= 100,352 rows each (the top-k
    offload, ``torch.topk`` on the card), then 16,384 ``:Doc`` nodes with
-   phase 8's embeddings and 32 ``ORDER BY vector.similarity.cosine(d.emb,
+   phase 8's embeddings and 16 ``ORDER BY vector.similarity.cosine(d.emb,
    $q) DESC LIMIT 10`` queries over >= 8,192 rows each (VectorTopK,
    ``graph_masked_scores`` on the card), at the default thresholds: each
    offload ``used`` once a query, never ``unavailable``, and 4 answers of
@@ -182,7 +182,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    the prompt header) written to a temporary directory and mounted with
    ``load_generator``, every tensor bit for bit; an ``EngineGenerator``
    over a ``GenerationEngine`` on it (sequences of 1,024 tokens); then
-   ``GraphRAGService`` answers 32 stored phase-8 texts from 8 clients over
+   ``GraphRAGService`` answers 16 stored phase-8 texts from 8 clients over
    phase 10's storage and hybrid service: ``recall`` is ``DB.recall`` (a
    hybrid ``search``, then a touch of each hit's access count through
    ``storage.update_node``, which leaves the index as it was). Every answer
@@ -196,7 +196,32 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``EngineGenerator``); ``db.graphrag()`` answers with ``DB.recall``.
    Then 8 ``db.heimdall.chat`` completions from 8 clients, each paged
    through #5 with 1-64 new tokens, and the TemplateGenerator's answer of
-   a DB with no checkpoint.
+   a DB with no checkpoint. The engine stays up for phase 17.
+17. the serve surface, after phase 9 and before phase 10's DB closes.
+   (a) the port's ``HttpServer`` and ``BoltServer`` over that DB, wired as
+   ``python -m nornicdb_tpu_torch serve`` wires them: 8 HTTP clients send
+   64 raw-vector searches, 64 text searches with distinct queries, 8
+   transaction-API ``queryNodes`` reads and 2 GraphRAG answers; 8 Bolt
+   sessions (HELLO, RUN, PULL) make 64 ``queryNodes`` calls. With no
+   writer active, a raw-vector body equals what ``vector_candidates``
+   answered it and a fresh call's ids (scores within #2's decode step), a
+   text body equals ``db.search.search`` with the rank cache cleared, the
+   Bolt and transaction rows equal ``db.cypher`` with the query cache
+   cleared (ids; scores within #2's decode step), a GraphRAG answer is
+   paged and retrieves its own node. A 429 is retried after its
+   Retry-After, and the 429s and their longest run are logged. ``/health``,
+   ``/metrics`` (parsed strictly), ``/admin/stats``, ``/admin/tpu/status``
+   (the card's name) and ``/openapi.json`` are timed; ``/graphql`` answers
+   501. Each kernel's launches in the traffic are logged, #2 and #5 above
+   0. (b) ``python -m nornicdb_tpu_torch serve --auth --embedder hash`` as
+   a child process on the card over a fresh data directory: 401 for an
+   unauthenticated search, 256 documents stored through the transaction
+   API and embedded, 16 searches answering their document first through
+   #2 (the child's own launch counts, from its ``/admin/tpu/status``), a
+   Bolt HELLO refused for a wrong password and accepted for the right one,
+   SIGTERM to exit 0 and a reopen holding the documents; then
+   ``NORNICDB_GRPC_ENABLED=1 ... serve`` exits non-zero naming ROADMAP
+   A6b.
 11. training, after phase 9 with the earlier phases' models released
    (no kernel: torch ops, autograd and fused AdamW, as the JAX package
    trains through XLA). 11a: ``QWEN25_05B`` (494,032,768 bf16 parameters
@@ -224,7 +249,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
 12. graph offloads, after phase 11 with its models released (no kernel:
    ``index_add_``, ``scatter_reduce_`` and float32 ``torch.matmul``, as
    the JAX package leaves them to XLA). 12a: a Graph500 Kronecker graph
-   (SCALE 22, edgefactor 16: 4,194,304 vertices, 67,108,864 edges with
+   (SCALE 20, edgefactor 16: 1,048,576 vertices, 16,777,216 edges with
    self-loops and duplicates, from ``--seed`` on the card) and
    ``graph_algos.pagerank`` at its defaults, numpy in and out: end-to-end
    and device ms, ms an iteration against its bytes bound, the copies'
@@ -350,13 +375,15 @@ N_10M = 10_000_000
 REPS = 6  # timed calls of each kernel (a third of that for the slow ones)
 
 # phase 5: the generation mix of scripts/bench_generate.py (kind,
-# prompt_len, max_new, weight, shared_prefix_len), 32 requests, 8 clients
+# prompt_len, max_new, weight, shared_prefix_len), 16 requests, 8 clients
+# (32 until phase 17 came: its dense reference checks every token, ~40 s
+# at 32; no later phase reads them; PERF.md section 4)
 GEN_MIX = (
     ("qc", 12, 16, 0.25, 0),
     ("chat", 24, 32, 0.30, 16),
     ("rag", 80, 48, 0.45, 48),
 )
-GEN_REQUESTS, GEN_CLIENTS = 32, 8
+GEN_REQUESTS, GEN_CLIENTS = 16, 8
 # every greedy token of the engine must have a dense-reference logit within
 # this of the reference's largest. The engine (ragged kernel, fused F-row
 # GEMMs) and the reference (plain attention, 1-row GEMMs) round bf16 at the
@@ -397,7 +424,8 @@ EMBED_CHECK, EMBED_QUERIES = 256, 256
 # a query's own text must score within this of its best hit: the same text
 # in two packs differs by bf16 rounding only
 OWN_SCORE_TOL = 0.02
-# phase 9: GraphRAG answers to 32 stored phase-8 texts from 8 clients over a
+# phase 9: GraphRAG answers to 16 stored phase-8 texts from 8 clients (32
+# until phase 17 came; two waves still test the cached header) over a
 # checkpoint written and loaded by the run; each node has 2-4 outgoing
 # edges. GraphRAG budgets its prompt in whitespace words (max_seq_tokens -
 # 72) and the tokenizer splits punctuation, so a packed prompt (the 92-word
@@ -406,7 +434,7 @@ OWN_SCORE_TOL = 0.02
 # sequence holds 256, up to ~660 in all. The engine keeps a prompt's tail,
 # so the shared header would be cut away. Sequences of 1,024 tokens hold
 # every such prompt whole; the pool holds 8 of them
-RAG_QUESTIONS, RAG_CLIENTS = 32, 8
+RAG_QUESTIONS, RAG_CLIENTS = 16, 8
 RAG_EDGES = (2, 4)
 RAG_SEQ_TOKENS = 1024
 RAG_CHECKED = 4  # answers whose tokens are held against the dense path
@@ -487,7 +515,7 @@ FIRST_LOSS_RTOL, FIRST_GRAD_COS, SIGNAL_FLOOR = 1e-2, 0.98, 1e-3
 DISTILL_LAYERS, DISTILL_STEPS, DISTILL_CORPUS = 6, 30, 4096
 STUDENT_TEXTS = 4096
 # phase 12: graph offloads. 12a and 12b over a Graph500 Kronecker graph of
-# GRAPH_SCALE and GRAPH_EDGEFACTOR (4,194,304 vertices, 67,108,864 directed
+# GRAPH_SCALE and GRAPH_EDGEFACTOR (1,048,576 vertices, 16,777,216 directed
 # edges): PageRank at the JAX defaults (0.85, 20 iterations), one warm-up
 # call and GRAPH_CALLS timed ones, held to a float64 numpy power iteration
 # over the same edges: the L1 distance at most PR_L1_TOL, the largest
@@ -499,7 +527,9 @@ STUDENT_TEXTS = 4096
 # nodes the dense adjacency would take 17 GB on the host): on the card
 # against use_device=False, the integer methods exactly, the weighted ones
 # within LINK_TOL (relative and absolute: float32 sums in another order)
-GRAPH_SCALE, GRAPH_EDGEFACTOR, GRAPH_CALLS = 22, 16, 5
+# (SCALE 22 until phase 17 came: its 80.4 s paid for part of the new
+# phase, and no later phase reads this graph; PERF.md section 4)
+GRAPH_SCALE, GRAPH_EDGEFACTOR, GRAPH_CALLS = 20, 16, 5
 PR_L1_TOL, PR_TOP, PR_TOP_REL_TOL = 2e-4, 1000, 1e-3
 LINK_SCALE, LINK_LIMIT, LINK_TOL = 13, 20, 1e-5
 # 10.8, the learning loop: LEARN_TEXTS new texts of phase 8's mix (from
@@ -557,7 +587,8 @@ TRACED: dict = {}
 # of them held against the generic engine; CYPHER_BATCH rows an UNWIND
 CYPHER_VEC_QUERIES, CYPHER_CLIENTS = 256, 8
 CYPHER_ITEMS, CYPHER_DOCS = 131_072, 16_384
-CYPHER_SHAPE_QUERIES, CYPHER_CHECKED, CYPHER_BATCH = 32, 4, 8192
+# (32 shape queries until phase 17 came; each shape keeps its 4 checks)
+CYPHER_SHAPE_QUERIES, CYPHER_CHECKED, CYPHER_BATCH = 16, 4, 8192
 # phase 16, GDS and APOC through db.cypher: (a) over phase 10's DB, link
 # prediction and depth-2 paths from GDS_SOURCES seeded nodes, hop levels
 # from GDS_HOP_SOURCES of them (apoc.neighbors.byhop reads every edge of
@@ -575,6 +606,22 @@ GDS_ROWS, GDS_SERIES = 10_000, 256
 GDS_SCALE, GDS_DIM, GDS_CENTRAL, GDS_TRIGGERED = LINK_SCALE, 128, 512, 1000
 APOC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         ".chip_scratch", "apoc")
+# phase 17, the serve surface (python -m nornicdb_tpu_torch serve). (a) The
+# port's HttpServer and BoltServer over phase 10's DB, wired as cmd_serve
+# wires them: SERVE_CLIENTS HTTP clients send SERVE_VECTORS raw-vector
+# searches (stored embeddings with noise, limit SERVE_K), SERVE_TEXTS text
+# searches with distinct queries, SERVE_TX transaction-API reads
+# (queryNodes) and SERVE_RAG GraphRAG answers; SERVE_CLIENTS Bolt sessions
+# (HELLO, RUN, PULL) make SERVE_BOLT queryNodes calls. (b) The command as a
+# child process on the card, with --auth and the hash embedder
+# (SERVE_DIMS), over SERVE_DOCS documents stored through the transaction
+# API; its launcher lowers similarity.STREAMING_MIN_ROWS to that corpus
+# before it calls cli.main, so its searches run #2. SIGTERM must end it
+# with exit code 0 within SERVE_EXIT_S seconds
+SERVE_CLIENTS, SERVE_K = 8, 10
+SERVE_VECTORS, SERVE_TEXTS, SERVE_TX, SERVE_RAG = 64, 64, 8, 2
+SERVE_BOLT = 64
+SERVE_DOCS, SERVE_DIMS, SERVE_EXIT_S = 256, 64, 60.0
 # phase 15, the device owner: a private manager over FakeHooks, a corpus of
 # OWNER_ROWS x DIMS on the card, OWNER_QUERIES queries
 OWNER_ROWS, OWNER_QUERIES = 65_536, 16
@@ -1372,7 +1419,8 @@ def profile_generation(eng, requests: list, out_dir: str) -> None:
 
 def phase_generation(K, R, seed: int, profile_dir: str = "") -> tuple[list, dict]:
     """Phase 5: the ragged kernel on a real step, then the engine serving
-    32 requests at full width, checked against the dense reference. With
+    GEN_REQUESTS requests at full width, checked against the dense
+    reference. With
     ``profile_dir``, then a torch.profiler window over 8 more requests."""
     import torch
 
@@ -1497,7 +1545,7 @@ def phase_dense_mode(K, Q, params, cfg, gcfg, tok, requests, paged) -> None:
     GEN_CLIENTS clients. No ragged kernel launches; every token passes
     ``dense_agreement`` at the width the engine gave its cache. Its
     tok/s, ttft and per-token p50 are logged beside phase 5's paged run
-    (32 requests), to read, not to compare as a claim."""
+    (GEN_REQUESTS requests), to read, not to compare as a claim."""
     import torch
 
     from nornicdb_tpu_torch.genserve import GenerationEngine
@@ -1523,8 +1571,8 @@ def phase_dense_mode(K, Q, params, cfg, gcfg, tok, requests, paged) -> None:
     log(f"[phase5d] dense mode, {len(sub)} requests from {GEN_CLIENTS} "
         f"clients: {tokens} tokens in {run['wall']:.3f}s "
         f"tok/s={dense['tok_s']:.1f} ttft p50={dense['ttft_p50']:.2f}ms "
-        f"per-token p50={dense['gap_p50']:.2f}ms (phase 5 paged, 32 "
-        f"requests: tok/s={paged['tok_s']:.1f} ttft p50="
+        f"per-token p50={dense['gap_p50']:.2f}ms (phase 5 paged, "
+        f"{GEN_REQUESTS} requests: tok/s={paged['tok_s']:.1f} ttft p50="
         f"{paged['ttft_p50']:.2f}ms per-token p50={paged['gap_p50']:.2f}ms); "
         f"prefills={st.prefill_chunks - st0.prefill_chunks} decode steps="
         f"{st.decode_steps - st0.decode_steps} "
@@ -3341,6 +3389,7 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
     # generation's submit) is asked again with backoff, as a client of the
     # HTTP edge would
     retry = _Backoff()
+    served_on = False
     try:
         t0 = time.perf_counter()
         eng.warmup()
@@ -3517,13 +3566,17 @@ def phase_rag(K, seed: int, served: dict, hybrid: dict) -> dict:
         assert all(h.done for h in handles)
         assert chat_launches > 0, "the chats missed #5"
         assert mgr.metrics_registry.get("chat_requests") == chats0 + CHATS
+        served_on = True
         return {"streaming_topk_bf16": counts["streaming_topk_bf16"],
                 "ragged_paged_attention": counts["ragged_paged_attention"]}
     finally:
-        eng.stop()
-        genserve.configure(None)
         GEN_COUNTED["9"] = eng.stats.generated_tokens
         PREDICTED_SHEDS["9"] = (eng.stats.sheds_predicted, retry.sheds)
+        if not served_on:
+            # on success the engine goes on serving phase 17's GraphRAG
+            # route; db.close() stops it
+            eng.stop()
+            genserve.configure(None)
 
 
 def train_flops(cfg, rows: int, t: int, tokens: int) -> float:
@@ -6279,6 +6332,616 @@ def phase_device_owner(seed: int) -> None:
         real.stop()
 
 
+class _HttpClient:
+    """One keep-alive HTTP/1.1 connection that answers a 429 as a client
+    does: it waits the response's ``Retry-After`` and asks again (at most
+    BACKOFF_TRIES times). ``sheds`` (shared by the phase's clients) counts
+    the 429s and the longest run of them one request met."""
+
+    def __init__(self, port: int, sheds: dict, headers=None):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        self.sheds = sheds
+        self.headers = {"Content-Type": "application/json", **(headers or {})}
+
+    def call(self, method: str, path: str, body=None):
+        """(status, parsed body or text, seconds); 429s retried."""
+        data = None if body is None else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        for run in range(1, BACKOFF_TRIES + 1):
+            self.conn.request(method, path, body=data, headers=self.headers)
+            resp = self.conn.getresponse()
+            raw = resp.read()
+            if resp.status != 429 or run == BACKOFF_TRIES:
+                break
+            with self.sheds["mu"]:
+                self.sheds["n"] += 1
+                self.sheds["longest"] = max(self.sheds["longest"], run)
+            time.sleep(float(resp.getheader("Retry-After") or 1))
+        kind = resp.getheader("Content-Type") or ""
+        out = json.loads(raw) if "json" in kind else raw.decode()
+        return resp.status, out, time.perf_counter() - t0
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+class _BoltClient:
+    """A Bolt 4.4 session over a socket (HELLO, RUN, PULL, RESET); a
+    statement the serving engines shed (the transient ResourceExhausted
+    code, the 429 of the Bolt edge) is asked again after a RESET and a
+    second's wait, counted in ``sheds``."""
+
+    def __init__(self, port: int, sheds: dict):
+        import socket
+        import struct
+
+        from nornicdb_tpu_torch.server.packstream import Structure, pack, unpack
+
+        self._struct, self._S, self._pack, self._unpack = (
+            struct, Structure, pack, unpack)
+        self.sheds = sheds
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+        self.sock.sendall(b"\x60\x60\xb0\x17"
+                          + struct.pack(">I", (4 << 0) | (4 << 8))
+                          + b"\x00" * 12)
+        self._exact(4)
+
+    def _exact(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            part = self.sock.recv(n - len(buf))
+            if not part:
+                raise ConnectionError("bolt connection closed")
+            buf += part
+        return buf
+
+    def _message(self):
+        chunks = b""
+        while True:
+            (size,) = self._struct.unpack(">H", self._exact(2))
+            if size == 0:
+                return self._unpack(chunks)
+            chunks += self._exact(size)
+
+    def send(self, tag: int, fields: list):
+        payload = self._pack(self._S(tag, fields))
+        self.sock.sendall(self._struct.pack(">H", len(payload)) + payload
+                          + b"\x00\x00")
+        return self._message()
+
+    def hello(self, meta: dict):
+        return self.send(0x01, [meta])
+
+    def run(self, query: str, params: dict) -> list:
+        """RUN + PULL: the records' rows; a FAILURE raises, but a shed is
+        retried."""
+        for run in range(1, BACKOFF_TRIES + 1):
+            msg = self.send(0x10, [query, params, {}])
+            if msg.tag == 0x70:
+                out, msg = [], self.send(0x3F, [{"n": -1}])
+                while msg.tag == 0x71:
+                    out.append(msg.fields[0])
+                    msg = self._message()
+                assert msg.tag == 0x70, msg
+                return out
+            code = msg.fields[0].get("code", "")
+            assert self.send(0x0F, []).tag == 0x70  # RESET
+            if code != "Neo.TransientError.Request.ResourceExhausted" or (
+                    run == BACKOFF_TRIES):
+                raise AssertionError(("bolt failure", msg.fields[0]))
+            with self.sheds["mu"]:
+                self.sheds["n"] += 1
+                self.sheds["longest"] = max(self.sheds["longest"], run)
+            time.sleep(1.0)
+        raise AssertionError("unreachable")
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def _launch_delta(K, before: dict) -> dict:
+    now = K.launch_counts()
+    return {name: now[name] - before.get(name, 0) for name in now}
+
+
+def _pcts(xs) -> str:
+    ms = np.asarray(xs) * 1e3
+    return (f"p50 {np.median(ms):.2f}ms p99 {np.percentile(ms, 99):.2f}ms"
+            if len(ms) else "none")
+
+
+def phase_serve(K, db, served: dict, seed: int) -> None:
+    """Phase 17(a): the port's ``HttpServer`` and ``BoltServer`` over phase
+    10's DB (phase 8's engine as its embedder, phase 9's checkpoint behind
+    Heimdall), wired as ``cmd_serve`` wires them. SERVE_CLIENTS HTTP
+    clients send SERVE_VECTORS raw-vector searches, SERVE_TEXTS text
+    searches, SERVE_TX transaction-API reads and SERVE_RAG GraphRAG
+    answers, mixed in a seeded order; beside them SERVE_CLIENTS Bolt
+    sessions make SERVE_BOLT ``queryNodes`` calls.
+    Each answer is held, with no writer active, to the DB: a raw-vector
+    body to a fresh ``vector_candidates`` call's ids (scores within #2's
+    decode step), and, as a check of the route's serialisation, exactly
+    to the answer (recorded) of the call that served it; a
+    text body to ``db.search.search`` (rank cache cleared) in ids and
+    scores; the Bolt and transaction rows to ``db.cypher`` (query cache
+    cleared) in ids, scores within #2's decode step; a GraphRAG answer
+    paged, with its own node among the sources. A 429 is retried after its
+    Retry-After. Then the admin GETs, each timed, ``/metrics`` parsed
+    strictly, the 501 of ``/graphql``; each kernel's launches in the phase,
+    #2 and #5 above 0."""
+    import torch
+
+    from nornicdb_tpu_torch.ops.kernels import pick_tile_n, streaming_geometry
+    from nornicdb_tpu_torch.server import BoltServer, HttpServer
+
+    rng = np.random.default_rng(seed + 17)
+    texts, embs = served["texts"], served["embs"]
+    svc = db.search
+    eng = db.genserve_engine()
+    assert eng is not None, "phase 9's engine is not mounted"
+    tokens0 = eng.stats.generated_tokens
+    http = HttpServer(db, host="127.0.0.1", port=0)
+    http.start()
+    bolt = BoltServer(
+        lambda q, p, d: (db.executor_for(d) if d else db.executor).execute(
+            q, p),
+        host="127.0.0.1", port=0,
+        session_executor_factory=db.session_executor)
+    bolt.start()
+    # what the service answered each vector_candidates call of the servers
+    answered: dict = {}
+    mu = threading.Lock()
+    inner = svc.vector_candidates
+
+    def recording(embedding, k=10, min_similarity=-1.0):
+        out = inner(embedding, k, min_similarity)
+        with mu:
+            answered[(np.asarray(embedding, np.float32).tobytes(), k)] = out
+        return out
+
+    def noisy(rows):
+        return (embs[rows] + 0.01 * rng.standard_normal(
+            (len(rows), embs.shape[1]))).astype(np.float32)
+
+    q_nodes = ("CALL db.index.vector.queryNodes('default', $k, $v) "
+               "YIELD node, score RETURN node.id, score")
+    vec_rows = rng.choice(len(embs), SERVE_VECTORS, replace=False)
+    vecs = noisy(vec_rows)
+    queries: list = []
+    for r in rng.permutation(len(texts)):
+        q = " ".join(texts[r].split()[-3:])  # the last word is unique
+        if q not in queries:
+            queries.append(q)
+        if len(queries) == SERVE_TEXTS:
+            break
+    tx_vecs = noisy(rng.choice(len(embs), SERVE_TX, replace=False))
+    rag_rows = rng.choice(len(texts), SERVE_RAG, replace=False)
+    bolt_vecs = noisy(rng.choice(len(embs), SERVE_BOLT, replace=False))
+    # the searches, reads and GraphRAG answers, mixed in a seeded order
+    work = ([("vector", i) for i in range(SERVE_VECTORS)]
+            + [("text", i) for i in range(SERVE_TEXTS)]
+            + [("tx", i) for i in range(SERVE_TX)]
+            + [("rag", i) for i in range(SERVE_RAG)])
+    order = rng.permutation(len(work))
+    got: dict = {}
+    lat: dict = {"vector": [], "text": [], "tx": [], "rag": [], "bolt": []}
+    sheds = {"n": 0, "longest": 0, "mu": threading.Lock()}
+    errors: list = []
+
+    def http_client(c: int, items: list) -> None:
+        cl = _HttpClient(http.port, sheds)
+        try:
+            for kind, i in items:
+                if kind == "vector":
+                    req = ("/nornicdb/search", {
+                        "vector": vecs[i].tolist(), "limit": SERVE_K})
+                elif kind == "text":
+                    req = ("/nornicdb/search",
+                           {"query": queries[i], "limit": SERVE_K})
+                elif kind == "tx":
+                    req = ("/db/neo4j/tx/commit", {"statements": [{
+                        "statement": q_nodes,
+                        "parameters": {"k": SERVE_K,
+                                       "v": tx_vecs[i].tolist()}}]})
+                else:
+                    req = ("/nornicdb/rag/answer",
+                           {"question": texts[rag_rows[i]]})
+                code, body, dt = cl.call("POST", *req)
+                assert code == 200, (kind, i, code, body)
+                got[(kind, i)] = body
+                with mu:
+                    lat[kind].append(dt)
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+        finally:
+            cl.close()
+
+    def bolt_client(c: int) -> None:
+        try:
+            cl = _BoltClient(bolt.port, sheds)
+            try:
+                assert cl.hello({"scheme": "none",
+                                 "user_agent": "chip_smoke/17"}).tag == 0x70
+                for i in range(c, SERVE_BOLT, SERVE_CLIENTS):
+                    t = time.perf_counter()
+                    got[("bolt", i)] = cl.run(q_nodes, {
+                        "k": SERVE_K, "v": bolt_vecs[i].tolist()})
+                    with mu:
+                        lat["bolt"].append(time.perf_counter() - t)
+            finally:
+                cl.close()
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    c0 = K.launch_counts()
+    ivf0 = ivf_dispatches()
+    svc.vector_candidates = recording
+    try:
+        t0 = time.perf_counter()
+        threads = ([threading.Thread(target=http_client, args=(
+            c, [work[j] for j in order[c::SERVE_CLIENTS]]))
+            for c in range(SERVE_CLIENTS)]
+            + [threading.Thread(target=bolt_client, args=(c,))
+               for c in range(SERVE_CLIENTS)])
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        assert not any(th.is_alive() for th in threads), "a client hung"
+        wall = time.perf_counter() - t0
+        launches = _launch_delta(K, c0)
+        ivf = ivf_dispatches() - ivf0
+        if errors:
+            raise errors[0]
+        n_req = sum(len(v) for v in lat.values())
+        log(f"[phase17] (a) {n_req} requests from {SERVE_CLIENTS} HTTP "
+            f"clients and {SERVE_CLIENTS} Bolt sessions, the "
+            f"{SERVE_RAG} GraphRAG answers among the searches, over "
+            f"{db.storage.node_count()} nodes x {embs.shape[1]} in "
+            f"{wall:.2f}s ({n_req / wall:.1f} requests/s): "
+            + "; ".join(f"{k} {_pcts(v)} ({len(v)})" for k, v in lat.items())
+            + f"; 429s retried {sheds['n']}, longest run {sheds['longest']}; "
+            f"launches in the traffic {json.dumps(launches)}; IVF-pruned "
+            f"searches {ivf:.0f}")
+    finally:
+        del svc.vector_candidates  # the bound method again
+    try:
+        # -- the answers, held to the DB with no writer active
+        t0 = time.perf_counter()
+        cap = svc.corpus().capacity
+        tile_bits = streaming_geometry(cap, pick_tile_n(cap), 1)[2]
+        score_tol = 2.0 ** (tile_bits - 22)
+        diff = 0.0
+        for i in range(SERVE_VECTORS):
+            body = got[("vector", i)]["results"]
+            want = answered[(vecs[i].tobytes(), SERVE_K)]
+            assert [(r["id"], r["score"]) for r in body] == [
+                (a, b) for a, b in want], ("vector body", i)
+            assert all(r["content"] == db.storage.get_node(r["id"])
+                       .properties.get("content", "") for r in body)
+            fresh = inner(vecs[i], SERVE_K)
+            assert [r["id"] for r in body] == [a for a, _ in fresh], (
+                "vector ids", i)
+            diff = max(diff, max(abs(r["score"] - b)
+                                 for r, (_, b) in zip(body, fresh)))
+
+        def cypher_rows(params):
+            db.query_cache.clear()  # an answer the servers cached is not one
+            return db.cypher(q_nodes, params).rows
+
+        for kind, vs, pick in (
+                ("tx", tx_vecs,
+                 lambda b: [d["row"] for d in b["results"][0]["data"]]),
+                ("bolt", bolt_vecs, lambda b: b)):
+            for i in range(len(vs)):
+                rows = pick(got[(kind, i)])
+                if kind == "tx":
+                    assert not got[(kind, i)]["errors"], got[(kind, i)]
+                want = cypher_rows({"k": SERVE_K, "v": vs[i].tolist()})
+                assert [r[0] for r in rows] == [w[0] for w in want], (
+                    kind, i)
+                diff = max(diff, max(abs(r[1] - w[1])
+                                     for r, w in zip(rows, want)))
+        assert diff <= score_tol, ("scores", diff, score_tol)
+        with svc._lock:
+            svc._rank_cache.clear()
+        text_ref: list = [None] * SERVE_TEXTS
+
+        def ref_client(c: int) -> None:
+            try:
+                for i in range(c, SERVE_TEXTS, SERVE_CLIENTS):
+                    text_ref[i] = _Backoff()(svc.search, queries[i],
+                                             limit=SERVE_K)
+            except Exception as e:  # re-raised on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=ref_client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if errors:
+            raise errors[0]
+        for i in range(SERVE_TEXTS):
+            body = got[("text", i)]["results"]
+            assert body, ("no text results", queries[i])
+            assert [(r["id"], r["score"], r["content"]) for r in body] == [
+                (w["id"], w["score"], w["content"]) for w in text_ref[i]], (
+                "text body", i, queries[i])
+        for i, r in enumerate(rag_rows):
+            a = got[("rag", i)]
+            assert a["mode"] == "paged", a["mode"]
+            assert f"t{r}" in [src["id"] for src in a["sources"]], (
+                "own node not retrieved", i)
+            assert a["generated_tokens"] >= 1, a
+        log(f"[phase17] (a) checks {time.perf_counter() - t0:.2f}s: "
+            f"{SERVE_VECTORS} raw-vector bodies serialise the "
+            f"vector_candidates answer that served them (ids, scores) and "
+            f"name a fresh call's ids; "
+            f"{SERVE_TX} transaction and {SERVE_BOLT} Bolt answers equal to "
+            f"db.cypher in ids; max |score - reference| {diff:.6g} (bound: "
+            f"#2's decode step {score_tol:.6g} at capacity {cap}); "
+            f"{SERVE_TEXTS} text bodies equal to db.search.search in ids, "
+            f"scores and content; {SERVE_RAG} GraphRAG answers paged, each "
+            f"with its own node, tokens "
+            f"{[got[('rag', i)]['generated_tokens'] for i in range(SERVE_RAG)]}")
+        assert launches["streaming_topk_bf16"] > 0, "the servers missed #2"
+        assert launches["ragged_paged_attention"] > 0, "the RAG route missed #5"
+        assert ivf == 0, ("an IVF plan served", ivf)
+
+        # -- the admin surface, each GET timed
+        cl = _HttpClient(http.port, sheds)
+        try:
+            times = {}
+            for path in ("/health", "/metrics", "/admin/stats",
+                         "/admin/stats", "/admin/tpu/status",
+                         "/openapi.json"):
+                code, body, dt = cl.call("GET", path)
+                assert code == 200, (path, code)
+                # the first /admin/stats builds the system database's
+                # namespaced view (a scan of every node and edge, once)
+                times[path if path not in times else path + " again"] = dt
+                if path == "/metrics":
+                    fams = parse_exposition(body)
+                    for fam in ("nornicdb_http_request_seconds",
+                                "nornicdb_bolt_request_seconds",
+                                "nornicdb_requests_total",
+                                "nornicdb_broker_requests_total",
+                                "nornicdb_worker_requests_total",
+                                "nornicdb_shm_publishes_total",
+                                "heimdall_chat_requests"):
+                        assert fam in fams, fam
+                    served_2xx = sample_total(
+                        fams, "nornicdb_http_requests_by_code_total", "",
+                        method="POST", code="200")
+                    assert served_2xx >= len(work), served_2xx
+                elif path == "/admin/stats":
+                    assert body["nodes"] == db.storage.node_count()
+                    assert {"search", "genserve", "serving", "wal",
+                            "databases", "backend"} <= set(body), sorted(body)
+                    stats_keys = sorted(body)
+                elif path == "/admin/tpu/status":
+                    assert body["framework"] == "torch"
+                    assert body["backend_initialized"] is True
+                    assert body["devices"][0] == torch.cuda.get_device_name(0)
+                    assert body["lifecycle"]["state"] == "READY", body
+                    status = body
+                elif path == "/openapi.json":
+                    assert "/db/{database}/tx/commit" in body["paths"] or any(
+                        "tx/commit" in p for p in body["paths"])
+            code, body, _ = cl.call("POST", "/graphql", {"query": "{ x }"})
+            assert code == 501 and "A6b" in body["error"], (code, body)
+        finally:
+            cl.close()
+        log(f"[phase17] (a) admin GETs: "
+            + ", ".join(f"{p} {t * 1e3:.2f}ms" for p, t in times.items())
+            + f"; /metrics parsed strictly ({len(fams)} families); "
+            f"/admin/stats sections {stats_keys}; /admin/tpu/status "
+            f"devices {status['devices']} kernel launches "
+            f"{json.dumps(status['kernel_launches'])}; /graphql 501")
+    finally:
+        bolt.stop()
+        http.stop()
+        GEN_COUNTED["17"] = eng.stats.generated_tokens - tokens0
+
+
+# phase 17(b)'s serving child: ``cli.main(["serve", ...])``, as ``python
+# -m nornicdb_tpu_torch serve`` calls it, once the streaming threshold is
+# lowered to its SERVE_DOCS-row corpus (the module constant, as
+# tests/test_torch_cuda.py lowers it), so its searches run #2
+SERVE_LAUNCHER = (
+    "import sys\n"
+    "from nornicdb_tpu_torch.ops import similarity\n"
+    "similarity.STREAMING_MIN_ROWS = int(sys.argv[1])\n"
+    "from nornicdb_tpu_torch.cli import main\n"
+    "sys.exit(main(sys.argv[2:]))\n")
+
+
+class ServeChildren:
+    """Phase 17(b)'s two children, started after 17(a) so that nothing
+    else boots a CUDA context while it serves: ``serve --auth --embedder
+    hash`` over a fresh data directory through SERVE_LAUNCHER, and
+    ``python -m nornicdb_tpu_torch serve`` with ``NORNICDB_GRPC_ENABLED=1``,
+    which must refuse to start. ``close`` kills what still runs and deletes
+    the directory."""
+
+    def __init__(self):
+        import tempfile
+
+        self.here = os.path.dirname(os.path.abspath(__file__))
+        scratch = os.path.join(self.here, ".chip_scratch")
+        os.makedirs(scratch, exist_ok=True)
+        self.work = tempfile.mkdtemp(prefix="serve17-", dir=scratch)
+        self.data = os.path.join(self.work, "data")
+        self.err_path = os.path.join(self.work, "serve.err")
+        self.pw = "chip-smoke-17"
+        self.env = {k: v for k, v in os.environ.items()
+                    if not k.startswith("NORNICDB_")}
+        self.env.update(NORNICDB_ADMIN_PASSWORD=self.pw)
+        self.args = ["serve", "--auth", "--embedder", "hash",
+                     "--embed-dims", str(SERVE_DIMS), "--host", "127.0.0.1",
+                     "--http-port", "0", "--bolt-port", "0"]
+        self.proc = self.refused = None
+
+    def start(self) -> "ServeChildren":
+        self.t0 = time.perf_counter()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", SERVE_LAUNCHER, str(SERVE_DOCS)]
+                + self.args + ["--data-dir", self.data], cwd=self.here,
+                env=self.env, text=True, stdout=subprocess.PIPE, stderr=err)
+        self.refused = subprocess.Popen(
+            [sys.executable, "-m", "nornicdb_tpu_torch"] + self.args
+            + ["--data-dir", self.data + "-refused"],
+            cwd=self.here, env=dict(self.env, NORNICDB_GRPC_ENABLED="1"),
+            text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        return self
+
+    def close(self) -> None:
+        import shutil
+
+        for p in (self.proc, self.refused):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_serve_cli(K, children: ServeChildren) -> None:
+    """Phase 17(b), over ``children`` (started after 17(a)): /health; an
+    unauthenticated search gets 401; a login's token stores SERVE_DOCS
+    documents through the transaction API and, once the embed worker has
+    embedded them, searches by vector and by text answer each document
+    first, through #2 (the child's own launch counts, read from
+    /admin/tpu/status, which also names the card); a Bolt HELLO with a
+    wrong password gets Unauthorized, the right one SUCCESS and a count;
+    SIGTERM ends it with 0 within SERVE_EXIT_S and a reopen finds every
+    document. The start with ``NORNICDB_GRPC_ENABLED=1`` exited non-zero
+    naming ROADMAP A6b, and created no data directory."""
+    import select
+    import signal
+
+    import torch
+
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.embed import HashEmbedder
+
+    c = children
+    proc, pw = c.proc, c.pw
+    sheds = {"n": 0, "longest": 0, "mu": threading.Lock()}
+    ready, _, _ = select.select([proc.stdout], [], [], 300)
+    line = proc.stdout.readline() if ready else ""
+    if "NornicDB-TPU serving" not in line:
+        proc.kill()
+        raise AssertionError(("serve did not start", line,
+                              open(c.err_path).read()[-3000:]))
+    t_up = time.perf_counter() - c.t0
+    t_b = time.perf_counter()
+    http_port = int(line.split("http://127.0.0.1:")[1].split()[0])
+    bolt_port = int(line.split("bolt://127.0.0.1:")[1].split()[0])
+    assert "on cuda" in line, line
+    anon = _HttpClient(http_port, sheds)
+    code, _, _ = anon.call("GET", "/health")
+    anon.close()
+    assert code == 200
+    # a refused request's body is left unread on its connection (the JAX
+    # server's behaviour too), so each anonymous call takes a new one
+    anon = _HttpClient(http_port, sheds)
+    code, body, _ = anon.call("POST", "/nornicdb/search",
+                              {"query": "anything"})
+    anon.close()
+    assert code == 401, (code, body)
+    anon = _HttpClient(http_port, sheds)
+    code, tok, _ = anon.call("POST", "/auth/login",
+                             {"username": "admin", "password": pw})
+    anon.close()
+    assert code == 200, (code, tok)
+    cl = _HttpClient(http_port, sheds,
+                     {"Authorization": f"Bearer {tok['token']}"})
+    docs = [f"served document {i} about {EMBED_WORDS[i % len(EMBED_WORDS)]}"
+            f" and {EMBED_WORDS[(7 * i) % len(EMBED_WORDS)]} w{i}x"
+            for i in range(SERVE_DOCS)]
+    code, body, _ = cl.call("POST", "/db/neo4j/tx/commit", {
+        "statements": [{"statement": "UNWIND $rows AS r CREATE (:Doc "
+                        "{content: r.c, k: r.k})",
+                        "parameters": {"rows": [
+                            {"c": d, "k": i} for i, d in enumerate(docs)]}}]})
+    assert code == 200 and not body["errors"], body
+    t1 = time.perf_counter()
+    while True:
+        code, stats, _ = cl.call("GET", "/admin/stats")
+        if stats["pending_embeddings"] == 0:
+            break
+        assert time.perf_counter() - t1 < 120, stats["pending_embeddings"]
+        time.sleep(0.2)
+    t_embed = time.perf_counter() - t1
+    code, st0, _ = cl.call("GET", "/admin/tpu/status")
+    assert code == 200 and st0["backend_initialized"] is True, st0
+    assert st0["devices"][0] == torch.cuda.get_device_name(0), st0
+    hasher = HashEmbedder(SERVE_DIMS)
+    firsts = 0
+    for i in range(0, SERVE_DOCS, SERVE_DOCS // 8):
+        code, body, _ = cl.call("POST", "/nornicdb/search", {
+            "vector": hasher.embed(docs[i]).tolist(), "limit": 5})
+        assert code == 200, body
+        firsts += body["results"][0]["content"] == docs[i]
+        code, body, _ = cl.call("POST", "/nornicdb/search",
+                                {"query": docs[i], "limit": 5})
+        assert code == 200, body
+        firsts += body["results"][0]["content"] == docs[i]
+    code, st1, _ = cl.call("GET", "/admin/tpu/status")
+    d2 = (st1["kernel_launches"]["streaming_topk_bf16"]
+          - st0["kernel_launches"]["streaming_topk_bf16"])
+    cl.close()
+    assert firsts == 16, ("searches answered their document first", firsts)
+    assert d2 > 0, "the served searches missed #2"
+    bc = _BoltClient(bolt_port, sheds)
+    bad = bc.hello({"scheme": "basic", "principal": "admin",
+                    "credentials": "wrong"})
+    bc.close()
+    assert bad.tag == 0x7F and bad.fields[0]["code"] == (
+        "Neo.ClientError.Security.Unauthorized"), bad
+    bc = _BoltClient(bolt_port, sheds)
+    assert bc.hello({"scheme": "basic", "principal": "admin",
+                     "credentials": pw}).tag == 0x70
+    count = bc.run("MATCH (n:Doc) RETURN count(n)", {})
+    bc.close()
+    assert count == [[SERVE_DOCS]], count
+    t1 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=SERVE_EXIT_S)
+    t_exit = time.perf_counter() - t1
+    out = proc.stdout.read()
+    assert rc == 0, (rc, open(c.err_path).read()[-3000:])
+    assert "shutting down" in out, out
+    reopened = nornicdb_tpu_torch.open_db(c.data)
+    try:
+        n_docs = reopened.cypher("MATCH (n:Doc) RETURN count(n)").rows
+    finally:
+        reopened.close()
+    assert n_docs == [[SERVE_DOCS]], n_docs
+    r_out, r_err = c.refused.communicate(timeout=300)
+    assert c.refused.returncode != 0, r_out
+    assert "ROADMAP A6b" in r_err, r_err[-2000:]
+    assert not os.path.exists(c.data + "-refused")
+    log(f"[phase17] (b) serve --auth --embedder hash on the card: "
+        f"serving {t_up:.2f}s after its start (after 17(a)); "
+        f"unauthenticated search 401; {SERVE_DOCS} documents stored and "
+        f"embedded in {t_embed:.2f}s; 16 searches answered their document "
+        f"first, #2 launched {d2} times in the child (its "
+        f"/admin/tpu/status: {st1['devices']}, "
+        f"{json.dumps(st1['kernel_launches'])}); Bolt wrong password "
+        f"Unauthorized, right one SUCCESS; SIGTERM -> exit {rc} in "
+        f"{t_exit:.2f}s, a reopen finds {n_docs[0][0]} documents; "
+        f"NORNICDB_GRPC_ENABLED=1 -> exit {c.refused.returncode} "
+        f"({r_err.strip().splitlines()[-1]}); checks "
+        f"{time.perf_counter() - t_b:.2f}s; both children exited by "
+        f"time.time() {time.time():.1f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6553,6 +7216,19 @@ def main() -> int:
             t0 = time.perf_counter()
             phase_rag(K, args.seed, served, hybrid)
             log(f"[phase9] {time.perf_counter() - t0:.1f}s")
+            # -- phase 17: the serve surface over this DB, then the command
+            # (its children start once (a) is done)
+            t0 = time.perf_counter()
+            phase_serve(K, db, served, args.seed)
+            log(f"[phase17] (a) {time.perf_counter() - t0:.1f}s")
+            t1 = time.perf_counter()
+            children = ServeChildren().start()
+            try:
+                phase_serve_cli(K, children)
+                log(f"[phase17] (b) {time.perf_counter() - t1:.1f}s")
+            finally:
+                children.close()
+            log(f"[phase17] {time.perf_counter() - t0:.1f}s")
         finally:
             fired = hybrid["learned"]["fired"]
             t0 = time.perf_counter()
@@ -6564,6 +7240,10 @@ def main() -> int:
                 + cluster_report(fired, hybrid["learned"]["t0"]))
             t0 = time.perf_counter()
             db.close()
+            # phase 9 set the process default the engine was built from
+            from nornicdb_tpu_torch import genserve
+
+            genserve.configure(None)
             snap = os.path.join(CHAIN_DIR, "db10", "wal", "snapshot.json")
             log(f"[phase10] db.close() {time.perf_counter() - t0:.2f}s "
                 f"(the embed worker, phase 8's engine, the search service "

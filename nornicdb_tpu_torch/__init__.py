@@ -13,7 +13,9 @@ encoder of ``models``),
 ``models.pretrain.load_generator`` mounts a checkpoint). ``DB`` /
 ``open_db`` is the facade over all of them: ``store`` -> the embed worker
 -> the index -> auto-TLP inference (``inference``) -> ``recall``, Heimdall
-and GraphRAG, ``close`` and a reopen that recovers the chain.
+and GraphRAG, ``close`` and a reopen that recovers the chain. ``server``
+serves a DB over Bolt and HTTP (with ``auth`` and ``retention``), as
+``python -m nornicdb_tpu_torch serve`` does.
 
 A port of ``nornicdb_tpu`` (JAX on a TPU), kept beside it: the module names
 mirror the JAX package's so each module's counterpart is easy to find, and

@@ -1,16 +1,219 @@
 """Command line of the port: ``python -m nornicdb_tpu_torch <command>``.
 
 The counterpart of ``nornicdb_tpu/cli.py``, one subcommand at a time as the
-slices port what each drives. Ported: ``train``. ``--device`` is the port's
-device argument: it defaults to the card (CUDA) and names the CPU only when
-asked (``--device cpu``).
+slices port what each drives. Ported: ``serve`` (HTTP and Bolt over the
+port's DB) and ``train``. ``--device`` is the port's device argument: it
+defaults to the card (CUDA) and names the CPU only when asked (``--device
+cpu``).
+
+``serve`` refuses what is not ported yet, rather than ignoring it:
+``NORNICDB_QDRANT_GRPC_ENABLED`` and ``NORNICDB_GRPC_ENABLED`` (ROADMAP
+A6b) and prefork workers, ``--workers`` or ``workers.http`` /
+``workers.grpc`` above 0 (A6d), exit non-zero with a message naming the
+item.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import sys
+import time
+
+_TRUTHY = ("1", "true", "yes")
+
+
+def _open_db(args, device):
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.db import Config
+
+    cfg = Config(log_queries=bool(getattr(args, "log_queries", False)))
+    if cfg.log_queries:
+        import logging
+
+        logging.basicConfig(level=logging.INFO)
+    return nornicdb_tpu_torch.open_db(args.data_dir, cfg, device=device)
+
+
+def _refuse_unported(args, app_cfg) -> None:
+    """Exit non-zero on a surface that is not ported yet."""
+    for var in ("NORNICDB_QDRANT_GRPC_ENABLED", "NORNICDB_GRPC_ENABLED"):
+        if os.environ.get(var, "").lower() in _TRUTHY:
+            raise SystemExit(f"{var} is set, but the gRPC servers are not "
+                             "ported yet (ROADMAP A6b)")
+    n_http = (args.workers if args.workers is not None
+              else app_cfg.workers.http)
+    if n_http > 0 or app_cfg.workers.grpc > 0:
+        raise SystemExit("prefork protocol workers are not ported yet "
+                         "(ROADMAP A6d); serve with --workers 0")
+
+
+def cmd_serve(args) -> int:
+    """(ref: runServe main.go:210) The JAX ``cmd_serve`` in its order:
+    config and telemetry, the device owner, the DB, the embedder (with the
+    student gate) behind ``ServingEngine`` and ``CachedEmbedder``, the
+    generation engine's warm-up, the ``--auth`` admin user, HTTP and
+    Bolt, and a shutdown on SIGINT / SIGTERM that closes the DB."""
+    import nornicdb_tpu_torch.telemetry as telemetry
+    from nornicdb_tpu_torch._device import resolve_device
+    from nornicdb_tpu_torch.auth import ROLE_ADMIN, Authenticator
+    from nornicdb_tpu_torch.config import load as load_app_config
+    from nornicdb_tpu_torch.embed import CachedEmbedder, DeviceEmbedder, HashEmbedder
+    from nornicdb_tpu_torch.errors import DeviceUnavailable
+    from nornicdb_tpu_torch.multidb import SYSTEM_DB
+    from nornicdb_tpu_torch.server import BoltServer, HttpServer
+
+    app_cfg = load_app_config()
+    _refuse_unported(args, app_cfg)
+    # the card unless --device cpu: no card, no data directory opened
+    try:
+        device = resolve_device(args.device)
+    except DeviceUnavailable as e:
+        raise SystemExit(f"serve: {e}")
+    # fleet_staleness_s ages the workers' expositions out of the merged
+    # /metrics; with no workers (A6d) there is no fleet to age
+    tel = dict(vars(app_cfg.telemetry))
+    tel.pop("fleet_staleness_s", None)
+    telemetry.configure(**tel)
+    from nornicdb_tpu_torch import backend as backend_mod
+
+    backend_mod.configure(app_cfg.backend)
+    # vector-serving knobs become the defaults for every SearchService
+    # this process builds
+    from nornicdb_tpu_torch.search import service as search_service
+
+    search_service.configure_defaults(**vars(app_cfg.search))
+    # generation-serving knobs become the defaults for the engine this
+    # process builds behind Heimdall / GraphRAG
+    from nornicdb_tpu_torch import genserve as genserve_mod
+
+    genserve_mod.configure(app_cfg.genserve)
+    if device.type == "cuda":
+        # the device owner acquires the card on its own thread NOW, so the
+        # first search or embed finds it READY instead of waiting inline
+        # (a CPU server never creates one)
+        backend_mod.manager().ensure_started()
+
+    db = _open_db(args, device)
+    # embedder: trained checkpoint > bge-m3 preset on the card > hash,
+    # the one host embedder, only when named
+    if args.embedder == "trained" or (
+        args.embedder == "tpu" and os.environ.get("NORNICDB_EMBEDDER_MODEL")
+    ):
+        from nornicdb_tpu_torch.models.pretrain import load_embedder
+
+        model_dir = os.environ.get("NORNICDB_EMBEDDER_MODEL", "")
+        if not model_dir:
+            raise SystemExit(
+                "--embedder trained requires NORNICDB_EMBEDDER_MODEL=<dir>"
+            )
+        embedder = load_embedder(model_dir, device=device)
+    elif args.embedder == "tpu":
+        from nornicdb_tpu_torch.models import bge_m3
+
+        cfg_name = getattr(bge_m3, args.model_preset.upper().replace("-", "_"))
+        embedder = DeviceEmbedder(cfg=cfg_name, device=device)
+    else:
+        embedder = HashEmbedder(args.embed_dims)
+    # distilled production embedder, behind the eval gate: the student
+    # replaces the full encoder only when its retrieval MRR clears
+    # serving.student_min_mrr, else the config is rejected at startup
+    from nornicdb_tpu_torch.errors import StudentGateError
+    from nornicdb_tpu_torch.serving import ServingEngine, gate_student
+    from nornicdb_tpu_torch.serving.stats import set_embedder_selection
+
+    serving_cfg = app_cfg.serving
+    if args.embedder == "student":
+        serving_cfg.embedder = "student"
+        if not serving_cfg.student_model_dir:
+            serving_cfg.student_model_dir = os.environ.get(
+                "NORNICDB_EMBEDDER_MODEL", ""
+            )
+    if serving_cfg.embedder == "student":
+        from nornicdb_tpu_torch.models.pretrain import load_embedder
+
+        student_dir = serving_cfg.student_model_dir
+        if not student_dir:
+            raise SystemExit(
+                "serving.embedder=student requires "
+                "serving.student_model_dir (NORNICDB_STUDENT_MODEL)"
+            )
+        student = load_embedder(student_dir, device=device)
+        try:
+            report = gate_student(
+                student,
+                serving_cfg.student_min_mrr,
+                serving_cfg.student_eval_suite,
+            )
+        except StudentGateError as e:
+            raise SystemExit(f"serving config rejected: {e}")
+        print(
+            f"student embedder admitted: eval MRR "
+            f"{report.metrics.mrr:.4f} >= {serving_cfg.student_min_mrr}"
+        )
+        embedder = student
+        set_embedder_selection("student")
+    else:
+        set_embedder_selection("full")
+    if serving_cfg.enabled:
+        # the continuous ragged batching engine fronts every embed path;
+        # the cache sits outside so hits skip the queue
+        embedder = ServingEngine(embedder, serving_cfg)
+    db.set_embedder(CachedEmbedder(embedder))
+    # with an assistant checkpoint mounted, build and warm the generation
+    # engine before traffic
+    if os.environ.get("NORNICDB_ASSISTANT_MODEL") and \
+            app_cfg.genserve.enabled:
+        _ = db.heimdall
+        gen_engine = db.genserve_engine()
+        if gen_engine is not None:
+            gen_engine.warmup()
+
+    authenticator = None
+    if args.auth:
+        from nornicdb_tpu_torch.errors import AlreadyExistsError
+
+        system = db.database_manager.get_storage(SYSTEM_DB)
+        authenticator = Authenticator(system)
+        try:
+            authenticator.create_user(
+                "admin", os.environ.get("NORNICDB_ADMIN_PASSWORD", "admin"),
+                ROLE_ADMIN,
+            )
+        except AlreadyExistsError:
+            pass  # exists from a previous run
+
+    http_server = HttpServer(
+        db, host=args.host, port=args.http_port,
+        authenticator=authenticator, auth_required=args.auth,
+        serve_ui=not args.headless,
+    )
+    http_server.start()
+    bolt_server = BoltServer(
+        lambda q, p, d: (db.executor_for(d) if d else db.executor).execute(q, p),
+        host=args.host, port=args.bolt_port,
+        authenticator=authenticator, auth_required=args.auth,
+        session_executor_factory=db.session_executor,
+    )
+    bolt_server.start()
+    print(f"NornicDB-TPU serving: bolt://{args.host}:{bolt_server.port} "
+          f"http://{args.host}:{http_server.port} on {device} "
+          f"(data: {args.data_dir or 'memory'})", flush=True)
+
+    stop = []
+    signal.signal(signal.SIGINT, lambda *a: stop.append(1))
+    signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+    try:
+        while not stop:
+            time.sleep(0.2)
+    finally:
+        print("shutting down...", flush=True)
+        bolt_server.stop()
+        http_server.stop()
+        db.close()
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -38,7 +241,35 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="nornicdb_tpu_torch",
         description="NornicDB's PyTorch/CUDA port")
+    p.add_argument("--data-dir", default=os.environ.get("NORNICDB_DATA_DIR", ""),
+                   help="data directory (empty = in-memory)")
     sub = p.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser("serve", help="run the database server")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--bolt-port", type=int, default=7687)
+    s.add_argument("--http-port", type=int, default=7474)
+    s.add_argument("--auth", action="store_true", help="require authentication")
+    s.add_argument("--headless", action="store_true",
+                   help="no browser UI (ref: -tags noui builds)")
+    s.add_argument("--embedder", choices=["hash", "tpu", "trained", "student"],
+                   default="tpu",
+                   help="tpu: bge-m3 (--model-preset) on the server's device; "
+                        "hash: the host hash embedder, only when named")
+    s.add_argument("--embed-dims", type=int, default=1024)
+    s.add_argument("--model-preset", default="bge_small")
+    s.add_argument("--log-queries", action="store_true",
+                   help="log every Cypher statement with wall time")
+    s.add_argument("--workers", type=int, default=None,
+                   help="prefork HTTP protocol workers: not ported yet "
+                        "(ROADMAP A6d), so only 0 is accepted")
+    s.add_argument("--device", default=None,
+                   help="torch device to serve from (default: cuda; 'cpu' "
+                        "only when named)")
+    # also after the subcommand; the top-level value when not given here
+    s.add_argument("--data-dir", default=argparse.SUPPRESS,
+                   help="data directory (empty = in-memory)")
+    s.set_defaults(fn=cmd_serve)
 
     s = sub.add_parser(
         "train",

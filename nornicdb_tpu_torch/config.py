@@ -252,8 +252,9 @@ class GenServeConfig:
 @dataclass
 class WorkersConfig:
     """Prefork protocol workers of the JAX package's servers, kept for
-    config compatibility: the port's servers are not ported yet (ROADMAP
-    A6), so nothing reads them. Env form: ``NORNICDB_WORKERS_<FIELD>``."""
+    config compatibility: the workers are not ported yet (ROADMAP A6d), so
+    ``serve`` refuses ``http`` or ``grpc`` above 0 and reads nothing else.
+    Env form: ``NORNICDB_WORKERS_<FIELD>``."""
 
     # worker processes fronting the HTTP surface (0 disables the pool)
     http: int = 0

@@ -36,9 +36,11 @@ without building an executor. The GDS and APOC procedures run through
 the same executor; their PageRank, components and link-prediction GEMMs
 on its device.
 
-Not ported yet (ROADMAP A6): ``decay``, ``temporal`` and
-``qdrant_registry``. ``Config.decay_enabled`` (default False) is refused
-until decay is ported.
+Not ported yet: ``decay`` and ``temporal`` (ROADMAP A6c) and
+``qdrant_registry``, the collections Qdrant REST and gRPC share (A6b).
+``Config.decay_enabled`` (default False) is refused until decay is
+ported. The servers (``server/``) and ``python -m nornicdb_tpu_torch
+serve`` drive this facade.
 
 Behavioral reference: the upstream NornicDB pkg/nornicdb/db.go (Open :750,
 DB :434, Store/Recall/Remember/Link/Neighbors/Forget :1365-1776).
@@ -97,7 +99,7 @@ class Config:
     embed_chunk_tokens: int = 512
     embed_chunk_overlap: int = 50
     embed_workers: int = 1
-    # decay (ROADMAP A6: True is refused until decay is ported)
+    # decay (ROADMAP A6c: True is refused until decay is ported)
     decay_enabled: bool = False
     decay_interval: float = 3600.0
     archive_threshold: float = 0.05
@@ -127,7 +129,7 @@ class DB:
         self.device = resolve_device(device)
         self.config = config or Config()
         if self.config.decay_enabled:
-            raise ValueError("memory decay is not ported yet (ROADMAP A6); "
+            raise ValueError("memory decay is not ported yet (ROADMAP A6c); "
                              "open with Config(decay_enabled=False)")
         self.data_dir = data_dir
         self._base_storage: Engine = open_storage(

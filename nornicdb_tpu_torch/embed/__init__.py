@@ -2,7 +2,7 @@
 encoder on the card (``DeviceEmbedder``), the deterministic
 ``HashEmbedder`` and the content-hash LRU ``CachedEmbedder``; and in
 ``embed/queue.py`` the background ``EmbedWorker`` the DB runs over its
-pending-embed queue. The HTTP embedders are not ported yet (ROADMAP A6)."""
+pending-embed queue. The HTTP embedders are not ported yet (ROADMAP A6b)."""
 
 from nornicdb_tpu_torch.embed.base import (
     CachedEmbedder,

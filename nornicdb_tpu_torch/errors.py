@@ -1,7 +1,7 @@
 """Error types of the port: copies of the ones the search, storage,
-generation, training, device-owner and Cypher slices raise or catch
-(``nornicdb_tpu/errors.py``), kept here so the port imports nothing of the
-JAX package."""
+generation, training, device-owner, Cypher and server slices raise or
+catch (``nornicdb_tpu/errors.py``), kept here so the port imports nothing
+of the JAX package."""
 
 
 class NornicError(Exception):
@@ -32,6 +32,10 @@ class CypherSyntaxError(NornicError):
 
 class CypherTypeError(NornicError):
     """Runtime type error during Cypher evaluation."""
+
+
+class AuthError(NornicError):
+    """Authentication / authorization failure."""
 
 
 class TransactionError(NornicError):

@@ -318,6 +318,35 @@ _SYNC_BYTES_HIST = _REGISTRY.histogram(
 _SYNC_PATCH_BYTES_CELL = _SYNC_BYTES_HIST.labels("patch")
 _SYNC_FULL_BYTES_CELL = _SYNC_BYTES_HIST.labels("full")
 
+# mesh-sharded serving families, declared as the JAX module declares them
+# so /metrics renders the documented catalog; the sharded corpus that
+# observes them is ROADMAP A7, and until then nothing moves them
+_SHARDED_SEARCH_HIST = _REGISTRY.histogram(
+    "nornicdb_sharded_search_seconds",
+    "Fused per-shard scoring + local top-k + ICI all-gather merge: one "
+    "device dispatch per (possibly batched) sharded search",
+)
+_SHARDED_MERGE_HIST = _REGISTRY.histogram(
+    "nornicdb_sharded_merge_seconds",
+    "Host-side merge epilogue of a sharded search (sentinel filtering, "
+    "id resolution, IVF block+residual candidate merge)",
+)
+_SHARD_REBALANCES = _REGISTRY.counter(
+    "nornicdb_shard_rebalances_total",
+    "Shard-boundary remaps (grow/compact/recovery) that forced a full "
+    "re-shard re-upload of the mesh corpus",
+)
+_SHARD_LOCALK_OVERFLOWS = _REGISTRY.counter(
+    "nornicdb_shard_local_k_overflows_total",
+    "Approx sharded searches where one shard's local_k candidate list "
+    "saturated the merged top-k (raise local_k to recover recall)",
+)
+_SHARD_ROWS_GAUGE = _REGISTRY.gauge(
+    "nornicdb_shard_rows",
+    "Live corpus rows resident on each mesh shard",
+    labels=("shard",),
+)
+
 
 @dataclass
 class SyncStats:

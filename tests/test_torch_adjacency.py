@@ -10,8 +10,8 @@ twin engines of both packages; every read of the snapshot API
 ``build_graph``'s snapshot branch must equal its scan branch. The cases
 of ``tests/test_adjacency.py`` run against the port, its Cypher
 equivalence suite (the CSR path against the engine-scan path, through the
-matcher and the GDS procedures) included, with the executor on the CPU;
-``TestStatsSurfacing`` waits for the port's server (ROADMAP A6).
+matcher and the GDS procedures) included, with the executor on the CPU,
+and ``TestStatsSurfacing`` through the port's HTTP server.
 """
 
 import threading
@@ -908,3 +908,36 @@ class TestSnapshotAgainstJax:
                                    for e in eng.all_edges())
             finals[name] = pairs
         assert finals["port"] == finals["jax"]
+
+
+class TestStatsSurfacing:
+    def test_facade_admin_stats_and_metrics(self):
+        import json
+        import urllib.request
+
+        import nornicdb_tpu_torch
+        from nornicdb_tpu_torch.server import HttpServer
+
+        db = nornicdb_tpu_torch.open_db("", device="cpu")
+        srv = HttpServer(db, port=0)
+        srv.start()
+        try:
+            assert db.adjacency_stats() is None  # not attached yet
+            db.cypher("CREATE (:S {k: 1})-[:R]->(:S {k: 2})")
+            db.cypher("MATCH (a:S {k: 1})-[*1..2]->(b) RETURN count(*)")
+            stats = db.adjacency_stats()
+            assert stats is not None and stats["builds"] == 1
+            assert stats["edges"] == 1 and stats["bytes"] > 0
+
+            base = f"http://127.0.0.1:{srv.port}"
+            body = json.loads(urllib.request.urlopen(
+                base + "/admin/stats", timeout=30).read())
+            assert body["adjacency"]["builds"] == 1
+            assert body["adjacency"]["edges"] == 1
+            text = urllib.request.urlopen(
+                base + "/metrics", timeout=30).read().decode()
+            assert "nornicdb_adjacency_builds_total 1" in text
+            assert "nornicdb_adjacency_bytes" in text
+        finally:
+            srv.stop()
+            db.close()

@@ -29,7 +29,7 @@ from nornicdb_tpu_torch.storage import MemoryEngine
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the device owner, the Cypher engine, GDS, APOC and the Kalman filters
-# (ROADMAP A4, A5a, A5b)
+# (ROADMAP A4, A5a, A5b), the servers, auth and retention (A6a)
 NEW_MODULES = (
     "nornicdb_tpu_torch.backend",
     "nornicdb_tpu_torch.backend.manager",
@@ -62,6 +62,20 @@ NEW_MODULES = (
     "nornicdb_tpu_torch.apoc.triggers",
     "nornicdb_tpu_torch.apoc.procedures",
     "nornicdb_tpu_torch.apoc.export_import",
+    "nornicdb_tpu_torch.server",
+    "nornicdb_tpu_torch.server.packstream",
+    "nornicdb_tpu_torch.server.bolt",
+    "nornicdb_tpu_torch.server.respcache",
+    "nornicdb_tpu_torch.server.ui",
+    "nornicdb_tpu_torch.server.openapi",
+    "nornicdb_tpu_torch.server.http",
+    "nornicdb_tpu_torch.server.broker",
+    "nornicdb_tpu_torch.server.shm",
+    "nornicdb_tpu_torch.server.grpc_search",
+    "nornicdb_tpu_torch.telemetry.federation",
+    "nornicdb_tpu_torch.auth",
+    "nornicdb_tpu_torch.auth.auth",
+    "nornicdb_tpu_torch.retention",
 )
 
 _IMPORT_ALL = r"""
@@ -177,7 +191,8 @@ class TestImportBoundary:
 
     def test_device_owner_and_cypher_import_neither_jax_nor_jax_package(self):
         """A static scan of every import statement in ``backend/``,
-        ``cypher/``, ``apoc/`` and ``filter/`` (the runtime check above sees only what an import
+        ``cypher/``, ``apoc/``, ``filter/``, ``server/``, ``auth/`` and
+        ``retention.py`` (the runtime check above sees only what an import
         executes, not the imports a function makes when it runs)."""
         import ast
 

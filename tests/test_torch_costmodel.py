@@ -3,15 +3,21 @@
 ``tests/test_costmodel.py`` against the port. Learning and the accuracy
 contract (median relative error under 30% after warmup, through the
 port's deviceprof ledger), predictive admission, the SLO burn gauges, the
-capacity snapshot, the deadline-budget attribution and the rendered
-families. The ``/admin/capacity`` endpoint waits for the port's HTTP
-server.
+capacity snapshot, the deadline-budget attribution, the rendered
+families and the ``/admin/capacity`` endpoint of the port's HTTP server.
 """
 
 from __future__ import annotations
 
+import json
+import urllib.request
+
 import numpy as np
 import pytest
+
+import nornicdb_tpu_torch
+from nornicdb_tpu_torch.embed import HashEmbedder
+from nornicdb_tpu_torch.server.http import HttpServer
 
 from nornicdb_tpu_torch.telemetry import budget, configure
 from nornicdb_tpu_torch.telemetry.costmodel import (
@@ -288,6 +294,27 @@ class TestBudget:
 
 
 class TestLiveSurface:
+    @pytest.fixture
+    def server(self, tmp_path):
+        db = nornicdb_tpu_torch.open_db("", device="cpu")
+        db.set_embedder(HashEmbedder(32))
+        srv = HttpServer(db, port=0)
+        srv.start()
+        yield srv
+        srv.stop()
+        db.close()
+
+    def _get(self, port, path):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}{path}", timeout=30) as resp:
+            return resp.status, json.loads(resp.read())
+
+    def test_admin_capacity_endpoint(self, server):
+        status, cap = self._get(server.port, "/admin/capacity")
+        assert status == 200
+        assert set(cap) >= {"programs", "headroom", "slo", "admission"}
+        assert cap["slo"]["targets_s"]  # defaults configured at boot
+
     def test_build_info_renders_one_live_cell(self):
         text = REGISTRY.render_prometheus()
         lines = [l for l in text.splitlines()
