@@ -20,7 +20,10 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    streaming kernel's launch count and the fused-dispatch count;
 3. the same over an int8-mirrored ``DeviceCorpus(quantize=True)``;
 4. the extract-kernel epilogue, identical to the sort epilogue;
-5. generation serving at full width: Qwen2.5-0.5B (``QWEN25_05B``, bf16,
+5. generation serving at full width, in a card child (``CardChild``)
+   beside 10.1's build, where this process JSON-encodes the chain's
+   records and leaves the card idle (its kernel entries and launches
+   come back in the child's result): Qwen2.5-0.5B (``QWEN25_05B``, bf16,
    weights from ``--seed``) behind ``GenerationEngine`` with the default
    ``GenServeConfig``. The ragged paged attention kernel is held against
    its plain version on the inputs of a real fused step (decode block
@@ -39,11 +42,12 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    equal to ``qwen2.generate``'s tokens, which pass the dense reference,
    ``generate_stream``'s deltas joining to the same text, sampling at
    T = 0.8 repeating for a seed and changing for another;
-6. the fused cosine kernel through ``ops.fused_cosine_topk`` at Q = 1024
-   and Q = 16 on the 1,000,064 x 1024 float32 corpus buffer (tile_n 128,
-   k = 100): held against its plain version (max |d| <= COSINE_TOL, top-100
-   ids equal but for swaps within it) and timed beside its bound and the
-   float32 ``torch.matmul`` yardstick;
+6. (run after phase 10, with phase 7, so that 14b's replay child starts
+   sooner) the fused cosine kernel through ``ops.fused_cosine_topk`` at
+   Q = 1024 and Q = 16 on the 1,000,064 x 1024 float32 corpus buffer
+   (tile_n 128, k = 100): held against its plain version (max |d| <=
+   COSINE_TOL, top-100 ids equal but for swaps within it) and timed
+   beside its bound and the float32 ``torch.matmul`` yardstick;
 7. IVF serving at full width: a ``SearchService`` over the same vectors,
    batcher on, ``SearchConfig`` defaults. ``recluster()`` fits k-means
    (K = 707, 10 iterations, a 262,144-row sample), builds the layout and
@@ -84,8 +88,8 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    options set through ``search.configure_defaults`` (write-behind and
    batching on, the IVF tuner off), as a server installs its config.
    32 clients
-   x 8 ``search(query, limit=10)`` calls (40 candidates a leg; half stored
-   texts, half their last two words) while 4 writers make 256 create /
+   x 4 ``search(query, limit=10)`` calls (40 candidates a leg; half stored
+   texts, half their last two words) while 4 writers make 128 create /
    update / delete calls through the storage. Checks: each ranking equals
    ``fuse_rrf`` of its BM25 and vector legs; the vector leg's recall@40
    >= 0.95 against an exact float32 scan on the card; every stored text
@@ -106,7 +110,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``deviceprof.capture_profile(2.0)`` while 8 threads search holds #2's
    launches (made on the batcher's thread); the tracer's ``search.embed``,
    ``search.rank`` and ``search.vector`` span p50s beside the script's.
-   10.8, the learning loop: 1,024 new texts of phase 8's mix (from
+   10.8, the learning loop: 512 new texts of phase 8's mix (from
    ``--seed`` + 1, none equal to a stored text) stored through
    ``db.store`` by 8 clients; the DB's EmbedWorker embeds them through
    phase 8's engine and ``_on_embedded`` feeds
@@ -130,16 +134,17 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    flight (the image a kill then leaves). The chain is closed after phase
    9 (its close-time snapshot).
    10.9, Cypher through ``db.cypher`` on the card (the process-default
-   device owner gating every offload): 256 ``CALL
+   device owner gating every offload; the in-memory DB's part in the card
+   child of phase 5, after it, beside 10.1's build): 256 ``CALL
    db.index.vector.queryNodes('default', 10, $v)`` calls from 8 clients
    over phase 10's DB, each answer's ids and scores those of
    ``db.search.vector_candidates`` (#2 launches, no IVF plan serves); in
    an in-memory ``open_db("")`` on the card (synchronous storage, no
    result cache), 131,072 ``:Item`` nodes through ``UNWIND ... CREATE``
-   (scores tied in runs of 16, exact in float32) and 16 ``ORDER BY
+   (scores tied in runs of 16, exact in float32) and 8 ``ORDER BY
    i.score DESC LIMIT 100`` queries over >= 100,352 rows each (the top-k
    offload, ``torch.topk`` on the card), then 16,384 ``:Doc`` nodes with
-   phase 8's embeddings and 16 ``ORDER BY vector.similarity.cosine(d.emb,
+   phase 8's embeddings and 8 ``ORDER BY vector.similarity.cosine(d.emb,
    $q) DESC LIMIT 10`` queries over >= 8,192 rows each (VectorTopK,
    ``graph_masked_scores`` on the card), at the default thresholds: each
    offload ``used`` once a query, never ``unavailable``, and 4 answers of
@@ -162,8 +167,9 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``apoc.algo.pageRank(collect(i))`` over 4,096 ids within PR_L1_TOL of
    float64 on that subgraph; ``apoc.text`` / ``coll`` / ``map`` over
    10,000 rows; ``kalman.smooth`` / ``filter`` / ``predict`` equal to the
-   filter module's ``Kalman``. (b) in-memory DBs on the card: a Graph500
-   Kronecker graph of SCALE 13 through the storage API;
+   filter module's ``Kalman``. (b) in a card child with phase 12, beside
+   10.1's build (it reads nothing of phase 10's DB), in-memory DBs on the
+   card: a Graph500 Kronecker graph of SCALE 13 through the storage API;
    ``gds.linkPrediction.suggest`` (the adjacency GEMMs on the card) for
    commonNeighbors equal to the numpy branch and for adamicAdar the same
    pairs but for ties within LINK_TOL; ``gds.fastRP.stream`` (128) unit
@@ -200,7 +206,7 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
 17. the serve surface, after phase 9 and before phase 10's DB closes.
    (a) the port's ``HttpServer`` and ``BoltServer`` over that DB, wired as
    ``python -m nornicdb_tpu_torch serve`` wires them: 8 HTTP clients send
-   64 raw-vector searches, 64 text searches with distinct queries, 8
+   64 raw-vector searches, 32 text searches with distinct queries, 8
    transaction-API ``queryNodes`` reads and 2 GraphRAG answers; 8 Bolt
    sessions (HELLO, RUN, PULL) make 64 ``queryNodes`` calls. With no
    writer active, a raw-vector body equals what ``vector_candidates``
@@ -211,22 +217,54 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    paged and retrieves its own node. A 429 is retried after its
    Retry-After, and the 429s and their longest run are logged. ``/health``,
    ``/metrics`` (parsed strictly), ``/admin/stats``, ``/admin/tpu/status``
-   (the card's name) and ``/openapi.json`` are timed; ``/graphql`` answers
-   501. Each kernel's launches in the traffic are logged, #2 and #5 above
-   0. (b) ``python -m nornicdb_tpu_torch serve --auth --embedder hash`` as
-   a child process on the card over a fresh data directory: 401 for an
-   unauthenticated search, 256 documents stored through the transaction
-   API and embedded, 16 searches answering their document first through
-   #2 (the child's own launch counts, from its ``/admin/tpu/status``), a
-   Bolt HELLO refused for a wrong password and accepted for the right one,
-   SIGTERM to exit 0 and a reopen holding the documents; then
-   ``NORNICDB_GRPC_ENABLED=1 ... serve`` exits non-zero naming ROADMAP
-   A6b.
-11. training, after phase 9 with the earlier phases' models released
-   (no kernel: torch ops, autograd and fused AdamW, as the JAX package
-   trains through XLA). 11a: ``QWEN25_05B`` (494,032,768 bf16 parameters
-   from ``--seed``) through ``training.make_lm_train_step`` at lr 1e-4 on
-   8 x 513-token windows of a seeded token stream; 11b: ``BGE_M3``
+   (the card's name) and ``/openapi.json`` are timed; ``/graphql``
+   answers ``{ stats { nodes } }`` with the DB's count. Each kernel's
+   launches in the traffic are logged, #2 and #5 above 0. (b) ``python -m
+   nornicdb_tpu_torch serve --auth --embedder hash`` as a child process on
+   the card over a fresh data directory: 401 for an unauthenticated
+   search, 256 documents stored through the transaction API and embedded,
+   16 searches answering their document first through #2 (the child's own
+   launch counts, from its ``/admin/tpu/status``), ``/graphql`` counting
+   the documents, ``GET /collections`` answering no collection, a GraphQL
+   mutation refused for a viewer (401 "permission write denied", as the
+   JAX server answers), a Bolt HELLO refused for a wrong password and
+   accepted for the right one, SIGTERM to exit 0 and a reopen holding the
+   documents; then ``NORNICDB_GRPC_ENABLED=1 ... serve`` exits non-zero
+   naming ROADMAP A6b-2.
+18. GraphQL and the Qdrant REST API, started after phase 17. (a) before
+   phase 10's DB closes: GraphQL over that DB behind a port
+   ``HttpServer`` from 8 clients: 16 ``search`` fields held to
+   ``db.search.search`` (rank cache cleared) in ids and scores, 16
+   ``similar`` fields to ``db.search.vector_candidates`` without the node
+   (ids, scores within #2's decode step), ``stats``, ``node``, ``nodes``,
+   ``neighbors`` and a ``cypher`` ``queryNodes`` call held to the storage,
+   ``db.neighbors`` and ``db.cypher``, introspection, and a document with
+   a fragment, an alias, variables and ``@include`` / ``@skip``; #2
+   launches. (b) in a child process on the card, started once (a) is
+   done, that runs beside phase 10's close and phases 11 and 14 (host
+   code under one interpreter lock of its own) and is collected after
+   phase 14:
+   Qdrant REST over a
+   fresh in-memory port DB. A named-vector collection (1,024 points,
+   ``dense`` 1,024 and ``small`` 64 wide): each name searched, its
+   snapshot equal to what was upserted. A 1,024-wide Cosine collection
+   loaded with phase 8's 65,536 embeddings as points (payload doc, group
+   = doc % 16, the text's last word) in batches of 1,024 from 4 client
+   processes (load wall time and points/s logged); 64 unfiltered
+   searches from 8 clients through #2 (ids equal to the registry's own
+   answer, scores within #2's decode step, recall@10 >= 0.95 against an
+   exact float32 scan), 16 searches filtered by group (the exact filtered
+   answer, ties within a bf16 step aside), count with and without a
+   filter, a scroll through one group, retrieve, delete of 64 points
+   (never served again, the count 65,472), the collection GETs, and
+   GraphQL's five mutations held to the storage. The child's #2 launches
+   are read from its own counts.
+11. training, after phase 10's close with the earlier phases' models
+   released, beside 18(b)'s child (no kernel: torch ops, autograd and
+   fused AdamW, as the JAX package trains through XLA). 11a:
+   ``QWEN25_05B`` (494,032,768 bf16 parameters from ``--seed``) through
+   ``training.make_lm_train_step`` at lr 1e-4 on 8 x 513-token windows
+   of a seeded token stream; 11b: ``BGE_M3``
    (566,705,152) through ``make_train_step`` on 32 phase-8 texts and their
    ``_augment`` views (``HashTokenizer``, 128 tokens). Each: 3 warm-up
    steps, 20 timed (tokens/s, step p50/p99, the forward / backward /
@@ -246,11 +284,12 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    trained status prompts through ``db.heimdall.chat`` at least one
    parses to the ``status`` action, whose dispatch returns the DB's node
    and edge counts.
-12. graph offloads, after phase 11 with its models released (no kernel:
-   ``index_add_``, ``scatter_reduce_`` and float32 ``torch.matmul``, as
-   the JAX package leaves them to XLA). 12a: a Graph500 Kronecker graph
-   (SCALE 20, edgefactor 16: 1,048,576 vertices, 16,777,216 edges with
-   self-loops and duplicates, from ``--seed`` on the card) and
+12. graph offloads, in the card child of 16(b), after it, beside 10.1's
+   build (no kernel: ``index_add_``, ``scatter_reduce_`` and float32
+   ``torch.matmul``, as the JAX package leaves them to XLA). 12a: a
+   Graph500 Kronecker graph (SCALE 20, edgefactor 16: 1,048,576
+   vertices, 16,777,216 edges with self-loops and duplicates, from
+   ``--seed`` on the card) and
    ``graph_algos.pagerank`` at its defaults, numpy in and out: end-to-end
    and device ms, ms an iteration against its bytes bound, the copies'
    share, held to a float64 numpy power iteration (L1 and the top 1,000
@@ -260,8 +299,9 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    edges) in a port ``MemoryEngine``, ``build_graph``, ``batch_scores``
    of all five methods on the card against ``use_device=False`` and
    ``top_candidates(adamicAdar, 20)`` against the CPU's.
-14. the storage chain, after phase 12 (no kernel of its own: host code,
-   and two C++ libraries built with ``g++`` from the port's copies in
+14. the storage chain, after phase 11, beside 18(b)'s child while it
+   runs (no kernel of its own: host code, and two
+   C++ libraries built with ``g++`` from the port's copies in
    ``nornicdb_tpu_torch/storage/csrc``). 14a: phase 10's DB reopened by
    ``open_db`` from its close-time snapshot holds its counts, every
    acknowledged write (content, embedding bit for bit), 10.8's learned
@@ -305,9 +345,10 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    for search/dense, search/ivf, serving/embed and genserve/ragged, the
    program-time histogram, serving batches, search batch sizes, device
    syncs, IVF tunes and cost-model observations; the generated-token
-   counter equal to the engines' own counts (phases 5, 5d and 9); the cost
+   counter equal to the engines' own counts (phases 9 and 17: the card
+   children's engines count in their own processes); the cost
    model's median relative error, every phase's predicted-deadline sheds
-   (phases 5, 8 and 10 retry a shed call with backoff) and the tracer's
+   (phases 8 and 10 retry a shed call with backoff) and the tracer's
    cost a span on this host; the storage families (WAL append, async
    flush seconds and ops, adjacency maintenance) non-zero, and phase 14's
    traced write holding ``wal.append``, ``storage.flush`` and
@@ -322,9 +363,10 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    held under half the 1.0 s threshold) and failure reasons logged; the ``nornicdb_backend_*`` and
    ``nornicdb_cypher_*`` families rendered.
 
-The data is a Gaussian mixture made with numpy from ``--seed``: 10,000
-centres with 100 rows each (shuffled), so each query's true top-100 is
-separable from the rest. Queries are noisy copies of rows.
+The data is a Gaussian mixture made on the card with torch from ``--seed``
+(queries with numpy): 10,000 centres with 100 rows each (shuffled), so
+each query's true top-100 is separable from the rest. Queries are noisy
+copies of rows.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line before
 it is the ``kernels`` JSON (times, bounds, launches). Every ``ms`` there is
@@ -347,10 +389,12 @@ and bf16 GEMMs to float32 reductions.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import json
 import os
+import re
 import resource
 import subprocess
 import sys
@@ -439,12 +483,14 @@ RAG_EDGES = (2, 4)
 RAG_SEQ_TOKENS = 1024
 RAG_CHECKED = 4  # answers whose tokens are held against the dense path
 # phase 10: hybrid search over phase 8's texts in a MemoryEngine: 32
-# clients x 8 searches of limit 10 (40 candidates a leg), half stored texts,
-# half their last two words, while 4 writers make 256 create / update /
+# clients x 4 searches of limit 10 (40 candidates a leg), half stored texts,
+# half their last two words, while 4 writers make 128 create / update /
 # delete calls; 64 repeats for the rank cache; 32 two-word searches
 # reranked by a BGE_M3-width cross-encoder (20 candidates) and 32 with MMR
-HYBRID_CLIENTS, HYBRID_PER_CLIENT, HYBRID_LIMIT = 32, 8, 10
-HYBRID_WRITERS, HYBRID_WRITES = 4, 256
+# (8 searches a client and 256 writes until, with phase 18, the run passed
+# 1,200 s on a slower host: no later phase reads them; PERF.md section 4)
+HYBRID_CLIENTS, HYBRID_PER_CLIENT, HYBRID_LIMIT = 32, 4, 10
+HYBRID_WRITERS, HYBRID_WRITES = 4, 128
 HYBRID_REPEATS, HYBRID_RERANK, HYBRID_MMR = 64, 32, 32
 # a phase-10 client retries a shed embed (ResourceExhausted) with backoff:
 # 32 clients' BM25 holds the interpreter lock, so the embed engine's
@@ -544,8 +590,9 @@ LINK_SCALE, LINK_LIMIT, LINK_TOL = 13, 20, 1e-5
 # (8,192 texts took the run to 1,157.6 s on an H100 against the 1,080 s it
 # must stay under; with 10.9 and phase 15 added, 4,096 texts and 256
 # recalls took it to 1,143.5 s, so 2,048 and 128; with phase 16 added,
-# 1,145.7 s on a slower host, so 1,024; PERF.md section 4)
-LEARN_TEXTS, LEARN_CLIENTS, LEARN_DRAIN_S = 1024, 8, 300.0
+# 1,145.7 s on a slower host, so 1,024; with phase 18, past 1,200 s on a
+# slower host, so 512; PERF.md section 4)
+LEARN_TEXTS, LEARN_CLIENTS, LEARN_DRAIN_S = 512, 8, 300.0
 LEARN_RECALLS, LEARN_REEMBED, SIM_TOL = 128, 256, 1e-3
 # phase 9: Heimdall chat completions from CHAT_CLIENTS clients through
 # db.heimdall (the engine over the mounted checkpoint), CHAT_TOKENS each
@@ -587,8 +634,9 @@ TRACED: dict = {}
 # of them held against the generic engine; CYPHER_BATCH rows an UNWIND
 CYPHER_VEC_QUERIES, CYPHER_CLIENTS = 256, 8
 CYPHER_ITEMS, CYPHER_DOCS = 131_072, 16_384
-# (32 shape queries until phase 17 came; each shape keeps its 4 checks)
-CYPHER_SHAPE_QUERIES, CYPHER_CHECKED, CYPHER_BATCH = 16, 4, 8192
+# (32 shape queries until phase 17 came, 16 until phase 18 came; each
+# shape keeps its 4 checks)
+CYPHER_SHAPE_QUERIES, CYPHER_CHECKED, CYPHER_BATCH = 8, 4, 8192
 # phase 16, GDS and APOC through db.cypher: (a) over phase 10's DB, link
 # prediction and depth-2 paths from GDS_SOURCES seeded nodes, hop levels
 # from GDS_HOP_SOURCES of them (apoc.neighbors.byhop reads every edge of
@@ -619,14 +667,32 @@ APOC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # before it calls cli.main, so its searches run #2. SIGTERM must end it
 # with exit code 0 within SERVE_EXIT_S seconds
 SERVE_CLIENTS, SERVE_K = 8, 10
-SERVE_VECTORS, SERVE_TEXTS, SERVE_TX, SERVE_RAG = 64, 64, 8, 2
+# (64 text searches until phase 18 came; PERF.md section 4)
+SERVE_VECTORS, SERVE_TEXTS, SERVE_TX, SERVE_RAG = 64, 32, 8, 2
 SERVE_BOLT = 64
 SERVE_DOCS, SERVE_DIMS, SERVE_EXIT_S = 256, 64, 60.0
+# phase 18, GraphQL and Qdrant REST. (a) GraphQL over phase 10's DB:
+# GQL_SEARCHES search and GQL_SIMILAR similar fields (limit SERVE_K) from
+# SERVE_CLIENTS clients. (b) A collection of QDRANT_POINTS points (phase
+# 8's embeddings; QDRANT_GROUPS payload groups) upserted in batches of
+# QDRANT_BATCH from QDRANT_LOADERS client processes, QDRANT_SEARCHES
+# unfiltered and QDRANT_FILTERED filtered searches from SERVE_CLIENTS
+# clients, QDRANT_DELETED points deleted; a named-vector collection of
+# QDRANT_NAMED points (vectors "dense", 1,024 wide, and "small",
+# QDRANT_SMALL wide)
+GQL_SEARCHES, GQL_SIMILAR = 16, 16
+QDRANT_POINTS, QDRANT_BATCH, QDRANT_LOADERS = 65_536, 1024, 4
+QDRANT_GROUPS, QDRANT_SEARCHES, QDRANT_FILTERED = 16, 64, 16
+QDRANT_DELETED, QDRANT_NAMED, QDRANT_SMALL = 64, 1024, 64
 # phase 15, the device owner: a private manager over FakeHooks, a corpus of
 # OWNER_ROWS x DIMS on the card, OWNER_QUERIES queries
 OWNER_ROWS, OWNER_QUERIES = 65_536, 16
 # the process-default device owner (started first, read by phase 13)
 OWNER: dict = {}
+# the second card child beside 10.1's build starts this many seconds after
+# the first, which times the ragged kernel in its first ~15 s (phase 5a):
+# the timing sees no other process's work on the card
+CHILD_DELAY_S = 20.0
 
 
 def log(*a) -> None:
@@ -637,6 +703,17 @@ def sync() -> None:
     import torch
 
     torch.cuda.synchronize()
+
+
+def exact_matmuls() -> None:
+    """Full float32 matmuls (no TF32) and float32 reductions in bf16
+    GEMMs, for every reference of the run and of its card children."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -773,22 +850,29 @@ def kronecker_edges(scale: int, edgefactor: int, seed: int,
     return src[order], dst[order]
 
 
-def make_data(rng, n: int, d: int, per: int = 100) -> np.ndarray:
+def make_data(seed: int, n: int, d: int, per: int = 100) -> np.ndarray:
     """(n, d) float32 unit rows: n // per centres, `per` noisy rows each,
     shuffled. Row noise has norm 0.5, so rows of one centre score ~0.8
-    with each other and ~0 with the rest."""
-    centres = rng.standard_normal((n // per, d), dtype=np.float32)
-    centres /= np.linalg.norm(centres, axis=1, keepdims=True)
-    assign = rng.permutation(np.repeat(np.arange(n // per), per))
+    with each other and ~0 with the rest. Made on the card from ``seed``
+    (numpy took ~25 s for 1M x 1024 on an H100's host) and copied to the
+    host, where the service's bulk load takes them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn(n // per, d, generator=g, device="cuda")
+    centres /= torch.linalg.vector_norm(centres, dim=1, keepdim=True)
+    assign = torch.randperm(n, generator=g, device="cuda") % (n // per)
     out = np.empty((n, d), np.float32)
-    step = 1 << 16
+    step = 1 << 18
     for i in range(0, n, step):
         j = min(i + step, n)
         chunk = centres[assign[i:j]]
-        chunk += rng.standard_normal((j - i, d), dtype=np.float32) * np.float32(
+        chunk += torch.randn(j - i, d, generator=g, device="cuda") * (
             0.5 / np.sqrt(d))
-        chunk /= np.linalg.norm(chunk, axis=1, keepdims=True)
-        out[i:j] = chunk
+        chunk /= torch.linalg.vector_norm(chunk, dim=1, keepdim=True)
+        out[i:j] = chunk.cpu().numpy()
+    del centres, assign, chunk
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2587,7 +2671,7 @@ def wait_drained(corpus, timeout: float = 30.0) -> None:
         time.sleep(0.002)
 
 
-def phase_hybrid(K, seed: int, served: dict) -> dict:
+def phase_hybrid(K, seed: int, served: dict, beside=()) -> dict:
     """Phase 10: hybrid search over phase 8's corpus in the port's DB (graph
     of build_graph): ``db.set_embedder(CachedEmbedder(<phase 8's engine>))``
     (the ``cli serve`` stack; it starts the DB's EmbedWorker), then
@@ -2600,7 +2684,9 @@ def phase_hybrid(K, seed: int, served: dict) -> dict:
     the rank cache, the cross-encoder rerank and MMR; the telemetry plane;
     10.8, the learning loop through ``db.store``; 10.7's record for phase
     14. Returns the DB (phase 9 retrieves and generates through it), #2's
-    launches in the traffic and the record."""
+    launches in the traffic and the record. ``beside``: the card children
+    that run beside 10.1's build; 10.2 waits for them, so that the
+    traffic runs with no child on the card."""
     import dataclasses as dc
 
     import torch
@@ -2617,7 +2703,15 @@ def phase_hybrid(K, seed: int, served: dict) -> dict:
     texts, embs = served["texts"], served["embs"]
     eng = CachedEmbedder(served["engine"])
     torch.cuda.reset_peak_memory_stats()
+    at_start = states(*beside)
     db = build_graph(texts, embs, seed)
+    at_end = states(*beside)
+    t0 = time.perf_counter()
+    for child in beside:
+        child.wait()
+    log(f"[phase10] 10.1 beside the card children: at its start "
+        f"{at_start}; at its end {at_end}; waited "
+        f"{time.perf_counter() - t0:.1f}s for them")
     storage = db.storage
 
     # -- 10.2 the DB's service, attached and indexed from storage
@@ -4485,8 +4579,6 @@ def replay_child(d: str) -> None:
 def start_children(seed: int) -> None:
     """Start 14b's replay child and 14c's two crash children (kill points
     from ``seed``); their output goes to files under CHAIN_DIR."""
-    import atexit
-
     rng = np.random.default_rng(seed + 15)
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
@@ -4556,7 +4648,7 @@ def record_chain(db, cfg, texts: list, run: dict, seed: int,
     recovered chain to. The chain is flushed; the counts, the writers' ids,
     every node's content and embedding (10.8's learned nodes among them)
     and 10.8's inferred edges are saved under CHAIN_DIR (phase 14 reads
-    them after phases 11 and 12 have released their memory); a fresh
+    them after phase 10's DB is closed); a fresh
     ``SearchService`` over the live chain (phase 10's config,
     ``build_indexes``) gives the row order and the answers of VEC_QUERIES
     stored embeddings, k = VEC_K; then the directory is copied while no
@@ -4707,7 +4799,7 @@ def phase_recover(K, rec: dict) -> object:
 
 
 def phase_replay() -> None:
-    """14b: the replay child's results (it ran beside phases 9 to 14):
+    """14b: the replay child's results (it ran beside phases 6 to 14):
     the crash image's whole WAL replayed to phase 10's state, then
     compact, close and a reopen with the same counts."""
     expect, _ = expect_state()
@@ -5059,8 +5151,8 @@ def phase_segment_and_databases(rec: dict) -> None:
 
 def phase_storage(K, seed: int, rec: dict) -> None:
     """Phase 14: the storage chain; see the module docstring. 14b's and
-    14c's children were started after 10.7 and are collected here (14b
-    last: it is the longest)."""
+    14c's children were started at the end of phase 10 and are collected
+    here (14b last: it is the longest)."""
     import shutil
 
     t_all = time.perf_counter()
@@ -5355,38 +5447,156 @@ def phase_registry() -> None:
 
 # ---------------------------------------------------------------- 10.9
 def phase_cypher(K, db, served: dict, seed: int) -> None:
-    """Phase 10.9: Cypher through ``db.cypher`` on the card. (a) over phase
-    10's DB: CYPHER_VEC_QUERIES ``CALL db.index.vector.queryNodes`` calls
-    from CYPHER_CLIENTS clients, each answer's ids equal to
+    """Phase 10.9: Cypher through ``db.cypher`` on the card over phase
+    10's DB. (a) CYPHER_VEC_QUERIES ``CALL db.index.vector.queryNodes``
+    calls from CYPHER_CLIENTS clients, each answer's ids equal to
     ``db.search.vector_candidates``; #2 launches, no IVF plan serves.
-    (b) and (c) in an in-memory DB on the card: CYPHER_ITEMS :Item nodes
-    with scores tied in runs, and ORDER BY ... LIMIT 100 over >= 100,000
-    rows a query (the top-k offload, ``torch.topk`` on the card); then
-    CYPHER_DOCS :Doc nodes with phase 8's embeddings, and ORDER BY
-    ``vector.similarity.cosine`` LIMIT 10 over >= 8,192 rows (VectorTopK,
-    ``graph_masked_scores`` on the card). Each offload is used once a
-    query at the default thresholds, never ``unavailable``, and
-    CYPHER_CHECKED answers equal the generic engine's. (d) plan-cache
-    hits; (e) Heimdall's ``query`` action on phase 10's DB. Logged: each
+    (d) plan-cache hits on those calls; (e) Heimdall's ``query`` action.
+    (b), (c) and the in-memory DB's plan cache run in a card child
+    (``phase_cypher_offloads``)."""
+    from nornicdb_tpu_torch.heimdall import Generator, HeimdallManager
+
+    rng = np.random.default_rng(seed + 109)
+    retry = _Backoff()
+
+    def pcts(xs) -> str:
+        ms = np.asarray(xs) * 1e3
+        return f"p50 {np.median(ms):.2f}ms p99 {np.percentile(ms, 99):.2f}ms"
+
+    # -- (a) queryNodes over phase 10's corpus
+    t_a = time.perf_counter()
+    embs = served["embs"]
+    rows = rng.choice(len(embs), CYPHER_VEC_QUERIES, replace=False)
+    vecs = (embs[rows] + 0.01 * rng.standard_normal(
+        (CYPHER_VEC_QUERIES, embs.shape[1]))).astype(np.float32)
+    q_a = ("CALL db.index.vector.queryNodes('default', 10, $v) "
+           "YIELD node, score RETURN node.id, score")
+    n_nodes = db.storage.node_count()
+    ivf0 = ivf_dispatches()
+    c0 = K.launch_counts()["streaming_topk_bf16"]
+    answers: list = [None] * CYPHER_VEC_QUERIES
+    lat_a: list = []
+    errors: list = []
+
+    def client(c: int) -> None:
+        try:
+            for i in range(c, CYPHER_VEC_QUERIES, CYPHER_CLIENTS):
+                t = time.perf_counter()
+                answers[i] = retry(db.cypher, q_a,
+                                   {"v": vecs[i].tolist()}).rows
+                lat_a.append(time.perf_counter() - t)
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CYPHER_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors:
+        raise errors[0]
+    assert not any(th.is_alive() for th in threads), "cypher client hung"
+    wall_a = time.perf_counter() - t_a
+    launches_a = K.launch_counts()["streaming_topk_bf16"] - c0
+    ivf_a = ivf_dispatches() - ivf0
+    # ids equal; scores within one step of #2's packed decode: both
+    # sides decode bins of the same corpus (tile_bits from its
+    # capacity; a biased score in [2, 4) keeps 22 - tile_bits mantissa
+    # bits), and a fused batch's product may land one bin away from a
+    # lone query's
+    from nornicdb_tpu_torch.ops.kernels import (
+        pick_tile_n,
+        streaming_geometry,
+    )
+
+    cap = db.search.corpus().capacity
+    tile_bits = streaming_geometry(cap, pick_tile_n(cap), 1)[2]
+    score_tol = 2.0 ** (tile_bits - 22)
+    score_diff = 0.0
+    for i in range(CYPHER_VEC_QUERIES):
+        want = db.search.vector_candidates(vecs[i], k=10)
+        got = answers[i]
+        assert [r[0] for r in got] == [w[0] for w in want], (
+            "queryNodes ids", i)
+        score_diff = max(score_diff, float(np.max(np.abs(
+            np.asarray([r[1] for r in got])
+            - np.asarray([w[1] for w in want])))))
+    assert score_diff <= score_tol, ("queryNodes scores", score_diff,
+                                     score_tol)
+    t_check = time.perf_counter() - t_a - wall_a
+    log(f"[phase10.9] (a) {CYPHER_VEC_QUERIES} queryNodes calls from "
+        f"{CYPHER_CLIENTS} clients over {n_nodes} nodes x "
+        f"{embs.shape[1]} in {wall_a:.2f}s: {pcts(lat_a)}; each "
+        f"answer's ids equal db.search.vector_candidates; #2 launched "
+        f"{launches_a} times, IVF-pruned searches {ivf_a:.0f}, sheds "
+        f"retried {retry.sheds}; max |score - vector_candidates'| "
+        f"{score_diff:.6g} (bound: #2's decode step {score_tol:.6g} at "
+        f"capacity {cap}, tile_bits {tile_bits}); the check "
+        f"{t_check:.2f}s")
+    assert launches_a > 0, "queryNodes missed #2"
+    assert ivf_a == 0, ("an IVF plan served queryNodes", ivf_a)
+
+    # -- (d) the plan cache on queryNodes (phase 10's DB; the
+    # in-memory DB's repeats in cypher_offloads, in a card child)
+    stats_db = db.cypher_stats()
+    log(f"[phase10.9] (d) cypher_stats: phase 10's DB "
+        f"{json.dumps(stats_db)}")
+    assert stats_db["plan_cache"]["hits"] >= 0.9 * (
+        CYPHER_VEC_QUERIES - 1), stats_db
+
+    # -- (e) Heimdall's query action on phase 10's DB
+    class Echo(Generator):
+        def __init__(self, reply: str):
+            self.reply = reply
+
+        def generate(self, prompt, max_tokens=128):
+            return self.reply
+
+    count = HeimdallManager(Echo(
+        '{"action": "query", "params": {"cypher": '
+        '"MATCH (n) RETURN count(n)"}}'), db=db).chat(
+        [{"role": "user", "content": "how many nodes?"}])
+    refused = HeimdallManager(Echo(
+        '{"action": "query", "params": {"cypher": '
+        '"CREATE (n:Intruder) RETURN n"}}'), db=db).chat(
+        [{"role": "user", "content": "add one"}])
+    log(f"[phase10.9] (e) Heimdall's query action: count "
+        f"{count['action_result']}, a CREATE "
+        f"{refused['action_result']}")
+    assert count["action_result"]["rows"] == [[
+        db.storage.node_count()]], count
+    assert "read-only" in refused["action_result"]["error"], refused
+    assert not db.storage.get_nodes_by_label("Intruder")
+
+
+def phase_cypher_offloads(K, embs: np.ndarray, seed: int) -> None:
+    """10.9 (b), (c) and the in-memory half of (d), in a card child (they
+    read nothing of phase 10's DB): an in-memory ``open_db("")`` on the
+    card (synchronous storage, no result cache) holding CYPHER_ITEMS
+    :Item nodes with scores tied in runs, and ORDER BY ... LIMIT 100 over
+    >= 100,000 rows a query (the top-k offload, ``torch.topk`` on the
+    card); then CYPHER_DOCS :Doc nodes with phase 8's embeddings
+    (``embs``), and ORDER BY ``vector.similarity.cosine`` LIMIT 10 over
+    >= 8,192 rows (VectorTopK, ``graph_masked_scores`` on the card). Each
+    offload is used once a query at the default thresholds, never
+    ``unavailable``, and CYPHER_CHECKED answers equal the generic
+    engine's; the repeated shapes hit the plan cache. Logged: each
     shape's p50 / p99 and the offloads' device time from ``deviceprof``.
     The items use ``sku``, not ``id``: the columnar engine (the JAX
     package's too) sends ``n.id`` to its generic tail, which would take
     the query off the offload."""
-    import torch
-
     import nornicdb_tpu_torch
     from nornicdb_tpu_torch.cypher import CypherExecutor
     from nornicdb_tpu_torch.cypher.plan import OFFLOAD_CELLS
     from nornicdb_tpu_torch.db import Config
-    from nornicdb_tpu_torch.heimdall import Generator, HeimdallManager
     from nornicdb_tpu_torch.telemetry import deviceprof
 
     for var in ("NORNICDB_CYPHER_OFFLOAD_MIN_ROWS",
                 "NORNICDB_VECTOR_TOPK_MIN_ROWS",
                 "NORNICDB_VECTOR_TOPK_CUTOVER"):
         assert var not in os.environ, ("10.9 runs at the defaults", var)
-    rng = np.random.default_rng(seed + 109)
-    retry = _Backoff()
+    rng = np.random.default_rng(seed + 110)
     device_s: dict = {"topk_offload": [], "vector_topk": []}
 
     def observe(sub, kind, shape, seconds):
@@ -5399,80 +5609,6 @@ def phase_cypher(K, db, served: dict, seed: int) -> None:
 
     deviceprof.PROFILER.add_time_observer(observe)
     try:
-        # -- (a) queryNodes over phase 10's corpus
-        t_a = time.perf_counter()
-        embs = served["embs"]
-        rows = rng.choice(len(embs), CYPHER_VEC_QUERIES, replace=False)
-        vecs = (embs[rows] + 0.01 * rng.standard_normal(
-            (CYPHER_VEC_QUERIES, embs.shape[1]))).astype(np.float32)
-        q_a = ("CALL db.index.vector.queryNodes('default', 10, $v) "
-               "YIELD node, score RETURN node.id, score")
-        n_nodes = db.storage.node_count()
-        ivf0 = ivf_dispatches()
-        c0 = K.launch_counts()["streaming_topk_bf16"]
-        answers: list = [None] * CYPHER_VEC_QUERIES
-        lat_a: list = []
-        errors: list = []
-
-        def client(c: int) -> None:
-            try:
-                for i in range(c, CYPHER_VEC_QUERIES, CYPHER_CLIENTS):
-                    t = time.perf_counter()
-                    answers[i] = retry(db.cypher, q_a,
-                                       {"v": vecs[i].tolist()}).rows
-                    lat_a.append(time.perf_counter() - t)
-            except Exception as e:  # re-raised on the main thread
-                errors.append(e)
-
-        threads = [threading.Thread(target=client, args=(c,))
-                   for c in range(CYPHER_CLIENTS)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
-        if errors:
-            raise errors[0]
-        assert not any(th.is_alive() for th in threads), "cypher client hung"
-        wall_a = time.perf_counter() - t_a
-        launches_a = K.launch_counts()["streaming_topk_bf16"] - c0
-        ivf_a = ivf_dispatches() - ivf0
-        # ids equal; scores within one step of #2's packed decode: both
-        # sides decode bins of the same corpus (tile_bits from its
-        # capacity; a biased score in [2, 4) keeps 22 - tile_bits mantissa
-        # bits), and a fused batch's product may land one bin away from a
-        # lone query's
-        from nornicdb_tpu_torch.ops.kernels import (
-            pick_tile_n,
-            streaming_geometry,
-        )
-
-        cap = db.search.corpus().capacity
-        tile_bits = streaming_geometry(cap, pick_tile_n(cap), 1)[2]
-        score_tol = 2.0 ** (tile_bits - 22)
-        score_diff = 0.0
-        for i in range(CYPHER_VEC_QUERIES):
-            want = db.search.vector_candidates(vecs[i], k=10)
-            got = answers[i]
-            assert [r[0] for r in got] == [w[0] for w in want], (
-                "queryNodes ids", i)
-            score_diff = max(score_diff, float(np.max(np.abs(
-                np.asarray([r[1] for r in got])
-                - np.asarray([w[1] for w in want])))))
-        assert score_diff <= score_tol, ("queryNodes scores", score_diff,
-                                         score_tol)
-        t_check = time.perf_counter() - t_a - wall_a
-        log(f"[phase10.9] (a) {CYPHER_VEC_QUERIES} queryNodes calls from "
-            f"{CYPHER_CLIENTS} clients over {n_nodes} nodes x "
-            f"{embs.shape[1]} in {wall_a:.2f}s: {pcts(lat_a)}; each "
-            f"answer's ids equal db.search.vector_candidates; #2 launched "
-            f"{launches_a} times, IVF-pruned searches {ivf_a:.0f}, sheds "
-            f"retried {retry.sheds}; max |score - vector_candidates'| "
-            f"{score_diff:.6g} (bound: #2's decode step {score_tol:.6g} at "
-            f"capacity {cap}, tile_bits {tile_bits}); the check "
-            f"{t_check:.2f}s")
-        assert launches_a > 0, "queryNodes missed #2"
-        assert ivf_a == 0, ("an IVF plan served queryNodes", ivf_a)
-
         # -- (b) ORDER BY ... LIMIT over the top-k offload
         # synchronous storage (the async chain's label scans copy every
         # node a query) and no result cache (a repeated query would be
@@ -5571,42 +5707,16 @@ def phase_cypher(K, db, served: dict, seed: int) -> None:
             assert un_c == 0, ("vector unavailable", un_c)
 
             # -- (d) the plan cache on the repeated shapes
-            stats_mem, stats_db = mem.cypher_stats(), db.cypher_stats()
+            stats_mem = mem.cypher_stats()
             log(f"[phase10.9] (d) cypher_stats: in-memory DB "
-                f"{json.dumps(stats_mem)}; phase 10's DB "
-                f"{json.dumps(stats_db)}")
+                f"{json.dumps(stats_mem)}")
             # most repeats hit (a few concurrent first calls may each
             # miss before one plan lands)
             assert stats_mem["plan_cache"]["hits"] >= 0.9 * (
                 2 * CYPHER_SHAPE_QUERIES - 2), stats_mem
-            assert stats_db["plan_cache"]["hits"] >= 0.9 * (
-                CYPHER_VEC_QUERIES - 1), stats_db
         finally:
             mem.close()
 
-        # -- (e) Heimdall's query action on phase 10's DB
-        class Echo(Generator):
-            def __init__(self, reply: str):
-                self.reply = reply
-
-            def generate(self, prompt, max_tokens=128):
-                return self.reply
-
-        count = HeimdallManager(Echo(
-            '{"action": "query", "params": {"cypher": '
-            '"MATCH (n) RETURN count(n)"}}'), db=db).chat(
-            [{"role": "user", "content": "how many nodes?"}])
-        refused = HeimdallManager(Echo(
-            '{"action": "query", "params": {"cypher": '
-            '"CREATE (n:Intruder) RETURN n"}}'), db=db).chat(
-            [{"role": "user", "content": "add one"}])
-        log(f"[phase10.9] (e) Heimdall's query action: count "
-            f"{count['action_result']}, a CREATE "
-            f"{refused['action_result']}")
-        assert count["action_result"]["rows"] == [[
-            db.storage.node_count()]], count
-        assert "read-only" in refused["action_result"]["error"], refused
-        assert not db.storage.get_nodes_by_label("Intruder")
     finally:
         deviceprof.PROFILER.remove_time_observer(observe)
 
@@ -6108,9 +6218,10 @@ def phase_gds_apoc(K, db, seed: int) -> None:
     GDS_HOP_SOURCES of them) to depth 2 (a BFS),
     ``apoc.algo.pageRank(collect(i))`` over GDS_SUBSET ids, pure
     APOC functions over GDS_ROWS rows and the Kalman functions; node and
-    edge counts equal before and after. (b) in-memory DBs on the same
-    device: ``suggest`` (the GEMMs on the card) against the numpy branch,
-    FastRP against a CPU executor, Louvain / SCC / k-core / triangles
+    edge counts equal before and after. (b) (``phase_gds_write``, in a
+    card child beside 10.1's build) in-memory DBs on the same device:
+    ``suggest`` (the GEMMs on the card) against the numpy branch, FastRP
+    against a CPU executor, Louvain / SCC / k-core / triangles
     against ``graph_algos``, the graph catalog, betweenness and closeness
     on a subgraph, the writing procedures, a trigger and the export /
     import round trip. ``dbms.procedures()`` lists the new names. Logged:
@@ -6128,10 +6239,22 @@ def phase_gds_apoc(K, db, seed: int) -> None:
         t0 = time.perf_counter()
         gds_read(db, rng, times)
         log(f"[phase16] (a) {time.perf_counter() - t0:.1f}s")
+    log(f"[phase16] (a) kernel launches on this path: {K.launch_counts()} "
+        f"(none expected: torch ops and torch.matmul)")
+
+
+def phase_gds_write(K, seed: int) -> None:
+    """Phase 16(b) (``gds_write``) on the card, in a card child: it reads
+    nothing of phase 10's DB."""
+    import torch
+
+    device = torch.device("cuda")
+    K.reset_launch_counts()
+    with GraphDeviceTimes(device) as times:
         t0 = time.perf_counter()
-        gds_write(db.device, seed, times)
+        gds_write(device, seed, times)
         log(f"[phase16] (b) {time.perf_counter() - t0:.1f}s")
-    log(f"[phase16] kernel launches on this path: {K.launch_counts()} "
+    log(f"[phase16] (b) kernel launches on this path: {K.launch_counts()} "
         f"(none expected: torch ops and torch.matmul)")
 
 
@@ -6154,6 +6277,21 @@ def start_device_owner() -> None:
         f"{OWNER['acquire_s']:.2f}s: {json.dumps(s['device'])}, probe every "
         f"{s['probe_interval_s']}s, threshold "
         f"{mgr.probe_latency_threshold}s")
+
+
+def probe_mark(tag: str) -> None:
+    """Log the process-default owner's probes since the last mark: their
+    count and largest latency. Phase 13 holds the largest of the run to
+    half the threshold; this says in which phase it fell."""
+    mgr = OWNER.get("manager")
+    if mgr is None:
+        return
+    lat = list(mgr._latencies)
+    seen = OWNER.get("marked", 0)
+    new = lat[seen:] if seen <= len(lat) else lat
+    OWNER["marked"] = len(lat)
+    log(f"[owner] probes during {tag}: {len(new)}, max "
+        f"{max(new) * 1e3 if new else 0.0:.3f}ms")
 
 
 GDS_PAGERANK = ("CALL gds.pageRank.stream({maxIterations: 20}) "
@@ -6469,8 +6607,8 @@ def phase_serve(K, db, served: dict, seed: int) -> None:
     cleared) in ids, scores within #2's decode step; a GraphRAG answer
     paged, with its own node among the sources. A 429 is retried after its
     Retry-After. Then the admin GETs, each timed, ``/metrics`` parsed
-    strictly, the 501 of ``/graphql``; each kernel's launches in the phase,
-    #2 and #5 above 0."""
+    strictly, ``/graphql``'s node count; each kernel's launches in the
+    phase, #2 and #5 above 0."""
     import torch
 
     from nornicdb_tpu_torch.ops.kernels import pick_tile_n, streaming_geometry
@@ -6732,8 +6870,10 @@ def phase_serve(K, db, served: dict, seed: int) -> None:
                 elif path == "/openapi.json":
                     assert "/db/{database}/tx/commit" in body["paths"] or any(
                         "tx/commit" in p for p in body["paths"])
-            code, body, _ = cl.call("POST", "/graphql", {"query": "{ x }"})
-            assert code == 501 and "A6b" in body["error"], (code, body)
+            code, body, _ = cl.call("POST", "/graphql",
+                                    {"query": "{ stats { nodes } }"})
+            assert code == 200 and body == {"data": {"stats": {
+                "nodes": db.storage.node_count()}}}, (code, body)
         finally:
             cl.close()
         log(f"[phase17] (a) admin GETs: "
@@ -6741,7 +6881,8 @@ def phase_serve(K, db, served: dict, seed: int) -> None:
             + f"; /metrics parsed strictly ({len(fams)} families); "
             f"/admin/stats sections {stats_keys}; /admin/tpu/status "
             f"devices {status['devices']} kernel launches "
-            f"{json.dumps(status['kernel_launches'])}; /graphql 501")
+            f"{json.dumps(status['kernel_launches'])}; /graphql stats "
+            f"{body['data']['stats']}")
     finally:
         bolt.stop()
         http.stop()
@@ -6816,11 +6957,14 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     documents through the transaction API and, once the embed worker has
     embedded them, searches by vector and by text answer each document
     first, through #2 (the child's own launch counts, read from
-    /admin/tpu/status, which also names the card); a Bolt HELLO with a
-    wrong password gets Unauthorized, the right one SUCCESS and a count;
-    SIGTERM ends it with 0 within SERVE_EXIT_S and a reopen finds every
-    document. The start with ``NORNICDB_GRPC_ENABLED=1`` exited non-zero
-    naming ROADMAP A6b, and created no data directory."""
+    /admin/tpu/status, which also names the card); ``/graphql`` counts the
+    documents, ``GET /collections`` lists none, and a viewer's GraphQL
+    mutation is refused (401, "permission write denied", the JAX server's
+    answer); a Bolt HELLO with a wrong password gets Unauthorized, the
+    right one SUCCESS and a count; SIGTERM ends it with 0 within
+    SERVE_EXIT_S and a reopen finds every document. The start with
+    ``NORNICDB_GRPC_ENABLED=1`` exited non-zero naming ROADMAP A6b-2, and
+    created no data directory."""
     import select
     import signal
 
@@ -6895,7 +7039,37 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     code, st1, _ = cl.call("GET", "/admin/tpu/status")
     d2 = (st1["kernel_launches"]["streaming_topk_bf16"]
           - st0["kernel_launches"]["streaming_topk_bf16"])
+    # GraphQL and Qdrant REST in the child: the documents counted, no
+    # collection, and a viewer's mutation refused
+    code, gq, _ = cl.call("POST", "/graphql",
+                          {"query": "{ stats { nodes } }"})
+    assert code == 200 and gq == {"data": {"stats": {"nodes": SERVE_DOCS}}}, (
+        code, gq)
+    code, colls, _ = cl.call("GET", "/collections")
+    assert code == 200 and colls["result"] == {"collections": []}, colls
+    code, made, _ = cl.call("POST", "/auth/users", {
+        "username": "viewer", "password": "viewer-pw", "roles": ["viewer"]})
+    assert code in (200, 201), (code, made)
     cl.close()
+    anon = _HttpClient(http_port, sheds)
+    code, vtok, _ = anon.call("POST", "/auth/login",
+                              {"username": "viewer", "password": "viewer-pw"})
+    anon.close()
+    assert code == 200, (code, vtok)
+    viewer = _HttpClient(http_port, sheds,
+                         {"Authorization": f"Bearer {vtok['token']}"})
+    code, vq, _ = viewer.call("POST", "/graphql",
+                              {"query": "{ stats { nodes } }"})
+    assert code == 200 and vq["data"]["stats"]["nodes"] == SERVE_DOCS, vq
+    viewer.close()
+    # a refused request's body is left unread: a new connection
+    viewer = _HttpClient(http_port, sheds,
+                         {"Authorization": f"Bearer {vtok['token']}"})
+    vcode, refused, _ = viewer.call("POST", "/graphql", {
+        "query": 'mutation { createNode(labels: ["X"]) { id } }'})
+    viewer.close()
+    assert vcode == 401 and refused == {
+        "error": "permission write denied"}, (vcode, refused)
     assert firsts == 16, ("searches answered their document first", firsts)
     assert d2 > 0, "the served searches missed #2"
     bc = _BoltClient(bolt_port, sheds)
@@ -6933,13 +7107,866 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
         f"embedded in {t_embed:.2f}s; 16 searches answered their document "
         f"first, #2 launched {d2} times in the child (its "
         f"/admin/tpu/status: {st1['devices']}, "
-        f"{json.dumps(st1['kernel_launches'])}); Bolt wrong password "
+        f"{json.dumps(st1['kernel_launches'])}); /graphql stats "
+        f"{gq['data']['stats']}, /collections {colls['result']}, a viewer's "
+        f"mutation {vcode} {refused['error']!r}; Bolt wrong password "
         f"Unauthorized, right one SUCCESS; SIGTERM -> exit {rc} in "
         f"{t_exit:.2f}s, a reopen finds {n_docs[0][0]} documents; "
         f"NORNICDB_GRPC_ENABLED=1 -> exit {c.refused.returncode} "
         f"({r_err.strip().splitlines()[-1]}); checks "
         f"{time.perf_counter() - t_b:.2f}s; both children exited by "
         f"time.time() {time.time():.1f}")
+
+
+# The messages of the ResourceExhausted that the serving engine and the
+# search batcher raise when they shed (serving/engine.py,
+# search/batcher.py): what a shed becomes inside GraphQL, a field error
+# with the exception's text, as in the JAX package.
+SHED_MESSAGE = re.compile(
+    r"(search batch|embed) queue full \(.*\); retry with backoff"
+    r"|predicted (search )?completion \d+ms exceeds the \d+ms deadline "
+    r"budget; retry with backoff"
+    r"|(search|embed) deadline exceeded( before dispatch)?")
+
+
+def _gql(cl, sheds: dict, query: str, variables=None,
+         retry: bool = True) -> tuple:
+    """POST /graphql: (data, seconds). With ``retry`` (reads only), an
+    answer whose every field error is a shed (SHED_MESSAGE) is asked again
+    after a second, at most BACKOFF_TRIES times, counted in
+    ``sheds["fields"]`` with its messages (digits as N) in
+    ``sheds["messages"]``. Any other field error fails at once; the answer
+    must come without errors."""
+    t0 = time.perf_counter()
+    for run in range(1, (BACKOFF_TRIES if retry else 1) + 1):
+        code, body, _ = cl.call("POST", "/graphql", {
+            "query": query, "variables": variables or {}})
+        assert code == 200, (code, body)
+        errs = [e.get("message", "") for e in body.get("errors", ())]
+        if not errs or not retry or run == BACKOFF_TRIES or not all(
+                SHED_MESSAGE.fullmatch(m) for m in errs):
+            break
+        with sheds["mu"]:
+            sheds["fields"] += 1
+            for m in errs:
+                m = re.sub(r"\d+", "N", m)
+                sheds["messages"][m] = sheds["messages"].get(m, 0) + 1
+        time.sleep(1.0)
+    assert "errors" not in body, (query, body)
+    return body["data"], time.perf_counter() - t0
+
+
+def _decode_step(corpus) -> float:
+    """#2's score decode step at this corpus's capacity (as phase 17(a))."""
+    from nornicdb_tpu_torch.ops.kernels import pick_tile_n, streaming_geometry
+
+    cap = corpus.capacity
+    return 2.0 ** (streaming_geometry(cap, pick_tile_n(cap), 1)[2] - 22)
+
+
+def phase_graphql(K, db, served: dict, seed: int) -> None:
+    """Phase 18(a): GraphQL over phase 10's DB behind a port ``HttpServer``
+    (wired as ``cmd_serve`` wires it). SERVE_CLIENTS clients send
+    GQL_SEARCHES ``search`` and GQL_SIMILAR ``similar`` fields and one of
+    each other read (``stats``, ``node``, ``nodes``, ``neighbors``, a
+    ``cypher`` ``queryNodes`` call, introspection, a document with a
+    fragment, an alias, variables and ``@include`` / ``@skip``). With no
+    writer active, each answer is held to the DB: ``search`` to
+    ``db.search.search`` (rank cache cleared) in ids, scores and content;
+    ``similar`` to ``vector_candidates(node.embedding, k + 1)`` without the
+    node (ids; scores within #2's decode step); the rest to the storage,
+    ``db.neighbors`` and ``db.cypher`` (query cache cleared). #2 launches.
+    No mutation: phase 14 reopens this DB's snapshot."""
+    from nornicdb_tpu_torch.server import HttpServer
+    from nornicdb_tpu_torch.server.http import _jsonable
+
+    rng = np.random.default_rng(seed + 18)
+    texts, embs = served["texts"], served["embs"]
+    svc = db.search
+    http = HttpServer(db, host="127.0.0.1", port=0)
+    http.start()
+    queries: list = []
+    for r in rng.permutation(len(texts)):
+        q = " ".join(texts[r].split()[-3:])  # the last word is unique
+        if q not in queries:
+            queries.append(q)
+        if len(queries) == GQL_SEARCHES:
+            break
+    sim_ids = [f"t{r}" for r in rng.choice(len(texts), GQL_SIMILAR,
+                                           replace=False)]
+    one = sim_ids[0]
+    q_nodes = ("CALL db.index.vector.queryNodes('default', $k, $v) "
+               "YIELD node, score RETURN node.id, score")
+    q_vec = (embs[int(one[1:])] + 0.01 * rng.standard_normal(
+        embs.shape[1])).astype(np.float32)
+    docs = {
+        "search": ("query S($q: String, $n: Int = 10) { search(query: $q, "
+                   "limit: $n) { id score content node { id labels } } }"),
+        "similar": ("query M($id: ID, $n: Int) { similar(id: $id, limit: "
+                    "$n) { id score } }"),
+        "stats": "{ stats { nodes edges pendingEmbeddings } }",
+        "node": ("query N($id: ID) { node(id: $id) { id labels properties "
+                 "decayScore accessCount } }"),
+        "nodes": '{ nodes(label: "Doc", limit: 16) { id } }',
+        "neighbors": "query B($id: ID) { neighbors(id: $id) { id } }",
+        "cypher": ("query C($s: String, $p: JSON) { cypher(statement: $s, "
+                   "parameters: $p) { columns rows } }"),
+        "introspection": ('{ __schema { queryType { name } mutationType '
+                          '{ name } types { name kind } } __type(name: '
+                          '"Node") { name fields { name } } }'),
+        "fragment": ("query F($id: ID, $yes: Boolean = true, $no: Boolean = "
+                     "false) { doc: node(id: $id) { ...Bits labels "
+                     "@include(if: $no) properties @skip(if: $yes) } "
+                     "counts: stats @include(if: $yes) { nodes } } "
+                     "fragment Bits on Node { id __typename }"),
+    }
+    work = ([("search", i, {"q": queries[i]}) for i in range(GQL_SEARCHES)]
+            + [("similar", i, {"id": sim_ids[i], "n": SERVE_K})
+               for i in range(GQL_SIMILAR)]
+            + [("stats", 0, None), ("node", 0, {"id": one}),
+               ("nodes", 0, None), ("neighbors", 0, {"id": one}),
+               ("cypher", 0, {"s": q_nodes, "p": {"k": SERVE_K,
+                                                  "v": q_vec.tolist()}}),
+               ("introspection", 0, None), ("fragment", 0, {"id": one})])
+    work = [work[j] for j in rng.permutation(len(work))]
+    got: dict = {}
+    lat: dict = {"search": [], "similar": [], "other": []}
+    sheds = {"n": 0, "longest": 0, "fields": 0, "messages": {},
+             "mu": threading.Lock()}
+
+    def client(c: int, items: list) -> None:
+        cl = _HttpClient(http.port, sheds)
+        try:
+            for kind, i, variables in items:
+                got[(kind, i)], dt = _gql(cl, sheds, docs[kind], variables)
+                with sheds["mu"]:
+                    lat[kind if kind in lat else "other"].append(dt)
+        finally:
+            cl.close()
+
+    try:
+        c0 = K.launch_counts()
+        t0 = time.perf_counter()
+        in_threads(lambda c: client(c, work[c::SERVE_CLIENTS]),
+                   list(range(SERVE_CLIENTS)), SERVE_CLIENTS)
+        wall = time.perf_counter() - t0
+        launches = _launch_delta(K, c0)
+        log(f"[phase18] (a) {len(work)} GraphQL documents from "
+            f"{SERVE_CLIENTS} clients over {db.storage.node_count()} nodes "
+            f"in {wall:.2f}s: "
+            + "; ".join(f"{k} {_pcts(v)} ({len(v)})" for k, v in lat.items())
+            + f"; 429s retried {sheds['n']}, answers with only shed field "
+            f"errors retried {sheds['fields']} "
+            f"({json.dumps(sheds['messages'])}); launches "
+            f"{json.dumps(launches)}")
+        # -- the answers, held to the DB with no writer active
+        t0 = time.perf_counter()
+        tol = _decode_step(svc.corpus())
+        diff = 0.0
+        with svc._lock:
+            svc._rank_cache.clear()
+        for i, q in enumerate(queries):
+            want = _Backoff()(svc.search, q, limit=SERVE_K)
+            body = got[("search", i)]["search"]
+            assert body, ("no search results", q)
+            assert [(r["id"], r["score"], r["content"], r["node"]["id"])
+                    for r in body] == [
+                (w["id"], w["score"], w["content"], w["id"])
+                for w in want], ("search", i, q)
+        for i, nid in enumerate(sim_ids):
+            node = db.storage.get_node(nid)
+            fresh = [(a, b) for a, b in svc.vector_candidates(
+                node.embedding, k=SERVE_K + 1) if a != nid][:SERVE_K]
+            body = got[("similar", i)]["similar"]
+            assert [r["id"] for r in body] == [a for a, _ in fresh], (
+                "similar", nid)
+            diff = max(diff, max(abs(r["score"] - b)
+                                 for r, (_, b) in zip(body, fresh)))
+        db.query_cache.clear()
+        want = db.cypher(q_nodes, {"k": SERVE_K, "v": q_vec.tolist()})
+        body = got[("cypher", 0)]["cypher"]
+        assert body["columns"] == want.columns, body["columns"]
+        assert [r[0] for r in body["rows"]] == [w[0] for w in want.rows]
+        diff = max(diff, max(abs(r[1] - w[1])
+                             for r, w in zip(body["rows"], want.rows)))
+        assert diff <= tol, ("scores", diff, tol)
+        assert got[("stats", 0)]["stats"] == {
+            "nodes": db.storage.node_count(),
+            "edges": db.storage.edge_count(),
+            "pendingEmbeddings": len(db.storage.pending_embed_ids())}
+        n = db.storage.get_node(one)
+        assert got[("node", 0)]["node"] == {
+            "id": n.id, "labels": list(n.labels),
+            "properties": _jsonable(dict(n.properties)),
+            "decayScore": n.decay_score, "accessCount": n.access_count}
+        by_label = sorted(db.storage.get_nodes_by_label("Doc"),
+                          key=lambda x: x.id)[:16]
+        assert [r["id"] for r in got[("nodes", 0)]["nodes"]] == [
+            x.id for x in by_label]
+        assert [r["id"] for r in got[("neighbors", 0)]["neighbors"]] == [
+            x.id for x in db.neighbors(one)]
+        intro = got[("introspection", 0)]
+        assert intro["__schema"]["queryType"]["name"] == "Query"
+        assert {"Query", "Mutation", "Node", "Relationship"} <= {
+            t["name"] for t in intro["__schema"]["types"]}
+        assert {"id", "labels", "properties"} <= {
+            f["name"] for f in intro["__type"]["fields"]}
+        assert got[("fragment", 0)] == {
+            "doc": {"id": one, "__typename": "Node"},
+            "counts": {"nodes": db.storage.node_count()}}
+        assert launches["streaming_topk_bf16"] > 0, "GraphQL missed #2"
+        log(f"[phase18] (a) checks {time.perf_counter() - t0:.2f}s: "
+            f"{GQL_SEARCHES} search fields equal to db.search.search in "
+            f"ids, scores and content; {GQL_SIMILAR} similar fields and the "
+            f"cypher queryNodes rows equal to vector_candidates / db.cypher "
+            f"in ids, max |score - reference| {diff:.6g} (bound: #2's "
+            f"decode step {tol:.6g}); stats, node, nodes, neighbors, "
+            f"introspection and the fragment document equal to the DB; #2 "
+            f"launched {launches['streaming_topk_bf16']} times")
+    finally:
+        http.stop()
+
+
+def qdrant_loader(port: int, path: str, first: int, step: int) -> None:
+    """Phase 18(b)'s loader process: upserts the points of batches
+    ``first``, ``first + step``, ... of ``path.npy`` (the embeddings) with
+    their payloads (``path.json``: the words) through ``PUT
+    /collections/docs/points`` on one keep-alive connection, the vectors
+    written as ``%.9g`` (which float32 round-trips exactly). Prints one JSON
+    line: the request times and the encode times."""
+    import http.client
+    import io
+
+    embs = np.load(path + ".npy", mmap_mode="r")
+    with open(path + ".json") as f:
+        words = json.load(f)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    sent, encode = [], []
+    for lo in range(first * QDRANT_BATCH, len(words), step * QDRANT_BATCH):
+        t0 = time.perf_counter()
+        hi = min(lo + QDRANT_BATCH, len(words))
+        buf = io.StringIO()
+        np.savetxt(buf, embs[lo:hi], fmt="%.9g", delimiter=",")
+        points = ",".join(
+            '{"id":%d,"vector":[%s],"payload":{"doc":%d,"group":%d,'
+            '"word":%s}}' % (i, row, i, i % QDRANT_GROUPS,
+                             json.dumps(words[i]))
+            for i, row in zip(range(lo, hi), buf.getvalue().splitlines()))
+        body = ('{"points":[' + points + "]}").encode()
+        t1 = time.perf_counter()
+        conn.request("PUT", "/collections/docs/points", body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        assert resp.status == 200, (resp.status, raw[:500])
+        assert json.loads(raw)["result"]["upserted"] == hi - lo, raw[:500]
+        sent.append(time.perf_counter() - t1)
+        encode.append(t1 - t0)
+    conn.close()
+    print(json.dumps({"sent": sent, "encode": encode}), flush=True)
+
+
+def _same_hits(got: list, want: list, tol: float, what) -> None:
+    """Equal hit lists, scores within ``tol``; two hits whose scores lie
+    within ``tol`` may trade places (or, at the limit, one may be cut for
+    the other)."""
+    assert len(got) == len(want), (what, len(got), len(want))
+    in_g = {h[0]: h[1] for h in got}
+    in_w = {h[0]: h[1] for h in want}
+    for (gi, gs), (wi, ws) in zip(got, want):
+        assert abs(gs - ws) <= tol, (what, gi, gs, wi, ws)
+        if gi == wi:
+            continue
+        for i, s, other, seq in ((gi, gs, in_w, want), (wi, ws, in_g, got)):
+            twin = other.get(i)
+            assert abs((seq[-1][1] if twin is None else twin) - s) <= tol, (
+                what, i, s, twin)
+
+
+class QdrantChild:
+    """Phase 18(b)'s process on the card (``qdrant_child``), started after
+    18(a) so that it runs beside phase 10's close and phases 11 and 14
+    on a core of its own, and collected after phase 14 (``collect``): the
+    port's Qdrant REST server is host code under one interpreter lock (a
+    filtered search scans every point), which the parent's phases would
+    otherwise wait behind. Its points (phase 8's first QDRANT_POINTS
+    embeddings, the texts' last words) go to files under .chip_scratch,
+    which its loader processes read too."""
+
+    def __init__(self, seed: int):
+        self.here = os.path.dirname(os.path.abspath(__file__))
+        self.work = os.path.join(self.here, ".chip_scratch", "qdrant18")
+        self.base = os.path.join(self.work, "points")
+        self.out = os.path.join(self.work, "child.out")
+        self.seed = seed
+        self.proc = None
+
+    def start(self, served: dict) -> "QdrantChild":
+        import shutil
+
+        shutil.rmtree(self.work, ignore_errors=True)
+        os.makedirs(self.work)
+        embs, texts = served["embs"], served["texts"]
+        assert len(embs) >= QDRANT_POINTS, (len(embs), QDRANT_POINTS)
+        np.save(self.base + ".npy",
+                np.ascontiguousarray(embs[:QDRANT_POINTS], np.float32))
+        with open(self.base + ".json", "w") as f:
+            json.dump([t.split()[-1] for t in texts[:QDRANT_POINTS]], f)
+        self.t0 = time.perf_counter()
+        call = (f"import chip_smoke as C; C.qdrant_child({self.base!r}, "
+                f"{self.seed})")
+        with open(self.out, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", call], cwd=self.here, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        return self
+
+    def collect(self, timeout: float = 900.0) -> dict:
+        """Wait for the child; it must exit 0 with its result as the last
+        line. Its log lines are logged here; returns the result."""
+        self.proc.wait(timeout=timeout)
+        seconds = time.perf_counter() - self.t0
+        with open(self.out) as f:
+            lines = f.read().split("\n")[:-1]
+        assert self.proc.returncode == 0, (self.proc.returncode,
+                                           "\n".join(lines[-60:]))
+        for line in lines[:-1]:
+            if line.startswith("[phase18]"):
+                log(line)
+        result = json.loads(lines[-1])
+        assert result["launches"]["streaming_topk_bf16"] > 0, result
+        log(f"[phase18] (b) the child exited 0 {seconds:.1f}s after its "
+            f"start; #2 launched {result['launches']['streaming_topk_bf16']}"
+            f" times in it ({result['launches_search']} in its unfiltered "
+            f"searches)")
+        return result
+
+    def state(self) -> str:
+        """For the log lines of the phases it may run beside: their
+        readings are not taken alone while it runs."""
+        running = self.proc is not None and self.proc.poll() is None
+        return "18(b)'s child " + ("running" if running else "not running")
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def qdrant_child(base: str, seed: int) -> None:
+    """Phase 18(b) in a process of its own on the card: the device owner,
+    then ``phase_qdrant`` over the points under ``base``; its last line is
+    the result (#2's launches in the phase and in the unfiltered
+    searches). Then it stops the owner and leaves with ``os._exit``: the
+    owner's daemon threads may be inside a CUDA call while the
+    interpreter tears down, which once aborted such a child after its
+    result ("terminate called without an active exception")."""
+    from nornicdb_tpu_torch.ops import kernels as K
+
+    start_device_owner()
+    vecs = np.load(base + ".npy")
+    with open(base + ".json") as f:
+        words = json.load(f)
+    c0 = K.launch_counts()
+    searched = phase_qdrant(K, base, vecs, words, seed)
+    print(json.dumps({"launches": _launch_delta(K, c0),
+                      "launches_search": searched}), flush=True)
+    OWNER["manager"].stop()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
+                 device: str = "cuda") -> int:
+    """Phase 18(b): the Qdrant REST API over a fresh in-memory port DB on
+    the card (``open_db("")``, its own ``HttpServer``). A named-vector
+    collection of QDRANT_NAMED points (``dense``, 1,024 wide, and
+    ``small``, QDRANT_SMALL wide): each name searched, its snapshot equal
+    to what was upserted. A collection of the QDRANT_POINTS 1,024-wide
+    Cosine points under ``base`` (payload doc, group, the text's last
+    word) loaded in batches of QDRANT_BATCH by QDRANT_LOADERS client
+    processes; QDRANT_SEARCHES unfiltered searches from SERVE_CLIENTS
+    clients through #2 (ids equal to the registry's own answer, scores
+    within #2's decode step of it and within one bf16 step of the exact
+    float32 cosine, recall@SERVE_K against that exact scan >= 0.95); QDRANT_FILTERED group-filtered searches (the exact filtered
+    answer, ties within a bf16 step aside); count, scroll through one
+    group, retrieve, delete, the collection GETs; GraphQL's five
+    mutations held to the storage. Returns #2's launches in the
+    unfiltered searches."""
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.server import HttpServer
+
+    rng = np.random.default_rng(seed + 180)
+    n = len(vecs)
+    unit = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+    groups = np.arange(n) % QDRANT_GROUPS
+    here = os.path.dirname(os.path.abspath(__file__))
+    db = nornicdb_tpu_torch.open_db("", device=device)
+    http = HttpServer(db, host="127.0.0.1", port=0)
+    http.start()
+    sheds = {"n": 0, "longest": 0, "mu": threading.Lock()}
+    cl = _HttpClient(http.port, sheds)
+    procs: list = []
+    try:
+        registry = db.qdrant_registry()
+        # -- a named-vector collection, before the large one, so that its
+        # snapshot's scan of the points is a scan of its own
+        t0 = time.perf_counter()
+        small = rng.standard_normal((QDRANT_NAMED, QDRANT_SMALL)).astype(
+            np.float32)
+        code, out, _ = cl.call("PUT", "/collections/multi", {"vectors": {
+            "dense": {"size": vecs.shape[1], "distance": "Cosine"},
+            "small": {"size": QDRANT_SMALL, "distance": "Cosine"}}})
+        assert code == 200, out
+        points = [{"id": f"m{i}", "vector": {"dense": vecs[i].tolist(),
+                                             "small": small[i].tolist()},
+                   "payload": {"i": i}} for i in range(QDRANT_NAMED)]
+        code, out, _ = cl.call("PUT", "/collections/multi/points",
+                               {"points": points})
+        assert code == 200 and out["result"]["upserted"] == QDRANT_NAMED
+        for name, table in (("dense", vecs), ("small", small)):
+            for i in (3, QDRANT_NAMED - 5):
+                code, out, _ = cl.call(
+                    "POST", "/collections/multi/points/search",
+                    {"vector": {"name": name, "vector": table[i].tolist()},
+                     "limit": 3})
+                assert code == 200 and out["result"][0]["id"] == f"m{i}", (
+                    name, i, out)
+                assert out["result"][0]["payload"] == {"i": i}
+        for key in ("multi/dense", "multi/small"):
+            assert registry._corpora[key].device == db.device, key
+        code, out, dt_snap = cl.call("POST", "/collections/multi/snapshots",
+                                     {})
+        assert code == 200 and out["result"]["count"] == QDRANT_NAMED
+        snap = sorted(out["result"]["points"], key=lambda p: p["payload"]["i"])
+        for i, p in enumerate(snap):
+            assert p["id"] == f"m{i}" and p["payload"] == {"i": i}
+            assert np.array_equal(np.asarray(p["vector"]["dense"],
+                                             np.float32), vecs[i])
+            assert np.array_equal(np.asarray(p["vector"]["small"],
+                                             np.float32), small[i])
+        log(f"[phase18] (b) named vectors: {QDRANT_NAMED} points (dense "
+            f"{vecs.shape[1]}, small {QDRANT_SMALL}) on {db.device}, each "
+            f"name searched, the snapshot ({dt_snap:.2f}s) equal to what "
+            f"was upserted; {time.perf_counter() - t0:.2f}s")
+        code, out, _ = cl.call("PUT", "/collections/docs", {
+            "vectors": {"size": vecs.shape[1], "distance": "Cosine"}})
+        assert code == 200 and out["result"] is True, (code, out)
+        # -- the load, from QDRANT_LOADERS processes
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        t0 = time.perf_counter()
+        for c in range(QDRANT_LOADERS):
+            call = (f"import chip_smoke as C; C.qdrant_loader({http.port}, "
+                    f"{base!r}, {c}, {QDRANT_LOADERS})")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", call], cwd=here, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+        reports = []
+        for p in procs:
+            o, e = p.communicate(timeout=600)
+            assert p.returncode == 0, (p.returncode, e[-3000:])
+            reports.append(json.loads(o.strip().splitlines()[-1]))
+        t_load = time.perf_counter() - t0
+        sent = np.concatenate([r["sent"] for r in reports])
+        enc = np.concatenate([r["encode"] for r in reports])
+        corpus = registry._corpora["docs"]
+        assert corpus.device == db.device, (corpus.device, db.device)
+        assert len(corpus) == n, len(corpus)
+        log(f"[phase18] (b) load: {n} points x {vecs.shape[1]} in "
+            f"{len(sent)} batches of {QDRANT_BATCH} from {QDRANT_LOADERS} "
+            f"processes in {t_load:.2f}s ({n / t_load:.1f} points/s); a "
+            f"batch's request p50 {np.median(sent) * 1e3:.1f}ms p99 "
+            f"{np.percentile(sent, 99) * 1e3:.1f}ms, its encode in the "
+            f"client p50 {np.median(enc) * 1e3:.1f}ms; corpus on "
+            f"{corpus.device}, capacity {corpus.capacity}")
+        code, out, _ = cl.call("POST", "/collections/docs/points/count", {})
+        assert code == 200 and out["result"]["count"] == n, out
+        # -- unfiltered searches through #2, from SERVE_CLIENTS clients
+        q_rows = rng.choice(n, QDRANT_SEARCHES, replace=False)
+        qs = (vecs[q_rows] + 0.01 * rng.standard_normal(
+            (len(q_rows), vecs.shape[1]))).astype(np.float32)
+        f_rows = rng.choice(n, QDRANT_FILTERED, replace=False)
+        fq = (vecs[f_rows] + 0.01 * rng.standard_normal(
+            (len(f_rows), vecs.shape[1]))).astype(np.float32)
+        got: dict = {}
+        lat: dict = {"search": [], "filtered": []}
+
+        def client(c: int, items: list) -> None:
+            hc = _HttpClient(http.port, sheds)
+            try:
+                for kind, i in items:
+                    body = {"vector": (qs if kind == "search" else fq)[i]
+                            .tolist(), "limit": SERVE_K}
+                    if kind == "filtered":
+                        body["filter"] = {"must": [{"key": "group", "match": {
+                            "value": int(i % QDRANT_GROUPS)}}]}
+                    code, out, dt = hc.call(
+                        "POST", "/collections/docs/points/search", body)
+                    assert code == 200, (kind, i, code, out)
+                    got[(kind, i)] = out["result"]
+                    with sheds["mu"]:
+                        lat[kind].append(dt)
+            finally:
+                hc.close()
+
+        work_s = [("search", i) for i in range(QDRANT_SEARCHES)]
+        c0 = K.launch_counts()
+        t0 = time.perf_counter()
+        in_threads(lambda c: client(c, work_s[c::SERVE_CLIENTS]),
+                   list(range(SERVE_CLIENTS)), SERVE_CLIENTS)
+        wall_s = time.perf_counter() - t0
+        launches_s = _launch_delta(K, c0)
+        # the filtered searches one after another: each scans every point
+        # under one interpreter lock, so more clients only queue
+        work_f = [("filtered", i) for i in range(QDRANT_FILTERED)]
+        c0 = K.launch_counts()
+        t0 = time.perf_counter()
+        client(0, work_f)
+        wall_f = time.perf_counter() - t0
+        launches_f = _launch_delta(K, c0)
+        log(f"[phase18] (b) {QDRANT_SEARCHES} unfiltered searches from "
+            f"{SERVE_CLIENTS} clients in {wall_s:.2f}s "
+            f"({QDRANT_SEARCHES / wall_s:.1f}/s), {_pcts(lat['search'])}, "
+            f"launches {json.dumps(launches_s)}; {QDRANT_FILTERED} "
+            f"group-filtered from 1 client in {wall_f:.2f}s, "
+            f"{_pcts(lat['filtered'])}, "
+            f"launches {json.dumps(launches_f)}")
+        t0 = time.perf_counter()
+        tol = _decode_step(corpus)
+        # bf16 scores against float32 ones: one bf16 step (2**-8 at 1.0)
+        bf16_step = 2.0 ** -8
+        diff = xdiff = 0.0
+        hits = 0
+        exact = unit @ (qs / np.linalg.norm(qs, axis=1, keepdims=True)).T
+        for i in range(QDRANT_SEARCHES):
+            body = got[("search", i)]
+            fresh = registry.search("docs", qs[i], limit=SERVE_K)
+            assert [h["id"] for h in body] == [h["id"] for h in fresh], (
+                "search ids", i)
+            assert all(h["payload"] == {
+                "doc": h["id"], "group": h["id"] % QDRANT_GROUPS,
+                "word": words[h["id"]]} for h in body), ("payload", i)
+            diff = max(diff, max(abs(a["score"] - b["score"])
+                                 for a, b in zip(body, fresh)))
+            xdiff = max(xdiff, max(abs(h["score"] - float(exact[h["id"], i]))
+                                   for h in body))
+            top = np.argsort(-exact[:, i], kind="stable")[:SERVE_K]
+            hits += len({h["id"] for h in body} & set(top.tolist()))
+        rec = hits / (QDRANT_SEARCHES * SERVE_K)
+        assert diff <= tol, ("scores", diff, tol)
+        assert xdiff <= bf16_step, ("exact scores", xdiff, bf16_step)
+        assert rec >= 0.95, ("recall", rec)
+        assert launches_s["streaming_topk_bf16"] > 0, "searches missed #2"
+        # the filtered answers against the exact filtered ranking: ties
+        # within one bf16 step may trade places
+        fdiff = 0.0
+        for i in range(QDRANT_FILTERED):
+            g = i % QDRANT_GROUPS
+            rows = np.nonzero(groups == g)[0]
+            q = fq[i] / np.linalg.norm(fq[i])
+            s = unit[rows] @ q
+            order = np.argsort(-s, kind="stable")[:SERVE_K]
+            want = [(int(rows[j]), float(s[j])) for j in order]
+            body = [(h["id"], h["score"]) for h in got[("filtered", i)]]
+            assert all(h["payload"]["group"] == g
+                       for h in got[("filtered", i)])
+            _same_hits(body, want, bf16_step, ("filtered", i))
+            fdiff = max(fdiff, max(abs(a[1] - b[1])
+                                   for a, b in zip(body, want)))
+        log(f"[phase18] (b) search checks {time.perf_counter() - t0:.2f}s: "
+            f"{QDRANT_SEARCHES} unfiltered bodies equal to the registry's "
+            f"own answer in ids (max |score - reference| {diff:.6g}, "
+            f"bound: #2's decode step {tol:.6g} at capacity "
+            f"{corpus.capacity}), each id's score within {xdiff:.6g} of "
+            f"the exact float32 cosine (bound one bf16 step "
+            f"{bf16_step:.6g}), recall@{SERVE_K} {rec:.4f} against that "
+            f"scan; {QDRANT_FILTERED} filtered equal to the "
+            f"exact filtered answer (max |d| {fdiff:.6g}, bound one bf16 "
+            f"step {bf16_step:.6g}); 429s retried {sheds['n']}")
+        # -- count, scroll, retrieve, delete, the collection GETs
+        t0 = time.perf_counter()
+        g = int(rng.integers(0, QDRANT_GROUPS))
+        flt = {"must": [{"key": "group", "match": {"value": g}}]}
+        code, out, dt_count = cl.call(
+            "POST", "/collections/docs/points/count", {"filter": flt})
+        want_g = int((groups == g).sum())
+        assert code == 200 and out["result"]["count"] == want_g, out
+        seen: list = []
+        offset, pages, dt_scroll = None, 0, 0.0
+        while True:  # pages of half the group: a middle offset, an end
+            body = {"limit": want_g // 2, "filter": flt}
+            if offset is not None:
+                body["offset"] = offset
+            code, out, dt = cl.call("POST", "/collections/docs/points/scroll",
+                                    body)
+            assert code == 200, out
+            dt_scroll += dt
+            pages += 1
+            for p in out["result"]["points"]:
+                assert p["payload"]["group"] == g
+                assert np.array_equal(np.asarray(p["vector"], np.float32),
+                                      vecs[p["id"]]), p["id"]
+            seen += [p["id"] for p in out["result"]["points"]]
+            offset = out["result"]["next_page_offset"]
+            if offset is None:
+                break
+        members = np.nonzero(groups == g)[0].tolist()
+        assert seen == sorted(members, key=lambda p: (False, str(p))), (
+            "scroll order")
+        assert len(set(seen)) == len(seen) == want_g
+        ids = [int(i) for i in rng.choice(n, 16, replace=False)]
+        code, out, _ = cl.call("POST", "/collections/docs/points",
+                               {"ids": ids})
+        assert code == 200 and [p["id"] for p in out["result"]] == ids
+        for p in out["result"]:
+            assert p["payload"] == {"doc": p["id"], "group": p["id"] %
+                                    QDRANT_GROUPS, "word": words[p["id"]]}
+            assert np.array_equal(np.asarray(p["vector"], np.float32),
+                                  vecs[p["id"]])
+        gone = [int(i) for i in rng.choice(n, QDRANT_DELETED, replace=False)]
+        code, out, _ = cl.call("POST", "/collections/docs/points/delete",
+                               {"points": gone})
+        assert code == 200 and out["result"]["deleted"] == len(gone), out
+        code, out, _ = cl.call("POST", "/collections/docs/points/count", {})
+        assert out["result"]["count"] == n - len(gone), out
+        c0 = K.launch_counts()
+        for pid in gone[:16]:
+            code, out, _ = cl.call(
+                "POST", "/collections/docs/points/search",
+                {"vector": vecs[pid].tolist(), "limit": SERVE_K})
+            assert code == 200 and out["result"], out
+            assert not {h["id"] for h in out["result"]} & set(gone), pid
+        launches_d = _launch_delta(K, c0)
+        code, out, _ = cl.call("GET", "/collections")
+        assert code == 200 and out["result"] == {
+            "collections": [{"name": "docs"}, {"name": "multi"}]}, out
+        code, out, _ = cl.call("GET", "/collections/docs")
+        assert code == 200 and out["result"]["points_count"] == n - len(gone)
+        assert out["result"]["config"]["params"]["vectors"] == {
+            "size": vecs.shape[1], "distance": "Cosine"}, out
+        log(f"[phase18] (b) count of group {g} {want_g} in "
+            f"{dt_count * 1e3:.1f}ms; scroll of it in {pages} pages "
+            f"{dt_scroll:.2f}s, every point once in _point_id order; "
+            f"retrieve of 16: payloads and vectors as sent; delete of "
+            f"{len(gone)}: count {n - len(gone)}, 16 searches by their own "
+            f"vectors return none of them (launches "
+            f"{json.dumps(launches_d)}); the collection GETs; "
+            f"{time.perf_counter() - t0:.2f}s")
+        # -- GraphQL's mutations against this DB, each held to the storage
+        t0 = time.perf_counter()
+        kept = "qdrant-docs-%d" % next(i for i in range(n) if i not in gone)
+        data, _ = _gql(cl, sheds, 'mutation { createNode(labels: ["City"], '
+                       'properties: {name: "Oslo", pop: 700000}) { id labels '
+                       "properties } }", retry=False)
+        made = data["createNode"]
+        node = db.storage.get_node(made["id"])
+        assert node.labels == ["City"] and made["labels"] == ["City"]
+        assert node.properties == made["properties"] == {
+            "name": "Oslo", "pop": 700000}
+        data, _ = _gql(cl, sheds, "mutation U($id: ID) { updateNode(id: $id, "
+                       "properties: {pop: 709000}) { properties } }",
+                       {"id": made["id"]}, retry=False)
+        assert db.storage.get_node(made["id"]).properties["pop"] == 709000
+        assert data["updateNode"]["properties"]["pop"] == 709000
+        data, _ = _gql(cl, sheds, "mutation R($a: ID, $b: ID) { "
+                       "createRelationship(from: $a, to: $b, type: \"NEAR\", "
+                       "properties: {km: 3}) { id type from to } }",
+                       {"a": made["id"], "b": kept}, retry=False)
+        rel = data["createRelationship"]
+        edge = db.storage.get_edge(rel["id"])
+        assert (edge.type, edge.start_node, edge.end_node,
+                edge.properties) == ("NEAR", made["id"], kept, {"km": 3})
+        data, _ = _gql(cl, sheds, "mutation D($id: ID) { "
+                       "deleteRelationship(id: $id) }", {"id": rel["id"]},
+                       retry=False)
+        assert data == {"deleteRelationship": True}
+        assert not any(e.id == rel["id"] for e in db.storage.all_edges())
+        data, _ = _gql(cl, sheds, "mutation X($id: ID) { deleteNode(id: $id) "
+                       "}", {"id": made["id"]}, retry=False)
+        assert data == {"deleteNode": True}
+        assert not db.storage.get_nodes_by_label("City")
+        log(f"[phase18] (b) GraphQL createNode, updateNode, "
+            f"createRelationship, deleteRelationship and deleteNode each "
+            f"held to the storage; {time.perf_counter() - t0:.2f}s")
+        return launches_s["streaming_topk_bf16"]
+    finally:
+        cl.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        http.stop()
+        db.close()
+
+class CardChild:
+    """A process of its own on the card (``card_child``) that runs
+    phases needing nothing of the parent's but their inputs, beside the
+    parent's host-bound stretches, where the parent JSON-encodes or
+    decodes the chain under its interpreter lock and the card is idle:
+    phases 5 and 10.9's offloads, and 16(b) and 12, beside 10.1's build
+    of the chain (two children; the second starts ``delay`` seconds
+    later, once phase 5 has timed its kernel). Training stays in the
+    parent: beside it, the parent's device owner once read a probe of
+    836.226 ms, near its 1 s threshold. The child starts its own device
+    owner; its kernel launches are counted in its own process. Its log
+    lines are logged here when it is collected, in its order; its last
+    line is its result."""
+
+    def __init__(self, name: str, phases: list, seed: int,
+                 profile_dir: str = ""):
+        self.here = os.path.dirname(os.path.abspath(__file__))
+        self.work = os.path.join(self.here, ".chip_scratch", f"card_{name}")
+        self.out = os.path.join(self.work, "child.out")
+        self.name, self.phases = name, list(phases)
+        self.seed, self.profile_dir = seed, profile_dir
+        self.proc = None
+        self.ended: list = []
+        self.timer = None
+
+    def start(self, served: dict = None, delay: float = 0.0) -> "CardChild":
+        """Write the input its phases read (phase 8's embeddings for 10.9)
+        and start the child, ``delay`` seconds from now (on a timer
+        thread) or at once."""
+        import shutil
+
+        shutil.rmtree(self.work, ignore_errors=True)
+        os.makedirs(self.work)
+        if "109" in self.phases:
+            np.save(os.path.join(self.work, "embs.npy"), np.ascontiguousarray(
+                served["embs"][:CYPHER_DOCS], np.float32))
+        call = (f"import chip_smoke as C; C.card_child({self.work!r}, "
+                f"{self.phases!r}, {self.seed}, {self.profile_dir!r})")
+        self.t_asked = time.perf_counter()
+        atexit.register(self.close)
+        if delay > 0:
+            self.timer = threading.Timer(delay, self._spawn, (call,))
+            self.timer.start()
+        else:
+            self._spawn(call)
+        return self
+
+    def _spawn(self, call: str) -> None:
+        self.t0 = time.perf_counter()
+        with open(self.out, "w") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", call], cwd=self.here, stdout=f,
+                stderr=subprocess.STDOUT, start_new_session=True)
+
+        def watch(proc=self.proc) -> None:
+            proc.wait()
+            self.ended.append(time.perf_counter() - self.t0)
+
+        threading.Thread(target=watch, daemon=True).start()
+
+    def wait(self, timeout: float = 900.0) -> float:
+        """Wait for the child to exit; returns the seconds waited."""
+        t0 = time.perf_counter()
+        if self.timer is not None:
+            self.timer.join()
+        self.proc.wait(timeout=timeout)
+        return time.perf_counter() - t0
+
+    def state(self) -> str:
+        """For the log lines of the phases it may run beside: their
+        readings are not taken alone while it runs."""
+        if self.proc is None:
+            return f"{self.name}'s card child not started"
+        if self.proc.poll() is None:
+            return (f"{self.name}'s card child running "
+                    f"({time.perf_counter() - self.t0:.1f}s after its start)")
+        return (f"{self.name}'s card child ended "
+                f"{self.ended[0] if self.ended else 0.0:.1f}s after its "
+                f"start")
+
+    def collect(self, timeout: float = 900.0) -> dict:
+        """Wait for the child; it must exit 0 with its result as the last
+        line. Its lines are logged here (those not of a phase tagged with
+        its name); returns the result."""
+        waited = self.wait(timeout)
+        with open(self.out) as f:
+            lines = f.read().split("\n")[:-1]
+        assert self.proc.returncode == 0, (self.name, self.proc.returncode,
+                                           "\n".join(lines[-60:]))
+        for line in lines[:-1]:
+            log(line if line.startswith("[phase") else
+                f"[card child {self.name}] {line}")
+        result = json.loads(lines[-1])
+        log(f"[card child {self.name}] phases {self.phases} exited 0 "
+            f"{self.ended[0] if self.ended else 0.0:.1f}s after its start; "
+            f"waited {waited:.1f}s for it; its device owner "
+            f"{json.dumps(result['owner'])}")
+        return result
+
+    def close(self) -> None:
+        import shutil
+
+        if self.timer is not None:
+            self.timer.cancel()
+            self.timer.join()
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def states(*children) -> str:
+    """The states of the children on the card, for a log line."""
+    return ", ".join(c.state() for c in children if c is not None) or \
+        "no child on the card"
+
+
+def card_child(work: str, phases: list, seed: int, profile_dir: str) -> None:
+    """``CardChild``'s process: the parent's matmul precision, its own
+    device owner, then each of ``phases`` ("5", "109" for 10.9's
+    offloads, "12", "16b") in order, as the parent would run it.
+    Its last line is the result: phase 5's kernel entries and launches,
+    the generated tokens and sheds of its engines, its owner's state
+    (READY throughout, no degrade). Then it stops the owner and leaves
+    with ``os._exit`` (see ``qdrant_child``)."""
+    import torch
+
+    from nornicdb_tpu_torch.ops import kernels as K
+    from nornicdb_tpu_torch.ops import kernels_ref as R
+
+    exact_matmuls()
+    start_device_owner()
+    result: dict = {}
+    for ph in phases:
+        t0 = time.perf_counter()
+        if ph == "5":
+            result["entries"], result["counts"] = phase_generation(
+                K, R, seed, profile_dir)
+        elif ph == "109":
+            phase_cypher_offloads(K, np.load(os.path.join(work, "embs.npy")),
+                                  seed)
+        elif ph == "12":
+            phase_graph(seed)
+        elif ph == "16b":
+            phase_gds_write(K, seed)
+        else:
+            raise ValueError(ph)
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = {"16b": "16] (b)", "109": "10.9] (b)-(d)"}.get(ph, ph + "]")
+        log(f"[phase{name} {time.perf_counter() - t0:.1f}s in the card "
+            f"child")
+        probe_mark("phase " + name.replace("]", ""))
+    mgr = OWNER["manager"]
+    st = mgr.stats()
+    result["owner"] = {k: st[k] for k in (
+        "state", "probes_total", "degrades_total", "acquire_timeouts_total")}
+    result["owner"]["probe_latency_max_ms"] = st["probe_latency_max_s"] * 1e3
+    result["gen_counted"] = GEN_COUNTED
+    result["predicted_sheds"] = PREDICTED_SHEDS
+    assert st["state"] == "READY" and st["degrades_total"] == 0 and \
+        st["acquire_timeouts_total"] == 0, st
+    print(json.dumps(result), flush=True)
+    mgr.stop()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def main() -> int:
@@ -6979,10 +8006,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.set_float32_matmul_precision("highest")
+    exact_matmuls()
     device = "cuda"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7012,7 +8036,7 @@ def main() -> int:
     # -- data
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    data = make_data(rng, N, DIMS)
+    data = make_data(args.seed, N, DIMS)
     ids = [f"v{i}" for i in range(N)]
     q_rows = rng.choice(N, size=1024 + 256, replace=False)
     qs_kern = make_queries(rng, data, q_rows[:1024])
@@ -7154,43 +8178,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phase 5: generation serving
-    t0 = time.perf_counter()
-    entries5, counts5 = phase_generation(
-        K, R, args.seed, out_dir if args.profile else "")
-    entries += entries5
-    log(f"[phase5] {time.perf_counter() - t0:.1f}s")
-
-    # -- phases 6 and 7 over a second service on the same vectors
-    t0 = time.perf_counter()
-    svc = SearchService(config=SearchConfig(batching_enabled=True), device=device)
-    svc.index_vectors(ids, data)
-    del data
-    gc.collect()
-    corpus = svc.corpus()
-    with corpus._borrow_device() as (dev, valid, _, _, _):
-        sync()
-    log(f"[phase7] load + upload {time.perf_counter() - t0:.1f}s, capacity "
-        f"{corpus.capacity}")
-    t0 = time.perf_counter()
-    with corpus._borrow_device() as (dev, valid, _, _, _):
-        entries6, counts6 = phase_fused_cosine(K, R, dev, valid, qs_kern, k,
-                                               REPS)
-    del dev, valid
-    entries = entries6 + entries
-    log(f"[phase6] {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    phase_ivf(svc, corpus, qs_serve, k, phase2)
-    svc.shutdown()
-    del svc, corpus
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[phase7] {time.perf_counter() - t0:.1f}s")
-
     # -- phase 8: embed serving at full width, then search over it
     t0 = time.perf_counter()
     served = phase_embed(K, args.seed, k, out_dir if args.profile else "")
     log(f"[phase8] {time.perf_counter() - t0:.1f}s")
+    probe_mark("phase 8")
 
     # -- phase 10: hybrid search over phase 8's corpus in the durable
     # chain; phase 9: a checkpoint and GraphRAG answers retrieving through
@@ -7199,23 +8191,73 @@ def main() -> int:
 
     shutil.rmtree(CHAIN_DIR, ignore_errors=True)
     os.makedirs(CHAIN_DIR)
+    # -- phases 5 and 10.9's offloads, and 16(b) and 12: two card
+    # children beside 10.1's build (host code: the chain JSON-encodes
+    # every record; the card idles), waited for before 10.2
+    prof = out_dir if args.profile else ""
+    gen5 = CardChild("5-109", ["5", "109"], args.seed, prof).start(served)
+    graphs = CardChild("16b-12", ["16b", "12"], args.seed, prof).start(
+        delay=CHILD_DELAY_S)
     try:
         t0 = time.perf_counter()
-        hybrid = phase_hybrid(K, args.seed, served)
+        hybrid = phase_hybrid(K, args.seed, served, beside=(gen5, graphs))
         log(f"[phase10] {time.perf_counter() - t0:.1f}s")
+        probe_mark("phase 10")
         db = hybrid["db"]
+        res5 = gen5.collect()
+        gen5.close()
+        graphs.collect()
+        graphs.close()
+        entries += res5["entries"]
+        counts5 = res5["counts"]
+        log(f"[phase5] the card child's generated tokens "
+            f"{json.dumps(res5['gen_counted'])} and predicted-deadline "
+            f"sheds {json.dumps(res5['predicted_sheds'])} (its own registry)")
+        # 14b's replay and 14c's crash children, beside phases 6 to 14
+        start_children(args.seed)
+        # -- phases 6 and 7 over a second service on phase 2's vectors,
+        # after phase 10 so that 14b's replay child starts sooner
+        t0 = time.perf_counter()
+        svc = SearchService(config=SearchConfig(batching_enabled=True),
+                            device=device)
+        svc.index_vectors(ids, data)
+        del data
+        gc.collect()
+        corpus = svc.corpus()
+        with corpus._borrow_device() as (dev, valid, _, _, _):
+            sync()
+        log(f"[phase7] load + upload {time.perf_counter() - t0:.1f}s, "
+            f"capacity {corpus.capacity}")
+        t0 = time.perf_counter()
+        with corpus._borrow_device() as (dev, valid, _, _, _):
+            entries6, counts6 = phase_fused_cosine(K, R, dev, valid,
+                                                   qs_kern, k, REPS)
+        del dev, valid
+        entries = entries6 + entries
+        log(f"[phase6] {time.perf_counter() - t0:.1f}s")
+        probe_mark("phase 6")
+        t0 = time.perf_counter()
+        phase_ivf(svc, corpus, qs_serve, k, phase2)
+        svc.shutdown()
+        del svc, corpus
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase7] {time.perf_counter() - t0:.1f}s")
+        probe_mark("phase 7")
         t0 = time.perf_counter()
         phase_cypher(K, db, served, args.seed)
         log(f"[phase10.9] {time.perf_counter() - t0:.1f}s")
+        probe_mark("phase 10.9")
         t0 = time.perf_counter()
         phase_gds_apoc(K, db, args.seed)
         log(f"[phase16] {time.perf_counter() - t0:.1f}s")
-        # 14b's replay and 14c's crash children, beside phases 9 to 12
-        start_children(args.seed)
+        probe_mark("phase 16")
+        qdrant18 = None
         try:
             t0 = time.perf_counter()
             phase_rag(K, args.seed, served, hybrid)
             log(f"[phase9] {time.perf_counter() - t0:.1f}s")
+            probe_mark("phase 9")
             # -- phase 17: the serve surface over this DB, then the command
             # (its children start once (a) is done)
             t0 = time.perf_counter()
@@ -7229,6 +8271,17 @@ def main() -> int:
             finally:
                 children.close()
             log(f"[phase17] {time.perf_counter() - t0:.1f}s")
+            probe_mark("phase 17")
+            # -- phase 18: GraphQL over this DB here, alone, then Qdrant
+            # REST over a fresh DB in a child on the card (collected after
+            # phase 14)
+            t0 = time.perf_counter()
+            phase_graphql(K, db, served, args.seed)
+            log(f"[phase18] (a) {time.perf_counter() - t0:.1f}s, alone; "
+                f"(b)'s child starts now")
+            qdrant18 = QdrantChild(args.seed).start(served)
+            atexit.register(qdrant18.close)
+            probe_mark("phase 18(a)")
         finally:
             fired = hybrid["learned"]["fired"]
             t0 = time.perf_counter()
@@ -7239,16 +8292,19 @@ def main() -> int:
             log(f"[phase10] after phase 9: "
                 + cluster_report(fired, hybrid["learned"]["t0"]))
             t0 = time.perf_counter()
+            beside = states(qdrant18)
             db.close()
             # phase 9 set the process default the engine was built from
             from nornicdb_tpu_torch import genserve
 
             genserve.configure(None)
             snap = os.path.join(CHAIN_DIR, "db10", "wal", "snapshot.json")
+            probe_mark("phase 10's close")
             log(f"[phase10] db.close() {time.perf_counter() - t0:.2f}s "
                 f"(the embed worker, phase 8's engine, the search service "
                 f"and the generation engine stopped; close-time snapshot "
-                f"{os.path.getsize(snap)} bytes)")
+                f"{os.path.getsize(snap)} bytes; at its start {beside}, "
+                f"at its end {states(qdrant18)})")
     finally:
         served["engine"].stop()
     texts8, rate8 = served["texts"], served["embeddings_per_s"]
@@ -7257,25 +8313,39 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phase 11: training, distillation and the train command
+    # -- phase 11: training, distillation and the train command, here
+    # (beside another process's training the device owner's probe once
+    # read 836.226 ms), beside 18(b)'s child while it runs
     t0 = time.perf_counter()
-    phase_train(args.seed, texts8, rate8, out_dir if args.profile else "")
-    log(f"[phase11] {time.perf_counter() - t0:.1f}s")
+    beside = states(qdrant18)
+    phase_train(args.seed, texts8, rate8, prof)
+    del texts8
+    log(f"[phase11] {time.perf_counter() - t0:.1f}s; at its start "
+        f"{beside}, at its end {states(qdrant18)}")
+    probe_mark("phase 11")
 
-    # -- phase 12: graph offloads (PageRank, WCC, link prediction)
+    # -- phase 14: the storage chain, from disk onto the card, beside
+    # 18(b)'s child while it runs
     t0 = time.perf_counter()
-    phase_graph(args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[phase12] {time.perf_counter() - t0:.1f}s")
-
-    # -- phase 14: the storage chain, from disk onto the card
-    t0 = time.perf_counter()
+    beside = states(qdrant18)
     phase_storage(K, args.seed, record)
     del record
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[phase14] {time.perf_counter() - t0:.1f}s")
+    log(f"[phase14] {time.perf_counter() - t0:.1f}s; at its start {beside}, "
+        f"at its end {states(qdrant18)}")
+    probe_mark("phase 14")
+
+    # -- phase 18(b): the Qdrant child, which ran beside phase 10's close
+    # and phases 11 and 14
+    t0 = time.perf_counter()
+    try:
+        qdrant18.collect()
+    finally:
+        qdrant18.close()
+    log(f"[phase18] (b) collected after phase 14, waited "
+        f"{time.perf_counter() - t0:.1f}s")
+    probe_mark("the wait for 18(b)")
 
     # -- phase 15: the device owner's transitions (private managers)
     t0 = time.perf_counter()
@@ -7283,6 +8353,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase15] {time.perf_counter() - t0:.1f}s")
+    probe_mark("phase 15")
 
     # -- phase 13: the registry after the whole run
     t0 = time.perf_counter()

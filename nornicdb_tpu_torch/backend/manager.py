@@ -144,6 +144,7 @@ class RealHooks:
         # would make it call cudaMalloc)
         self._host = self._dev = self._out = self._back = None
         self._start = self._end = None
+        self.last_event_s = self.last_enqueue_s = 0.0
 
     def touch(self) -> dict:
         """Acquire: CUDA init, the device list, and a tiny host -> device
@@ -175,20 +176,29 @@ class RealHooks:
 
     def probe(self) -> float:
         """One tiny kernel on the manager's stream between two timing
-        events; returns the device seconds between them. Raises if the
+        events; returns the device seconds between them less the host's
+        seconds from the first record's return to the second's. The card
+        reaches the first event at once and then waits for the launch, so
+        a host stall between the records (another thread holding the
+        interpreter lock) would show as device time while the card idles;
+        a stall before the first record is in neither span. Raises if the
         device is unhealthy (a sticky CUDA error raises here on every
         probe); a hung device never returns, and the manager's
-        ``probe_timeout`` walks away."""
+        ``probe_timeout`` walks away. ``last_event_s`` and
+        ``last_enqueue_s`` keep the two terms."""
         import torch
 
         if self.stream is None:
             raise RuntimeError("probe before touch")
         with torch.cuda.stream(self.stream):
             self._start.record(self.stream)
+            t0 = time.perf_counter()
             torch.add(self._dev, 1.0, out=self._out)
             self._end.record(self.stream)
+            self.last_enqueue_s = time.perf_counter() - t0
         self._end.synchronize()
-        return self._start.elapsed_time(self._end) / 1e3
+        self.last_event_s = self._start.elapsed_time(self._end) / 1e3
+        return max(self.last_event_s - self.last_enqueue_s, 0.0)
 
 
 class FakeHooks:

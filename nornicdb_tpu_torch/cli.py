@@ -1,14 +1,16 @@
 """Command line of the port: ``python -m nornicdb_tpu_torch <command>``.
 
 The counterpart of ``nornicdb_tpu/cli.py``, one subcommand at a time as the
-slices port what each drives. Ported: ``serve`` (HTTP and Bolt over the
-port's DB) and ``train``. ``--device`` is the port's device argument: it
-defaults to the card (CUDA) and names the CPU only when asked (``--device
-cpu``).
+slices port what each drives. Ported: ``serve`` (HTTP, with GraphQL and
+the Qdrant REST API, and Bolt over the port's DB), ``init``, ``shell``,
+``import``, ``export``, ``backup``, ``restore``, ``eval`` and ``train``.
+``--device`` is the port's device argument: it defaults to the card
+(CUDA) and names the CPU only when asked (``--device cpu``). Not ported
+yet: ``decay`` (ROADMAP A6c), ``dataset`` and ``kmeans-test-data`` (A8).
 
 ``serve`` refuses what is not ported yet, rather than ignoring it:
 ``NORNICDB_QDRANT_GRPC_ENABLED`` and ``NORNICDB_GRPC_ENABLED`` (ROADMAP
-A6b) and prefork workers, ``--workers`` or ``workers.http`` /
+A6b-2) and prefork workers, ``--workers`` or ``workers.http`` /
 ``workers.grpc`` above 0 (A6d), exit non-zero with a message naming the
 item.
 """
@@ -42,12 +44,24 @@ def _refuse_unported(args, app_cfg) -> None:
     for var in ("NORNICDB_QDRANT_GRPC_ENABLED", "NORNICDB_GRPC_ENABLED"):
         if os.environ.get(var, "").lower() in _TRUTHY:
             raise SystemExit(f"{var} is set, but the gRPC servers are not "
-                             "ported yet (ROADMAP A6b)")
+                             "ported yet (ROADMAP A6b-2)")
     n_http = (args.workers if args.workers is not None
               else app_cfg.workers.http)
     if n_http > 0 or app_cfg.workers.grpc > 0:
         raise SystemExit("prefork protocol workers are not ported yet "
                          "(ROADMAP A6d); serve with --workers 0")
+
+
+def _device(args):
+    """The command's device: the card unless ``--device cpu``; no card, no
+    data directory opened."""
+    from nornicdb_tpu_torch._device import resolve_device
+    from nornicdb_tpu_torch.errors import DeviceUnavailable
+
+    try:
+        return resolve_device(args.device)
+    except DeviceUnavailable as e:
+        raise SystemExit(f"{args.command}: {e}")
 
 
 def cmd_serve(args) -> int:
@@ -57,21 +71,15 @@ def cmd_serve(args) -> int:
     generation engine's warm-up, the ``--auth`` admin user, HTTP and
     Bolt, and a shutdown on SIGINT / SIGTERM that closes the DB."""
     import nornicdb_tpu_torch.telemetry as telemetry
-    from nornicdb_tpu_torch._device import resolve_device
     from nornicdb_tpu_torch.auth import ROLE_ADMIN, Authenticator
     from nornicdb_tpu_torch.config import load as load_app_config
     from nornicdb_tpu_torch.embed import CachedEmbedder, DeviceEmbedder, HashEmbedder
-    from nornicdb_tpu_torch.errors import DeviceUnavailable
     from nornicdb_tpu_torch.multidb import SYSTEM_DB
     from nornicdb_tpu_torch.server import BoltServer, HttpServer
 
     app_cfg = load_app_config()
     _refuse_unported(args, app_cfg)
-    # the card unless --device cpu: no card, no data directory opened
-    try:
-        device = resolve_device(args.device)
-    except DeviceUnavailable as e:
-        raise SystemExit(f"serve: {e}")
+    device = _device(args)
     # fleet_staleness_s ages the workers' expositions out of the merged
     # /metrics; with no workers (A6d) there is no fleet to age
     tel = dict(vars(app_cfg.telemetry))
@@ -216,6 +224,142 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_init(args) -> int:
+    db = _open_db(args, _device(args))
+    db.close()
+    print(f"initialized data directory {args.data_dir}")
+    return 0
+
+
+def cmd_shell(args) -> int:
+    """(ref: nornicdb shell)"""
+    db = _open_db(args, _device(args))
+    print("NornicDB-TPU shell. Cypher queries, or :quit")
+    try:
+        while True:
+            try:
+                line = input("cypher> ").strip()
+            except EOFError:
+                break
+            if not line:
+                continue
+            if line in (":quit", ":exit", "quit", "exit"):
+                break
+            try:
+                result = db.cypher(line)
+                if result.columns:
+                    print("\t".join(result.columns))
+                    for row in result.rows:
+                        print("\t".join(str(v) for v in row))
+                stats = result.stats.as_dict()
+                if stats:
+                    print(f"-- {stats}")
+            except Exception as e:
+                print(f"error: {e}")
+    finally:
+        db.close()
+    return 0
+
+
+def cmd_import(args) -> int:
+    """Neo4j-style JSON / Mimir JSONL import (ref: nornicdb import,
+    storage loader.go + mimir_loader.go)."""
+    from nornicdb_tpu_torch.storage.io import import_json, load_mimir
+
+    db = _open_db(args, _device(args))
+    try:
+        if args.format == "mimir":
+            n_nodes, n_edges = load_mimir(db.storage, args.file)
+        else:
+            with open(args.file) as f:
+                data = json.load(f)
+            n_nodes, n_edges = import_json(db.storage, data)
+    finally:
+        db.close()
+    print(f"imported {n_nodes} nodes, {n_edges} relationships")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Neo4j-style JSON export (ref: types.go:475-707)."""
+    from nornicdb_tpu_torch.storage.io import export_json
+
+    db = _open_db(args, _device(args))
+    try:
+        data = export_json(db.storage)
+    finally:
+        db.close()
+    out = json.dumps(data, indent=2, default=str)
+    if args.file == "-":
+        print(out)
+    else:
+        with open(args.file, "w") as f:
+            f.write(out)
+        print(f"exported {len(data['nodes'])} nodes, "
+              f"{len(data['relationships'])} relationships to {args.file}")
+    return 0
+
+
+def _require_data_dir(args) -> bool:
+    """backup/restore against an empty data dir would silently operate on an
+    ephemeral in-memory engine — success messages with nothing persisted."""
+    if not args.data_dir:
+        print("error: --data-dir (or NORNICDB_DATA_DIR) is required for "
+              "this command", file=sys.stderr)
+        return False
+    return True
+
+
+def cmd_backup(args) -> int:
+    """Full-fidelity backup archive (ref: badger_backup.go role)."""
+    if not _require_data_dir(args):
+        return 2
+    db = _open_db(args, _device(args))
+    try:
+        path = db.backup(args.file if args.file != "-" else None)
+    finally:
+        db.close()
+    print(f"backup written to {path}")
+    return 0
+
+
+def cmd_restore(args) -> int:
+    if not _require_data_dir(args):
+        return 2
+    db = _open_db(args, _device(args))
+    try:
+        counts = db.restore(args.file)
+    finally:
+        db.close()
+    print(f"restored {counts['nodes']} nodes, {counts['edges']} edges")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Search-quality evaluation (ref: cmd/eval, pkg/eval harness) over
+    the DB's search service on the command's device."""
+    from nornicdb_tpu_torch.embed import HashEmbedder
+    from nornicdb_tpu_torch.eval import Harness
+
+    db = _open_db(args, _device(args))
+    try:
+        if db.embedder is None:
+            db.set_embedder(HashEmbedder(args.embed_dims))
+            db.process_pending_embeddings()
+        cases = Harness.load_suite(args.suite)
+        thresholds = json.loads(args.thresholds) if args.thresholds else {}
+        harness = Harness(
+            lambda q, k: [r["id"] for r in db.search.search(q, limit=k)],
+            k=args.k, thresholds=thresholds,
+        )
+        report = harness.run(cases)
+        print(json.dumps({"metrics": report.metrics.as_dict(),
+                          "passed": report.passed}, indent=2))
+        return 0 if report.passed else 1
+    finally:
+        db.close()
+
+
 def cmd_train(args) -> int:
     """Train an in-image checkpoint (``models/pretrain.py``) with the JAX
     package's presets, and print its stats as one JSON line."""
@@ -270,6 +414,42 @@ def main(argv=None) -> int:
     s.add_argument("--data-dir", default=argparse.SUPPRESS,
                    help="data directory (empty = in-memory)")
     s.set_defaults(fn=cmd_serve)
+
+    def db_command(name: str, fn, help_: str):
+        s = sub.add_parser(name, help=help_)
+        s.add_argument("--device", default=None,
+                       help="torch device of the DB (default: cuda; 'cpu' "
+                            "only when named)")
+        s.add_argument("--data-dir", default=argparse.SUPPRESS,
+                       help="data directory (empty = in-memory)")
+        s.set_defaults(fn=fn)
+        return s
+
+    db_command("init", cmd_init, "initialize a data directory")
+    db_command("shell", cmd_shell, "interactive Cypher shell")
+
+    s = db_command("import", cmd_import,
+                   "import Neo4j-style JSON or Mimir JSONL")
+    s.add_argument("file")
+    s.add_argument("--format", choices=["json", "mimir"], default="json")
+
+    s = db_command("export", cmd_export,
+                   "export the graph as Neo4j-style JSON")
+    s.add_argument("file", help="output path, or - for stdout")
+
+    s = db_command("backup", cmd_backup,
+                   "write a full-fidelity backup archive")
+    s.add_argument("file", nargs="?", default="-",
+                   help="output .json.gz path (default: <data-dir>/backups/)")
+
+    s = db_command("restore", cmd_restore, "restore a backup archive")
+    s.add_argument("file", help="backup .json.gz path")
+
+    s = db_command("eval", cmd_eval, "run a search-quality evaluation suite")
+    s.add_argument("suite", help="JSON suite: [{query, relevant: [ids]}]")
+    s.add_argument("--k", type=int, default=10)
+    s.add_argument("--embed-dims", type=int, default=256)
+    s.add_argument("--thresholds", default="", help='JSON e.g. {"mrr": 0.8}')
 
     s = sub.add_parser(
         "train",

@@ -36,8 +36,11 @@ without building an executor. The GDS and APOC procedures run through
 the same executor; their PageRank, components and link-prediction GEMMs
 on its device.
 
-Not ported yet: ``decay`` and ``temporal`` (ROADMAP A6c) and
-``qdrant_registry``, the collections Qdrant REST and gRPC share (A6b).
+``qdrant_registry`` is the one ``QdrantCollections`` of the DB: each
+collection's corpus sits on the DB's device behind the device owner's
+gate, and the HTTP server's ``/collections*`` routes share it.
+
+Not ported yet: ``decay`` and ``temporal`` (ROADMAP A6c).
 ``Config.decay_enabled`` (default False) is refused until decay is
 ported. The servers (``server/``) and ``python -m nornicdb_tpu_torch
 serve`` drive this facade.
@@ -166,6 +169,7 @@ class DB:
         self._genserve = None
         self._graphrag = None
         self._vectorspaces = None
+        self._qdrant = None
 
     @staticmethod
     def _migrate_unprefixed(base: Engine, namespace: str) -> None:
@@ -309,6 +313,31 @@ class DB:
 
                 self._vectorspaces = VectorSpaceRegistry()
             return self._vectorspaces
+
+    def qdrant_registry(self):
+        """The ONE QdrantCollections registry for this db: every Qdrant
+        transport must share it, since per-transport registries would each
+        build their own per-collection corpora on the card and drift on
+        upserts (ref: the reference's "single unified vector index",
+        pkg/qdrantgrpc server.go). Its corpora live on the DB's device.
+
+        Constructed OUTSIDE the db lock (the `search` property's
+        pattern): the registry rebuild scans every persisted point and
+        builds per-collection corpora, seconds on a large point set, and
+        every db-lock user would stall behind it. Losers of the creation
+        race discard their registry before it serves anything."""
+        with self._lock:
+            if self._qdrant is not None:
+                return self._qdrant
+        from nornicdb_tpu_torch.server.qdrant import QdrantCollections
+
+        registry = QdrantCollections(
+            self.storage, vectorspaces=self.vectorspaces, device=self.device
+        )
+        with self._lock:
+            if self._qdrant is None:
+                self._qdrant = registry
+            return self._qdrant
 
     @property
     def query_cache(self):

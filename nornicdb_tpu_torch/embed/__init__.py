@@ -1,14 +1,17 @@
 """Embedders of the port (counterpart of ``nornicdb_tpu.embed``): the bge-m3
 encoder on the card (``DeviceEmbedder``), the deterministic
-``HashEmbedder`` and the content-hash LRU ``CachedEmbedder``; and in
-``embed/queue.py`` the background ``EmbedWorker`` the DB runs over its
-pending-embed queue. The HTTP embedders are not ported yet (ROADMAP A6b)."""
+``HashEmbedder``, the content-hash LRU ``CachedEmbedder`` and the HTTP
+embedders ``OllamaEmbedder`` and ``OpenAIEmbedder`` (standard-library
+urllib, no device code); and in ``embed/queue.py`` the background
+``EmbedWorker`` the DB runs over its pending-embed queue."""
 
 from nornicdb_tpu_torch.embed.base import (
     CachedEmbedder,
     DeviceEmbedder,
     Embedder,
     HashEmbedder,
+    OllamaEmbedder,
+    OpenAIEmbedder,
 )
 from nornicdb_tpu_torch.embed.queue import (
     EmbedWorker,
@@ -21,4 +24,5 @@ from nornicdb_tpu_torch.embed.queue import (
 
 __all__ = ["CachedEmbedder", "DeviceEmbedder", "Embedder", "EmbedWorker",
            "EmbedWorkerConfig", "EmbedWorkerStats", "HashEmbedder",
+           "OllamaEmbedder", "OpenAIEmbedder",
            "average_embeddings", "build_embedding_text", "chunk_text"]

@@ -3,8 +3,8 @@
 Counterpart of ``nornicdb_tpu/embed/base.py``: ``Embedder``,
 ``HashEmbedder`` and ``CachedEmbedder`` are copies, and ``DeviceEmbedder``
 is the port's ``TPUEmbedder``, the bge-m3 forward pass on the card. The
-HTTP embedders (``OllamaEmbedder``, ``OpenAIEmbedder``) are not ported
-(ROADMAP).
+HTTP embedders (``OllamaEmbedder``, ``OpenAIEmbedder``) are copies too:
+host code over the standard library's urllib.
 """
 
 from __future__ import annotations
@@ -271,3 +271,87 @@ class CachedEmbedder(Embedder):
 
     def model(self) -> str:
         return self.inner.model()
+
+
+class OllamaEmbedder(Embedder):
+    """Ollama HTTP embedder (ref: OllamaEmbedder pkg/embed/embed.go:215).
+
+    Talks to an Ollama server's /api/embeddings endpoint over the standard
+    library's urllib; the tests exercise it against a local stub server.
+    In deployments point base_url at a reachable Ollama. A host embedder:
+    it runs no device code.
+    """
+
+    def __init__(self, base_url: str = "http://127.0.0.1:11434",
+                 model: str = "bge-m3", dims: int = 1024, timeout: float = 30.0):
+        self.base_url = base_url.rstrip("/")
+        self._model = model
+        self._dims = dims
+        self.timeout = timeout
+
+    def embed_batch(self, texts: Sequence[str]) -> list[np.ndarray]:
+        import json
+        import urllib.request
+
+        out = []
+        for text in texts:
+            req = urllib.request.Request(
+                f"{self.base_url}/api/embeddings",
+                data=json.dumps({"model": self._model, "prompt": text}).encode(),
+                headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+                payload = json.loads(resp.read())
+            vec = np.asarray(payload["embedding"], np.float32)
+            self._dims = vec.shape[0]
+            out.append(vec)
+        return out
+
+    def dimensions(self) -> int:
+        return self._dims
+
+    def model(self) -> str:
+        return self._model
+
+
+class OpenAIEmbedder(Embedder):
+    """OpenAI-compatible HTTP embedder (ref: pkg/embed/embed.go:384).
+
+    Works against any /v1/embeddings-compatible server (OpenAI, vLLM, TEI).
+    A host embedder: it runs no device code.
+    """
+
+    def __init__(self, base_url: str = "https://api.openai.com",
+                 model: str = "text-embedding-3-small", api_key: str = "",
+                 dims: int = 1536, timeout: float = 30.0):
+        self.base_url = base_url.rstrip("/")
+        self._model = model
+        self.api_key = api_key
+        self._dims = dims
+        self.timeout = timeout
+
+    def embed_batch(self, texts: Sequence[str]) -> list[np.ndarray]:
+        import json
+        import urllib.request
+
+        headers = {"Content-Type": "application/json"}
+        if self.api_key:
+            headers["Authorization"] = f"Bearer {self.api_key}"
+        req = urllib.request.Request(
+            f"{self.base_url}/v1/embeddings",
+            data=json.dumps({"model": self._model, "input": list(texts)}).encode(),
+            headers=headers,
+        )
+        with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            payload = json.loads(resp.read())
+        rows = sorted(payload["data"], key=lambda d: d.get("index", 0))
+        out = [np.asarray(d["embedding"], np.float32) for d in rows]
+        if out:
+            self._dims = out[0].shape[0]
+        return out
+
+    def dimensions(self) -> int:
+        return self._dims
+
+    def model(self) -> str:
+        return self._model

@@ -4,7 +4,7 @@
 
 Only the family is ported here, with the JAX name, type and help text.
 The service itself (``GrpcSearchServer``, ``NORNICDB_GRPC_ENABLED``)
-comes with the other single-process surfaces (ROADMAP A6b); ``serve``
+comes with the Qdrant gRPC services (ROADMAP A6b-2); ``serve``
 refuses the flag until then. Until then nothing observes this family.
 """
 

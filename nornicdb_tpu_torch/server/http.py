@@ -13,8 +13,11 @@ The port's copy of ``nornicdb_tpu/server/http.py``. Where it differs:
   from the host) is a 503 with ``Retry-After`` and ``"reason":
   "device_unavailable"``, on every route, a statement of the transaction
   API included.
-- ``/graphql`` and ``/collections*`` (Qdrant REST) answer 501 until they
-  are ported (ROADMAP A6b).
+- ``/graphql`` and ``/collections*`` (Qdrant REST) run on the DB's device:
+  a GraphQL ``search`` / ``similar`` field and a collection search that
+  meet a card that is not serving answer that 503 too, never a GraphQL
+  error with a 200 and never a host answer. The Qdrant gRPC and native
+  gRPC search services are not ported yet (ROADMAP A6b-2).
 - ``/admin/tpu/status`` reports ``torch.cuda`` and the device owner, and
   never initialises CUDA itself.
 - A single process has no worker fleet (ROADMAP A6d): ``/metrics`` is the
@@ -64,9 +67,6 @@ from nornicdb_tpu_torch.serving import stats as _serving_stats  # noqa: F401
 # catalog renders even in a single-process server with no worker pool
 from nornicdb_tpu_torch.server import broker as _broker_mod  # noqa: F401
 from nornicdb_tpu_torch.server import shm as _shm_mod  # noqa: F401
-
-#: the 501 body of the routes that are not ported yet
-NOT_PORTED = {"error": "not ported yet (ROADMAP A6b)"}
 
 
 def _worker_pool_stats() -> list[dict]:
@@ -200,6 +200,7 @@ class HttpServer:
         )
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._qdrant = None
         # per-server child registry: instrumentation-site families from the
         # process-global REGISTRY render first, then this server's
         # db-specific callbacks — so several servers in one process (tests)
@@ -243,6 +244,25 @@ class HttpServer:
 
             self._retention_mgr = RetentionManager(self.db.storage)
         return self._retention_mgr
+
+    @property
+    def qdrant(self):
+        if self._qdrant is None:
+            # the db facade's SHARED registry: a private per-server
+            # registry would build a second corpus per collection on the
+            # card and miss the other transports' upserts
+            shared = getattr(self.db, "qdrant_registry", None)
+            if callable(shared):
+                self._qdrant = shared()
+            else:  # bare-engine test doubles without the facade
+                from nornicdb_tpu_torch.server.qdrant import QdrantCollections
+
+                self._qdrant = QdrantCollections(
+                    self.db.storage,
+                    vectorspaces=getattr(self.db, "vectorspaces", None),
+                    device=getattr(self.db, "device", None),
+                )
+        return self._qdrant
 
     # -- request handling ----------------------------------------------------
     def _make_handler(server_self):  # noqa: N805
@@ -390,10 +410,7 @@ class HttpServer:
                     self._trace_root = root
                     try:
                         if path.startswith("/collections"):
-                            # Qdrant REST (ROADMAP A6b); the body is read so
-                            # a keep-alive connection stays in step
-                            self._raw_body()
-                            self._send(501, NOT_PORTED)
+                            server_self._route_qdrant(self, method, path)
                             return
                         if method == "GET":
                             server_self._route_get(self)
@@ -467,6 +484,19 @@ class HttpServer:
                 self._dispatch("DELETE")
 
         return Handler
+
+    def _route_qdrant(self, h, method: str, path: str) -> None:
+        """Qdrant-compatible vector API (ref: pkg/qdrantgrpc, REST shapes)."""
+        from nornicdb_tpu_torch.server.qdrant import handle_qdrant
+
+        h._auth("read" if method == "GET" else "write")
+        body = h._body() if method in ("POST", "PUT", "DELETE") else {}
+        routed = handle_qdrant(self.qdrant, method, path, body)
+        if routed is None:
+            h._send(404, {"error": f"not found: {path}"})
+            return
+        code, payload = routed
+        h._send(code, _jsonable(payload))
 
     # -- GET routes --------------------------------------------------------------
     def _route_get(self, h) -> None:
@@ -1445,9 +1475,20 @@ class HttpServer:
             h._send(200, self._mcp(h._body()))
             return
         if path == "/graphql":
-            # (ref: pkg/graphql mounted at /graphql; ROADMAP A6b)
-            h._raw_body()
-            h._send(501, NOT_PORTED)
+            # (ref: pkg/graphql mounted at /graphql, handler.go)
+            h._auth("read")  # gate before touching the body
+            body = h._body()
+            q = body.get("query", "")
+            from nornicdb_tpu_torch.server.graphql import (
+                GraphQLExecutor,
+                parse_operation,
+            )
+
+            if parse_operation(q) == "mutation":
+                h._auth("write")
+            h._send(200, _jsonable(
+                GraphQLExecutor(self.db).execute(q, body.get("variables"))
+            ))
             return
         if path in ("/api/bifrost/chat/completions", "/v1/chat/completions"):
             # (ref: server_router.go:215 -> heimdall handler.go:207)

@@ -9,9 +9,7 @@ tests assert every documented path is actually routable), served at
 bundle would be a blank page).
 
 The port's copy of ``nornicdb_tpu/server/openapi.py``: the API is the
-JAX package's, so the spec still documents ``/graphql`` and
-``/collections``, which the port's server answers with 501 until they are
-ported (ROADMAP A6b). Three descriptions name the port's device:
+JAX package's. Three descriptions name the port's device:
 ``/admin/tpu/status``, ``/admin/profile`` and the API's own.
 """
 

@@ -1283,6 +1283,70 @@ def test_real_probe_runs_on_its_own_stream(card):
     assert 0.0 <= device_s < 0.1, device_s
 
 
+def test_real_probe_leaves_out_a_host_stall_between_its_events(
+        card, monkeypatch):
+    """A host stall between the probe's two events (another thread holding
+    the interpreter lock while the probe launches) leaves the card idle:
+    the events see it, the probe reports the device's own time."""
+    from nornicdb_tpu_torch.backend import RealHooks
+
+    hooks = RealHooks()
+    hooks.touch()
+    real_add = torch.add
+
+    def stalled_add(*a, **k):
+        t = time.perf_counter()
+        while time.perf_counter() - t < 0.3:
+            pass
+        return real_add(*a, **k)
+
+    monkeypatch.setattr(torch, "add", stalled_add)
+    device_s = hooks.probe()
+    monkeypatch.setattr(torch, "add", real_add)
+    assert hooks.last_event_s >= 0.3, hooks.last_event_s
+    assert hooks.last_enqueue_s >= 0.3, hooks.last_enqueue_s
+    assert 0.0 <= device_s < 0.05, device_s
+    assert 0.0 <= hooks.probe() < 0.05
+
+
+def test_real_probe_keeps_device_time_behind_a_stall_before_its_start(
+        card, monkeypatch):
+    """A host stall BEFORE the probe's first event is in neither span: it
+    takes nothing off a device delay between the events (a ~0.2 s spin on
+    the probe's stream), which the probe reports."""
+    from nornicdb_tpu_torch.backend import RealHooks
+
+    hooks = RealHooks()
+    hooks.touch()
+    real_add = torch.add
+
+    class StalledStart:
+        def __init__(self, event):
+            self.event = event
+
+        def record(self, stream):
+            t = time.perf_counter()
+            while time.perf_counter() - t < 0.3:
+                pass
+            self.event.record(stream)
+
+        def elapsed_time(self, end):
+            return self.event.elapsed_time(end)
+
+    def delayed_add(*a, **k):
+        torch.cuda._sleep(400_000_000)  # ~0.2 s on the current stream
+        return real_add(*a, **k)
+
+    hooks._start = StalledStart(hooks._start)
+    monkeypatch.setattr(torch, "add", delayed_add)
+    device_s = hooks.probe()
+    monkeypatch.setattr(torch, "add", real_add)
+    assert hooks.last_enqueue_s < 0.1, hooks.last_enqueue_s
+    assert hooks.last_event_s >= 0.1, hooks.last_event_s
+    assert device_s >= 0.1, (device_s, hooks.last_event_s,
+                             hooks.last_enqueue_s)
+
+
 # -- GDS and APOC through Cypher on the card -----------------------------------
 
 def _graph_executors(card, scale=11, seed=21, **kw):

@@ -10,9 +10,7 @@ spec documents are covered here too.
 
 The port's copy of ``tests/test_openapi.py``: the JAX cases with only
 their imports and the device argument (``device="cpu"``) changed.
-``/admin/tpu/status`` reports ``"framework": "torch"``; the spec's
-``/graphql`` and ``/collections`` paths route to the 501 of what is
-not ported yet (ROADMAP A6b).
+``/admin/tpu/status`` reports ``"framework": "torch"``.
 """
 
 import json

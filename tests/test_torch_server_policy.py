@@ -5,7 +5,10 @@ nornicdb_tpu_torch serve``, on the CPU.
   state in which the port's requests raise ``DeviceUnavailable``),
   injected into the DB's corpus as ``tests/test_torch_backend.py`` does:
   ``/nornicdb/search`` (vector and text), a transaction statement and MCP
-  answer 503 with ``Retry-After`` and ``"reason": "device_unavailable"``;
+  answer 503 with ``Retry-After`` and ``"reason": "device_unavailable"``,
+  and so do a GraphQL ``search`` / ``similar`` field and a Qdrant
+  collection search (never a GraphQL error with a 200); a GraphQL field
+  that fails otherwise stays a per-field error;
   Bolt fails the statement with
   ``Neo.TransientError.General.DatabaseUnavailable``. Nothing answers
   from the host, and after the owner recovers the same requests answer
@@ -13,7 +16,7 @@ nornicdb_tpu_torch serve``, on the CPU.
   ``Retry-After``, as in JAX.
 - ``/admin/tpu/status`` never initialises CUDA: with
   ``torch.cuda.is_initialized`` False it makes no device query.
-- ``serve`` refuses the flags of what is not ported (ROADMAP A6b, A6d),
+- ``serve`` refuses the flags of what is not ported (ROADMAP A6b-2, A6d),
   refuses to start without a card unless ``--device cpu`` is named, gates
   ``--embedder student`` on its eval MRR, and with ``--auth`` refuses
   unauthenticated requests on HTTP and Bolt, then exits 0 on SIGTERM
@@ -192,6 +195,66 @@ class TestDeviceUnavailableAtTheEdge:
             db.search._corpus._backend = None
             mgr.stop()
 
+    def test_graphql_and_collections_answer_503_then_recover(self, served):
+        db, http, _ = served
+        code, _, _ = _request(http.port, "PUT", "/collections/docs",
+                              {"vectors": {"size": DIMS}})
+        assert code == 200
+        code, _, _ = _request(http.port, "PUT", "/collections/docs/points", {
+            "points": [{"id": i, "vector": _vec(10 + i), "payload": {"i": i}}
+                       for i in range(8)]})
+        assert code == 200
+        device_requests = [
+            ("/graphql", {"query": '{ search(query: "graph search", '
+                                   "limit: 3) { id score } }"}),
+            ("/graphql", {"query": '{ similar(id: "d1", limit: 3) '
+                                   "{ id score } stats { nodes } }"}),
+            ("/collections/docs/points/search",
+             {"vector": _vec(10), "limit": 3}),
+            ("/collections/docs/points/search",
+             {"vector": _vec(11), "limit": 3,
+              "filter": {"must": [{"key": "i", "match": {"value": 1}}]}}),
+        ]
+        mgr, hooks = _degraded_owner()
+        corpus = db.qdrant_registry()._corpora["docs"]
+        try:
+            db.search._corpus._backend = mgr
+            corpus._backend = mgr
+            for path, body in device_requests:
+                code, headers, out = _request(http.port, "POST", path, body)
+                assert code == 503, (path, code, out)
+                assert headers.get("Retry-After") == "1"
+                assert out["reason"] == "device_unavailable"
+                assert "data" not in out and "result" not in out
+            # a field that fails otherwise stays a per-field error, 200
+            code, _, out = _request(http.port, "POST", "/graphql", {
+                "query": '{ node(id: "missing") { id } stats { nodes } }'})
+            assert code == 200
+            assert out["data"] == {"node": None, "stats": {"nodes": 32}}
+            assert out["errors"][0]["path"] == ["node"]
+            # routes that touch no device answer while the card is away
+            code, _, out = _request(http.port, "POST",
+                                    "/collections/docs/points/count", {})
+            assert code == 200 and out["result"] == {"count": 8}
+            hooks.set_mode("ok")
+            deadline = time.monotonic() + 10
+            while mgr.state != backend_mod.READY:
+                assert time.monotonic() < deadline, mgr.state
+                time.sleep(0.01)
+            for path, body in device_requests:
+                code, _, out = _request(http.port, "POST", path, body)
+                assert code == 200, (path, out)
+                assert "errors" not in out
+            code, _, out = _request(http.port, "POST",
+                                    "/collections/docs/points/search",
+                                    device_requests[2][1])
+            want = db.qdrant_registry().search("docs", _vec(10), limit=3)
+            assert out["result"] == want and want[0]["id"] == 0
+        finally:
+            db.search._corpus._backend = None
+            corpus._backend = None
+            mgr.stop()
+
     def test_bolt_answers_the_transient_code(self, served):
         db, _, bolt = served
         mgr, hooks = _degraded_owner()
@@ -355,6 +418,21 @@ def test_serve_with_auth_on_the_cpu_then_sigterm(tmp_path):
         code, _, out = _request(http_port, "GET", "/admin/tpu/status",
                                 headers=auth)
         assert code == 200 and out["framework"] == "torch"
+        # GraphQL and the Qdrant REST API answer in the served process
+        code, _, out = _request(http_port, "POST", "/graphql",
+                                {"query": "{ stats { nodes } }"}, auth)
+        assert code == 200 and out == {"data": {"stats": {"nodes": 1}}}
+        for method, path, body in (
+                ("PUT", "/collections/c", {"vectors": {"size": 2}}),
+                ("PUT", "/collections/c/points",
+                 {"points": [{"id": 1, "vector": [1.0, 0.0]}]}),
+                ("POST", "/collections/c/points/search",
+                 {"vector": [1.0, 0.0], "limit": 1})):
+            code, _, out = _request(http_port, method, path, body, auth)
+            assert code == 200, (path, out)
+        assert [h["id"] for h in out["result"]] == [1]
+        code, _, out = _request(http_port, "GET", "/collections")
+        assert code == 401, out
         c = _Bolt(bolt_port)
         bad = c.send(0x01, [{"scheme": "basic", "principal": "admin",
                              "credentials": "wrong"}])
@@ -374,10 +452,11 @@ def test_serve_with_auth_on_the_cpu_then_sigterm(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    # the DB was closed: a reopen finds the write
+    # the DB was closed: a reopen finds the write and the point
     db = nornicdb_tpu_torch.open_db(str(data), device="cpu")
     try:
         assert db.cypher("MATCH (n:Doc) RETURN n.k").rows == [[1]]
+        assert db.qdrant_registry().count("c") == 1
     finally:
         db.close()
 

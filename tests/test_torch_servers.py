@@ -5,10 +5,11 @@ HTTP tx API + search + MCP, auth.
 
 The port's copy of ``tests/test_servers.py``: the JAX cases with only their
 imports and the device argument (``device="cpu"``) changed. Left out,
-because what they drive is not ported yet (ROADMAP A6b):
-``TestGrpcSearch`` (4 cases: the native gRPC search service) and
-``TestHttpEmbedders`` (``OllamaEmbedder`` / ``OpenAIEmbedder``).
-``TestDeferredRoutes`` holds the 501 of ``/graphql`` and ``/collections*``.
+because what it drives is not ported yet (ROADMAP A6b-2):
+``TestGrpcSearch`` (4 cases: the native gRPC search service).
+``TestHttpEmbedders`` is in ``tests/test_torch_cli_embed.py``.
+``TestGraphqlAndQdrantRoutes`` holds ``/graphql`` and ``/collections*`` to
+the JAX server's answers.
 """
 
 import base64
@@ -514,9 +515,9 @@ class TestGdprEndpoints:
             assert resp.headers["X-Frame-Options"] == "DENY"
 
 
-class TestDeferredRoutes:
-    """GraphQL and Qdrant REST are not ported yet (ROADMAP A6b): their
-    routes answer 501 naming the item, never a 404 or a partial answer."""
+class TestGraphqlAndQdrantRoutes:
+    """``/graphql`` and ``/collections*`` answer as the JAX package's server
+    answers the same request, on one keep-alive connection too."""
 
     @pytest.mark.parametrize("method,path", [
         ("POST", "/graphql"),
@@ -525,34 +526,60 @@ class TestDeferredRoutes:
         ("POST", "/collections/docs/points/search"),
         ("DELETE", "/collections/docs"),
     ])
-    def test_not_ported_routes_answer_501(self, http_db, method, path):
-        _, srv = http_db
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{srv.port}{path}", data=b"{}", method=method,
-            headers={"Content-Type": "application/json"})
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(req, timeout=10)
-        assert e.value.code == 501
-        assert json.loads(e.value.read()) == {
-            "error": "not ported yet (ROADMAP A6b)"}
+    def test_routes_answer_as_the_jax_server(self, http_db, method, path):
+        import nornicdb_tpu
+        from nornicdb_tpu.server import HttpServer as JaxHttpServer
 
-    def test_keep_alive_connection_answers_after_a_501(self, http_db):
+        _, srv = http_db
+        jdb = nornicdb_tpu.open_db("")
+        jsrv = JaxHttpServer(jdb, port=0)
+        jsrv.start()
+        try:
+            answers = []
+            for port in (jsrv.port, srv.port):
+                # the same request twice: the second meets the state the
+                # first left (a created or dropped collection)
+                for _ in range(2):
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{port}{path}", data=b"{}",
+                        method=method,
+                        headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req, timeout=10) as r:
+                            answers.append((r.status, json.loads(r.read())))
+                    except urllib.error.HTTPError as e:
+                        answers.append((e.code, json.loads(e.read())))
+        finally:
+            jsrv.stop()
+            jdb.close()
+        assert answers[2:] == answers[:2]
+        assert all(code != 501 for code, _ in answers)
+
+    def test_keep_alive_connection_answers_graphql_and_qdrant(self, http_db):
         import http.client
 
         _, srv = http_db
         conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=10)
         try:
-            for path, code in (("/graphql", 501),
-                               ("/collections/docs/points/search", 501),
-                               ("/db/neo4j/tx/commit", 200)):
-                conn.request("POST", path, body=json.dumps({
-                    "query": "{ x }", "vector": [1.0], "statements": [
-                        {"statement": "RETURN 1 AS one"}]}),
-                    headers={"Content-Type": "application/json"})
+            for method, path, body in (
+                    ("PUT", "/collections/docs", {"vectors": {"size": 2}}),
+                    ("PUT", "/collections/docs/points", {"points": [
+                        {"id": 1, "vector": [1.0, 0.0]}]}),
+                    ("POST", "/graphql", {"query": "{ stats { nodes } }"}),
+                    ("POST", "/collections/docs/points/search",
+                     {"vector": [1.0, 0.0]}),
+                    ("POST", "/db/neo4j/tx/commit", {"statements": [
+                        {"statement": "RETURN 1 AS one"}]})):
+                conn.request(method, path, body=json.dumps(body),
+                             headers={"Content-Type": "application/json"})
                 resp = conn.getresponse()
-                body = json.loads(resp.read())
-                assert resp.status == code, (path, body)
-            assert body["results"][0]["data"][0]["row"] == [1]
+                out = json.loads(resp.read())
+                assert resp.status == 200, (path, out)
+                if path == "/graphql":
+                    assert out == {"data": {"stats": {"nodes": 1}}}
+                elif path.endswith("/search"):
+                    assert [h["id"] for h in out["result"]] == [1]
+            assert out["results"][0]["data"][0]["row"] == [1]
         finally:
             conn.close()
 

@@ -547,14 +547,11 @@ def _families(text: str) -> dict:
     return parse_exposition(text)
 
 
-def _label_names(block) -> set:
-    names = set()
-    for _, labelstr, _ in block.samples:
-        for pair in labelstr.split(","):
-            key = pair.partition("=")[0].strip()
-            if key and key != "le":
-                names.add(key)
-    return names
+def _label_names(registry, family: str) -> tuple:
+    """The label names ``family`` was declared with: what its samples
+    carry once it has any (another test in this process may have given
+    one package's family samples and not the other's)."""
+    return registry._families[family].labelnames
 
 
 def _value(fams: dict, family: str, labelstr: str) -> float:
@@ -572,12 +569,14 @@ def test_engine_families_match_jax():
     from nornicdb_tpu_torch.telemetry import REGISTRY as TREGISTRY
 
     # the JAX package registers its families at import, as the port does
-    # (the Cypher planner's too: another test in this process may have
-    # imported the port's)
+    # (the Cypher planner's and the servers' too: another test in this
+    # process may have imported the port's)
     import nornicdb_tpu.cypher.plan  # noqa: F401
     import nornicdb_tpu.genserve.stats  # noqa: F401
     import nornicdb_tpu.search.batcher  # noqa: F401
     import nornicdb_tpu.search.service  # noqa: F401
+    import nornicdb_tpu.server.bolt  # noqa: F401
+    import nornicdb_tpu.server.http  # noqa: F401
     import nornicdb_tpu.serving.stats  # noqa: F401
     import nornicdb_tpu.telemetry.costmodel  # noqa: F401
     import nornicdb_tpu.telemetry.deviceprof  # noqa: F401
@@ -597,7 +596,8 @@ def test_engine_families_match_jax():
         assert fam in t1 and fam in j1, fam
         assert t1[fam].kind == j1[fam].kind, fam
         assert t1[fam].help == j1[fam].help, fam
-        assert _label_names(t1[fam]) == _label_names(j1[fam]), fam
+        assert (_label_names(TREGISTRY, fam)
+                == _label_names(JREGISTRY, fam)), fam
     # every family the port renders is one of the JAX package's, declared
     # the same way. A labelled family renders once it has a sample: one
     # another test in this process gave samples in the port only (a
