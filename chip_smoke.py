@@ -120,7 +120,9 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    worker processed every node with no failure or retry; no swallowed
    error was counted (``embed_queue``, ``inference.*``); each embedding is
    the CachedEmbedder's for its text; ``db.recall`` finds >= 0.99 of 128
-   learned texts in its top 10; every SIMILAR_TO edge joins nodes whose
+   learned texts in its top 10, and ``DB.temporal``, read before 10.8,
+   has recorded each of their touches (its tracker's access counts equal
+   them node by node); every SIMILAR_TO edge joins nodes whose
    float32 cosine on the card is >= 0.85 - 1e-3, its confidence the mean
    of its observations. Logged: stores/s, embeddings/s,
    store-to-searchable and ``on_store`` p50/p99, suggestions, edges, #2's
@@ -228,9 +230,20 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    the documents, ``GET /collections`` answering no collection, a GraphQL
    mutation refused for a viewer (401 "permission write denied", as the
    JAX server answers), a Bolt HELLO refused for a wrong password and
-   accepted for the right one, SIGTERM to exit 0 and a reopen holding the
-   documents; then ``NORNICDB_GRPC_ENABLED=1 ... serve`` exits non-zero
-   naming ROADMAP A6b-2.
+   accepted for the right one; with ``NORNICDB_GRPC_ENABLED`` and
+   ``NORNICDB_QDRANT_GRPC_ENABLED`` on free ports, on the port's own gRPC
+   transport (``server/grpcwire.py``; the card's machine has no grpcio),
+   8 gRPC clients, each on a ``grpcwire.Channel`` of its own, send the
+   HTTP searches' 8 vectors and 8 texts to the native gRPC search: each
+   answer equals HTTP's (ids, content, scores at float32) and #2 is
+   launched by them; the Qdrant gRPC service with ``--auth`` answers
+   UNAUTHENTICATED without credentials and PERMISSION_DENIED to a
+   viewer's Upsert, takes an admin's bearer token and basic auth, and
+   shares its points with ``/collections/*`` both ways; SIGTERM to exit 0
+   and a reopen holding the documents; ``serve --workers 2`` exits
+   non-zero naming ROADMAP A6d. Beside phase 10's close, ``python -m
+   nornicdb_tpu_torch decay recalculate`` and ``decay stats`` run over
+   (b)'s data directory (phase 19).
 18. GraphQL and the Qdrant REST API, started after phase 17. (a) before
    phase 10's DB closes: GraphQL over that DB behind a port
    ``HttpServer`` from 8 clients: 16 ``search`` fields held to
@@ -249,16 +262,32 @@ Builds the port's CUDA kernels from ``nornicdb_tpu_torch/ops/csrc`` (one
    ``dense`` 1,024 and ``small`` 64 wide): each name searched, its
    snapshot equal to what was upserted. A 1,024-wide Cosine collection
    loaded with phase 8's 65,536 embeddings as points (payload doc, group
-   = doc % 16, the text's last word) in batches of 1,024 from 4 client
-   processes (load wall time and points/s logged); 64 unfiltered
-   searches from 8 clients through #2 (ids equal to the registry's own
-   answer, scores within #2's decode step, recall@10 >= 0.95 against an
-   exact float32 scan), 16 searches filtered by group (the exact filtered
-   answer, ties within a bf16 step aside), count with and without a
-   filter, a scroll through one group, retrieve, delete of 64 points
-   (never served again, the count 65,472), the collection GETs, and
-   GraphQL's five mutations held to the storage. The child's #2 launches
-   are read from its own counts.
+   = doc % 16, the text's last word) from 4 client processes, 2 through
+   REST in batches of 1,024 and 2 through the Qdrant gRPC service (a
+   ``QdrantGrpcServer`` over the same registry) in Upserts of 512 (load
+   wall time and each transport's points/s logged); 64 unfiltered
+   searches from 8 clients through #2, half over gRPC (ids equal to the
+   registry's own answer, scores within #2's decode step, recall@10 >=
+   0.95 against an exact float32 scan; a gRPC answer equal to REST's for
+   the same request), 16 searches filtered by group, half over gRPC (the
+   exact filtered answer, ties within a bf16 step aside), count with and
+   without a filter, a scroll through one group (a gRPC Count and Scroll
+   page equal to REST's), retrieve, delete of 64 points (never served
+   again, the count 65,472), the collection GETs, and GraphQL's five
+   mutations held to the storage. The child's #2 launches are read from
+   its own counts.
+19. memory decay at full size on the card, in the card child of 16(b)
+   and 12, after them, beside 10.1's build: an in-memory
+   ``DB(Config(decay_enabled=True))`` (its ticker running) of 65,536
+   memories x 1,024 (seeded unit vectors, #2's threshold, so its
+   searches run #2) with seeded memory types, access counts, last accesses and
+   importances; 16 searches; the manager's clock 120 days ahead,
+   ``recalculate_all()``: every score within 1e-12 of this script's
+   float64 copy of the formula (``decay_reference``), the archived count
+   the one it predicts; the same searches give the same ids and scores
+   after decay's ``update_node`` storm; ``CALL nornicdb.decay.info()``
+   answers the enabled row; ``close()`` stops the ticker. And 17(b)'s
+   ``decay`` commands (above).
 11. training, after phase 10's close with the earlier phases' models
    released, beside 18(b)'s child (no kernel: torch ops, autograd and
    fused AdamW, as the JAX package trains through XLA). 11a:
@@ -671,6 +700,13 @@ SERVE_CLIENTS, SERVE_K = 8, 10
 SERVE_VECTORS, SERVE_TEXTS, SERVE_TX, SERVE_RAG = 64, 32, 8, 2
 SERVE_BOLT = 64
 SERVE_DOCS, SERVE_DIMS, SERVE_EXIT_S = 256, 64, 60.0
+# (b) also serves the native gRPC search and the Qdrant gRPC services on
+# free ports, on the port's own transport (server/grpcwire.py): its
+# SERVE_CLIENTS gRPC clients, each on a grpcwire.Channel of its own, send
+# as many raw-vector searches as (b)'s HTTP ones, on the same vectors,
+# searches and the same text searches; SERVE_QDRANT_POINTS points go
+# through Qdrant gRPC (bearer and basic auth) and REST
+SERVE_QDRANT_POINTS = 16
 # phase 18, GraphQL and Qdrant REST. (a) GraphQL over phase 10's DB:
 # GQL_SEARCHES search and GQL_SIMILAR similar fields (limit SERVE_K) from
 # SERVE_CLIENTS clients. (b) A collection of QDRANT_POINTS points (phase
@@ -684,6 +720,22 @@ GQL_SEARCHES, GQL_SIMILAR = 16, 16
 QDRANT_POINTS, QDRANT_BATCH, QDRANT_LOADERS = 65_536, 1024, 4
 QDRANT_GROUPS, QDRANT_SEARCHES, QDRANT_FILTERED = 16, 64, 16
 QDRANT_DELETED, QDRANT_NAMED, QDRANT_SMALL = 64, 1024, 64
+# 18(b) over gRPC too: QDRANT_GRPC_LOADERS of the loaders upsert through
+# the Qdrant gRPC service in batches of QDRANT_GRPC_BATCH (1,024 points x
+# 1,024 float32 would pass the 4 MiB message limit the port keeps from
+# grpcio), so half the points come from each transport; the odd-numbered
+# unfiltered and filtered searches go over gRPC
+QDRANT_GRPC_LOADERS, QDRANT_GRPC_BATCH = 2, 512
+# phase 19, memory decay at full size, in the card child of 16(b) and 12
+# (which, without it, ended ~60 s before the child of 5 and 10.9): an
+# in-memory DB(Config(decay_enabled=True)) of DECAY_NODES
+# memories x DIMS on the card (seeded unit vectors: #2's threshold, so its
+# searches run #2), the manager's clock moved DECAY_AHEAD_DAYS ahead;
+# DECAY_QUERIES searches before and after the recalculation; every score
+# within DECAY_TOL of this script's float64 copy of the formula (numpy's
+# exp and log against libm's may differ in the last bit)
+DECAY_NODES = 65_536
+DECAY_AHEAD_DAYS, DECAY_QUERIES, DECAY_TOL = 120.0, 16, 1e-12
 # phase 15, the device owner: a private manager over FakeHooks, a corpus of
 # OWNER_ROWS x DIMS on the card, OWNER_QUERIES queries
 OWNER_ROWS, OWNER_QUERIES = 65_536, 16
@@ -3027,7 +3079,10 @@ def phase_hybrid(K, seed: int, served: dict, beside=()) -> dict:
     PREDICTED_SHEDS["10"] = (served["engine"].stats.sheds_predicted
                              - PREDICTED_SHEDS["8"][0], retry.sheds)
     t0 = time.perf_counter()
+    # DB.temporal read before 10.8: from now on each touch is recorded
+    tracker = db.temporal
     learned = phase_learning(K, db, eng, texts, seed)
+    check_temporal(tracker, learned["touched"])
     log(f"[phase10] 10.8 {time.perf_counter() - t0:.1f}s")
     record = record_chain(db, cfg, texts, run, seed, learned)
     return {"db": db, "streaming_topk_bf16": launches, "record": record,
@@ -3271,8 +3326,12 @@ def phase_learning(K, db, embedder, stored: list, seed: int) -> dict:
     # -- recall of learned texts through the DB
     t1 = time.perf_counter()
     picks = rng.choice(LEARN_TEXTS, LEARN_RECALLS, replace=False)
-    hits = sum(ids[i] in [r["id"] for r in db.recall(texts[i], limit=10)]
-               for i in picks)
+    hits, touched = 0, {}
+    for i in picks:
+        got = [r["id"] for r in db.recall(texts[i], limit=10)]
+        hits += ids[i] in got
+        for nid in got:  # recall touches each hit once
+            touched[nid] = touched.get(nid, 0) + 1
     t_recall = time.perf_counter() - t1
 
     # -- the inferred edges: cosine on the card, confidence the mean
@@ -3310,8 +3369,29 @@ def phase_learning(K, db, embedder, stored: list, seed: int) -> dict:
     assert float(cos_e.min()) >= thr - SIM_TOL, ("edge cosine", cos_e.min())
     assert not bad_conf, ("edge confidence", bad_conf[:5])
     return {"ids": ids, "texts": texts, "fired": fired, "t0": t0,
+            "touched": touched,
             "edges": {e.id: [e.start_node, e.end_node, e.type, e.confidence]
                       for e in sim}}
+
+
+def check_temporal(tracker, touched: dict) -> None:
+    """Phase 10's ``DB.temporal``, read before 10.8: its tracker's access
+    count of every node equals the touches of 10.8's recalls (the only
+    touches since; a node's count is its history ring's length, at most
+    ``history_size``), and it knows no other node."""
+    cap = tracker.config.history_size
+    tracked = set(tracker._history)
+    assert tracked == set(touched), (len(tracked), len(touched))
+    wrong = [n for n, k in touched.items()
+             if tracker.access_count(n) != min(k, cap)]
+    assert not wrong, [(n, touched[n], tracker.access_count(n))
+                       for n in wrong[:5]]
+    capped = sum(k > cap for k in touched.values())
+    log(f"[phase10] 10.8 temporal: DB.temporal read before it; its "
+        f"tracker's access counts equal the {sum(touched.values())} touches "
+        f"of the recalls on {len(touched)} nodes ({capped} past the "
+        f"{cap}-access history); {len(tracker.co_access_pairs(2))} "
+        f"co-accessed pairs seen twice or more")
 
 
 def write_checkpoint(d: str, cfg, params, tok) -> None:
@@ -6904,10 +6984,15 @@ SERVE_LAUNCHER = (
 class ServeChildren:
     """Phase 17(b)'s two children, started after 17(a) so that nothing
     else boots a CUDA context while it serves: ``serve --auth --embedder
-    hash`` over a fresh data directory through SERVE_LAUNCHER, and
-    ``python -m nornicdb_tpu_torch serve`` with ``NORNICDB_GRPC_ENABLED=1``,
-    which must refuse to start. ``close`` kills what still runs and deletes
-    the directory."""
+    hash`` over a fresh data directory through SERVE_LAUNCHER, with
+    ``NORNICDB_GRPC_ENABLED`` and ``NORNICDB_QDRANT_GRPC_ENABLED`` on free
+    ports, and ``python -m nornicdb_tpu_torch serve --workers 2``, which
+    must refuse to start (prefork workers, ROADMAP A6d). ``start_decay``
+    runs ``python -m nornicdb_tpu_torch decay recalculate`` then ``decay
+    stats`` over (b)'s data directory in the background (main starts them
+    beside phase 10's close, host-bound JSON with the card idle), and
+    ``collect_decay`` reads them. ``close`` kills what still runs and
+    deletes the directory."""
 
     def __init__(self):
         import tempfile
@@ -6925,7 +7010,9 @@ class ServeChildren:
         self.args = ["serve", "--auth", "--embedder", "hash",
                      "--embed-dims", str(SERVE_DIMS), "--host", "127.0.0.1",
                      "--http-port", "0", "--bolt-port", "0"]
-        self.proc = self.refused = None
+        self.proc = self.refused = self.decay_proc = None
+        self.decay_thread = None
+        self.decay_out: list = []
 
     def start(self) -> "ServeChildren":
         self.t0 = time.perf_counter()
@@ -6933,22 +7020,261 @@ class ServeChildren:
             self.proc = subprocess.Popen(
                 [sys.executable, "-c", SERVE_LAUNCHER, str(SERVE_DOCS)]
                 + self.args + ["--data-dir", self.data], cwd=self.here,
-                env=self.env, text=True, stdout=subprocess.PIPE, stderr=err)
+                env=dict(self.env, NORNICDB_GRPC_ENABLED="1",
+                         NORNICDB_QDRANT_GRPC_ENABLED="1",
+                         NORNICDB_GRPC_PORT="0",
+                         NORNICDB_QDRANT_GRPC_PORT="0"),
+                text=True, stdout=subprocess.PIPE, stderr=err)
         self.refused = subprocess.Popen(
             [sys.executable, "-m", "nornicdb_tpu_torch"] + self.args
-            + ["--data-dir", self.data + "-refused"],
-            cwd=self.here, env=dict(self.env, NORNICDB_GRPC_ENABLED="1"),
+            + ["--workers", "2", "--data-dir", self.data + "-refused"],
+            cwd=self.here, env=self.env,
             text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
         return self
+
+    def start_decay(self) -> None:
+        """``decay recalculate`` then ``decay stats`` over the served data
+        directory, one process each, on a thread of their own."""
+
+        def run() -> None:
+            for action in ("recalculate", "stats"):
+                t0 = time.perf_counter()
+                self.decay_proc = subprocess.Popen(
+                    [sys.executable, "-m", "nornicdb_tpu_torch",
+                     "--data-dir", self.data, "decay", action],
+                    cwd=self.here, env=self.env, text=True,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                out, err = self.decay_proc.communicate(timeout=600)
+                self.decay_out.append((action, self.decay_proc.returncode,
+                                       out, err[-3000:],
+                                       time.perf_counter() - t0))
+
+        self.t_decay = time.perf_counter()
+        self.decay_thread = threading.Thread(target=run, daemon=True)
+        self.decay_thread.start()
+
+    def collect_decay(self, nodes: int) -> str:
+        """Wait for the two commands: both exit 0, ``recalculate`` scores
+        the ``nodes`` nodes of the served database and archives none (all
+        were accessed minutes ago), ``stats`` prints the manager's
+        counters as JSON (a new process's manager: all 0). Returns a log
+        line."""
+        t0 = time.perf_counter()
+        self.decay_thread.join(timeout=600)
+        waited = time.perf_counter() - t0
+        assert len(self.decay_out) == 2, self.decay_out
+        (a1, rc1, out1, err1, s1), (a2, rc2, out2, err2, s2) = self.decay_out
+        assert rc1 == 0 and rc2 == 0, (rc1, err1, rc2, err2)
+        assert out1.strip().splitlines()[-1] == (
+            f"scored {nodes} nodes, archived 0"), out1
+        stats = json.loads(out2.strip().splitlines()[-1])
+        assert stats == {"recalculations": 0, "nodes_scored": 0,
+                         "archived": 0, "reinforced": 0}, stats
+        return (f"python -m nornicdb_tpu_torch decay recalculate "
+                f"({s1:.1f}s): {out1.strip().splitlines()[-1]!r}; decay "
+                f"stats ({s2:.1f}s): {json.dumps(stats)}; both in the "
+                f"background beside phase 10's close, waited "
+                f"{waited:.1f}s for them after it")
 
     def close(self) -> None:
         import shutil
 
-        for p in (self.proc, self.refused):
+        for p in (self.proc, self.refused, self.decay_proc):
             if p is not None and p.poll() is None:
                 p.kill()
                 p.wait()
         shutil.rmtree(self.work, ignore_errors=True)
+
+
+def qdrant_search_request(coll: str, vec, limit: int, group=None) -> bytes:
+    """A Qdrant gRPC SearchPoints (collection_name=1, vector=2, filter=3 on
+    a group's integer match, limit=4), hand-encoded as the port's
+    qdrant_grpc encodes it."""
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+
+    req = Q._s(1, coll) + Q._packed_f32(2, [float(x) for x in vec])
+    if group is not None:
+        cond = Q._ld(1, Q._s(1, "group") + Q._ld(2, Q._vi(2, int(group))))
+        req += Q._ld(3, Q._ld(2, cond))
+    return req + Q._vi(4, limit)
+
+
+def qdrant_hits(raw: bytes) -> list:
+    """A SearchResponse's ScoredPoints as REST's shape (id, score, payload;
+    the score the wire's float32)."""
+    import struct
+
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+
+    out = []
+    for _, hit in Q._parse(raw).get(1, []):
+        f = Q._parse(hit)
+        out.append({"id": Q.dec_point_id(f[1][0][1]),
+                    "score": struct.unpack("<f", f[3][0][1])[0],
+                    "payload": Q.dec_payload_map(f.get(2, []))})
+    return out
+
+
+def qdrant_points(raw: bytes, field: int) -> list:
+    """The RetrievedPoints at ``field`` of a Get (1) or Scroll (2)
+    response: id, payload, vector."""
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+
+    out = []
+    for _, p in Q._parse(raw).get(field, []):
+        f = Q._parse(p)
+        out.append({"id": Q.dec_point_id(f[1][0][1]),
+                    "payload": Q.dec_payload_map(f.get(2, [])),
+                    "vector": Q.dec_vectors(f[4][0][1]) if 4 in f else None})
+    return out
+
+
+def qdrant_upsert_request(coll: str, ids, vecs, payloads) -> bytes:
+    """An UpsertPoints of ``ids`` (PointStruct id=1, payload=3,
+    vectors=4)."""
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+
+    # Vectors{vector=1 Vector{data=1}}: the packed floats are their
+    # little-endian float32 bytes, as Q._packed_f32 writes them
+    return Q._s(1, coll) + b"".join(
+        Q._ld(3, Q._ld(1, Q.enc_point_id(int(i)))
+              + Q.enc_payload_map(3, p)
+              + Q._ld(4, Q._ld(1, Q._ld(1, np.asarray(v, "<f4").tobytes()))))
+        for i, v, p in zip(ids, vecs, payloads))
+
+
+def serve_grpc_searches(port: int, queries: list, http_answers: list):
+    """17(b)'s native gRPC searches: ``queries`` ((kind, input), kind
+    "vector" or "text") over SERVE_CLIENTS clients at once, each on a
+    ``grpcwire.Channel`` of its own. Each answer's ids, content and scores
+    equal the HTTP ``/nornicdb/search`` answer for the same input in
+    ``http_answers`` (the scores at the wire's float32, the type of
+    SearchHit.score). Returns (wall seconds, latencies)."""
+    from nornicdb_tpu_torch.server import grpcwire
+    from nornicdb_tpu_torch.server.grpc_search import search_over_grpc
+
+    got, lat, mu = {}, [], threading.Lock()
+
+    def client(c: int) -> None:
+        with grpcwire.Channel("127.0.0.1", port) as ch:
+            for j in range(c, len(queries), SERVE_CLIENTS):
+                kind, x = queries[j]
+                t = time.perf_counter()
+                out = search_over_grpc(
+                    "127.0.0.1", port, limit=5, channel=ch,
+                    **({"vector": x} if kind == "vector" else {"query": x}))
+                with mu:
+                    lat.append(time.perf_counter() - t)
+                    got[j] = out
+
+    t0 = time.perf_counter()
+    in_threads(client, list(range(SERVE_CLIENTS)), SERVE_CLIENTS)
+    wall = time.perf_counter() - t0
+    for j, want in enumerate(http_answers):
+        hits = got[j]["hits"]
+        assert [h["id"] for h in hits] == [r["id"] for r in want], (
+            "gRPC ids", queries[j][0], j)
+        assert [h["content"] for h in hits] == [r["content"] for r in want]
+        assert [h["score"] for h in hits] == [
+            float(np.float32(r["score"])) for r in want], ("gRPC scores", j)
+    return wall, lat
+
+
+def serve_qdrant_grpc(http_port: int, port: int, token: str, pw: str,
+                      sheds: dict) -> str:
+    """17(b)'s Qdrant gRPC service with ``--auth``: no credentials ->
+    UNAUTHENTICATED; a viewer's Upsert -> PERMISSION_DENIED (its Count
+    answers); an admin's bearer token creates a collection and upserts,
+    its basic auth upserts too; the points are seen over REST
+    ``/collections/*`` (count, a search answering its own point first),
+    and a REST write is seen over gRPC (Count, Get with vectors as
+    written). Returns a log line."""
+    import base64
+
+    from nornicdb_tpu_torch.server import grpcwire
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+
+    rng = np.random.default_rng(SERVE_DOCS)
+    n = SERVE_QDRANT_POINTS
+    vecs = rng.standard_normal((n, SERVE_DIMS)).astype(np.float32)
+
+    def basic(user: str, secret: str) -> list:
+        return [("authorization", "Basic " + base64.b64encode(
+            f"{user}:{secret}".encode()).decode())]
+
+    bearer = [("authorization", f"Bearer {token}")]
+    t0 = time.perf_counter()
+    with grpcwire.Channel("127.0.0.1", port) as ch:
+        def call(method, req, md=None):
+            return ch.unary_unary(method)(req, timeout=60, metadata=md)
+
+        def refused(method, req, md, code) -> None:
+            try:
+                call(method, req, md)
+            except grpcwire.RpcError as e:
+                assert e.code() == code, (method, e.code(), e.details())
+                return
+            raise AssertionError((method, "answered", code))
+
+        refused("/qdrant.Collections/List", b"", None,
+                grpcwire.StatusCode.UNAUTHENTICATED)
+        cfg = Q._ld(1, Q._vi(1, SERVE_DIMS) + Q._vi(2, 1))
+        made = Q._parse(call("/qdrant.Collections/Create",
+                             Q._s(1, "q17") + Q._ld(10, cfg), bearer))
+        assert made[1][0][1] == 1, made
+        half = n // 2
+        payloads = [{"i": i} for i in range(n)]
+        call("/qdrant.Points/Upsert", qdrant_upsert_request(
+            "q17", range(half), vecs[:half], payloads[:half]), bearer)
+        refused("/qdrant.Points/Upsert", qdrant_upsert_request(
+            "q17", [half], vecs[half:half + 1], payloads[half:half + 1]),
+            basic("viewer", "viewer-pw"),
+            grpcwire.StatusCode.PERMISSION_DENIED)
+        seen = Q._parse(call("/qdrant.Points/Count", Q._s(1, "q17"),
+                             basic("viewer", "viewer-pw")))
+        assert Q._parse(seen[1][0][1])[1][0][1] == half, seen
+        three = 3 * n // 4
+        call("/qdrant.Points/Upsert", qdrant_upsert_request(
+            "q17", range(half, three), vecs[half:three],
+            payloads[half:three]), basic("admin", pw))
+        cl = _HttpClient(http_port, sheds, {"Authorization":
+                                            f"Bearer {token}"})
+        try:
+            code, info, _ = cl.call("GET", "/collections/q17")
+            assert code == 200 and info["result"]["points_count"] == three
+            for i in (0, three - 1):
+                code, out, _ = cl.call(
+                    "POST", "/collections/q17/points/search",
+                    {"vector": vecs[i].tolist(), "limit": 3})
+                assert code == 200 and out["result"][0]["id"] == i, out
+                assert out["result"][0]["payload"] == {"i": i}
+            code, out, _ = cl.call("PUT", "/collections/q17/points", {
+                "points": [{"id": i, "vector": vecs[i].tolist(),
+                            "payload": {"i": i}} for i in range(three, n)]})
+            assert code == 200 and out["result"]["upserted"] == n - three
+        finally:
+            cl.close()
+        count = Q._parse(call("/qdrant.Points/Count", Q._s(1, "q17"),
+                              bearer))
+        assert Q._parse(count[1][0][1])[1][0][1] == n, count
+        got = qdrant_points(call("/qdrant.Points/Get", Q._s(1, "q17") + b"".join(
+            Q._ld(2, Q.enc_point_id(i)) for i in range(three, n)), bearer), 1)
+        assert [p["id"] for p in got] == list(range(three, n)), got
+        for p in got:
+            assert p["payload"] == {"i": p["id"]}
+            assert np.array_equal(np.asarray(p["vector"], np.float32),
+                                  vecs[p["id"]]), p["id"]
+        hits = qdrant_hits(call("/qdrant.Points/Search", qdrant_search_request(
+            "q17", vecs[n - 1], 3), bearer))
+        assert hits[0]["id"] == n - 1, hits
+    return (f"Qdrant gRPC with --auth: no credentials UNAUTHENTICATED, a "
+            f"viewer's Upsert PERMISSION_DENIED (its Count {half}), "
+            f"{half} points upserted with an admin's bearer token and "
+            f"{three - half} with basic auth, seen over REST (count "
+            f"{three}, searches answering their own point first), "
+            f"{n - three} written over REST seen over gRPC (Count {n}, Get "
+            f"with vectors as written, a search); "
+            f"{time.perf_counter() - t0:.2f}s")
 
 
 def phase_serve_cli(K, children: ServeChildren) -> None:
@@ -6961,9 +7287,12 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     documents, ``GET /collections`` lists none, and a viewer's GraphQL
     mutation is refused (401, "permission write denied", the JAX server's
     answer); a Bolt HELLO with a wrong password gets Unauthorized, the
-    right one SUCCESS and a count; SIGTERM ends it with 0 within
-    SERVE_EXIT_S and a reopen finds every document. The start with
-    ``NORNICDB_GRPC_ENABLED=1`` exited non-zero naming ROADMAP A6b-2, and
+    right one SUCCESS and a count; the native gRPC search (SERVE_CLIENTS
+    clients, a ``grpcwire.Channel`` each: the HTTP searches' vectors and
+    texts, each answer equal to HTTP's, #2 launched by them) and the
+    Qdrant gRPC service with ``--auth`` (``serve_qdrant_grpc``); SIGTERM
+    ends it with 0 within SERVE_EXIT_S and a reopen finds every document.
+    The start with ``--workers 2`` exited non-zero naming ROADMAP A6d, and
     created no data directory."""
     import select
     import signal
@@ -6986,6 +7315,8 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     t_b = time.perf_counter()
     http_port = int(line.split("http://127.0.0.1:")[1].split()[0])
     bolt_port = int(line.split("bolt://127.0.0.1:")[1].split()[0])
+    grpc_port = int(line.split(" grpc://127.0.0.1:")[1].split()[0])
+    qgrpc_port = int(line.split(" qdrant-grpc://127.0.0.1:")[1].split()[0])
     assert "on cuda" in line, line
     anon = _HttpClient(http_port, sheds)
     code, _, _ = anon.call("GET", "/health")
@@ -7027,18 +7358,31 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     assert st0["devices"][0] == torch.cuda.get_device_name(0), st0
     hasher = HashEmbedder(SERVE_DIMS)
     firsts = 0
+    vectors, texts = [], []
     for i in range(0, SERVE_DOCS, SERVE_DOCS // 8):
+        vec = hasher.embed(docs[i]).tolist()
         code, body, _ = cl.call("POST", "/nornicdb/search", {
-            "vector": hasher.embed(docs[i]).tolist(), "limit": 5})
+            "vector": vec, "limit": 5})
         assert code == 200, body
         firsts += body["results"][0]["content"] == docs[i]
+        vectors.append((("vector", vec), body["results"]))
         code, body, _ = cl.call("POST", "/nornicdb/search",
                                 {"query": docs[i], "limit": 5})
         assert code == 200, body
         firsts += body["results"][0]["content"] == docs[i]
+        texts.append((("text", docs[i]), body["results"]))
     code, st1, _ = cl.call("GET", "/admin/tpu/status")
     d2 = (st1["kernel_launches"]["streaming_topk_bf16"]
           - st0["kernel_launches"]["streaming_topk_bf16"])
+    # the native gRPC search: the same vectors and texts, answers equal
+    # to HTTP's, #2 launched by them
+    asked = vectors + texts
+    t_grpc, lat_grpc = serve_grpc_searches(
+        grpc_port, [q for q, _ in asked], [a for _, a in asked])
+    code, st2, _ = cl.call("GET", "/admin/tpu/status")
+    d2_grpc = (st2["kernel_launches"]["streaming_topk_bf16"]
+               - st1["kernel_launches"]["streaming_topk_bf16"])
+    assert d2_grpc > 0, "the gRPC searches missed #2"
     # GraphQL and Qdrant REST in the child: the documents counted, no
     # collection, and a viewer's mutation refused
     code, gq, _ = cl.call("POST", "/graphql",
@@ -7070,6 +7414,8 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     viewer.close()
     assert vcode == 401 and refused == {
         "error": "permission write denied"}, (vcode, refused)
+    # after the counts above: its points are nodes of the served DB
+    qlog = serve_qdrant_grpc(http_port, qgrpc_port, tok["token"], pw, sheds)
     assert firsts == 16, ("searches answered their document first", firsts)
     assert d2 > 0, "the served searches missed #2"
     bc = _BoltClient(bolt_port, sheds)
@@ -7099,7 +7445,7 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
     assert n_docs == [[SERVE_DOCS]], n_docs
     r_out, r_err = c.refused.communicate(timeout=300)
     assert c.refused.returncode != 0, r_out
-    assert "ROADMAP A6b" in r_err, r_err[-2000:]
+    assert "ROADMAP A6d" in r_err, r_err[-2000:]
     assert not os.path.exists(c.data + "-refused")
     log(f"[phase17] (b) serve --auth --embedder hash on the card: "
         f"serving {t_up:.2f}s after its start (after 17(a)); "
@@ -7107,12 +7453,17 @@ def phase_serve_cli(K, children: ServeChildren) -> None:
         f"embedded in {t_embed:.2f}s; 16 searches answered their document "
         f"first, #2 launched {d2} times in the child (its "
         f"/admin/tpu/status: {st1['devices']}, "
-        f"{json.dumps(st1['kernel_launches'])}); /graphql stats "
+        f"{json.dumps(st1['kernel_launches'])}); native gRPC from "
+        f"{SERVE_CLIENTS} clients: {len(asked)} searches ({len(vectors)} "
+        f"raw-vector, {len(texts)} text) in {t_grpc:.2f}s, "
+        f"{_pcts(lat_grpc)}, each equal to the HTTP answer (ids, content, "
+        f"scores at float32), #2 launched {d2_grpc} times by them; "
+        f"{qlog}; /graphql stats "
         f"{gq['data']['stats']}, /collections {colls['result']}, a viewer's "
         f"mutation {vcode} {refused['error']!r}; Bolt wrong password "
         f"Unauthorized, right one SUCCESS; SIGTERM -> exit {rc} in "
         f"{t_exit:.2f}s, a reopen finds {n_docs[0][0]} documents; "
-        f"NORNICDB_GRPC_ENABLED=1 -> exit {c.refused.returncode} "
+        f"--workers 2 -> exit {c.refused.returncode} "
         f"({r_err.strip().splitlines()[-1]}); checks "
         f"{time.perf_counter() - t_b:.2f}s; both children exited by "
         f"time.time() {time.time():.1f}")
@@ -7327,13 +7678,19 @@ def phase_graphql(K, db, served: dict, seed: int) -> None:
         http.stop()
 
 
-def qdrant_loader(port: int, path: str, first: int, step: int) -> None:
+def qdrant_loader(port: int, path: str, first: int, step: int,
+                  transport: str = "rest") -> None:
     """Phase 18(b)'s loader process: upserts the points of batches
-    ``first``, ``first + step``, ... of ``path.npy`` (the embeddings) with
-    their payloads (``path.json``: the words) through ``PUT
-    /collections/docs/points`` on one keep-alive connection, the vectors
-    written as ``%.9g`` (which float32 round-trips exactly). Prints one JSON
-    line: the request times and the encode times."""
+    ``first``, ``first + step``, ... of QDRANT_BATCH points of ``path.npy``
+    (the embeddings) with their payloads (``path.json``: the words). Over
+    REST through ``PUT /collections/docs/points`` on one keep-alive
+    connection, the vectors written as ``%.9g`` (which float32 round-trips
+    exactly); over gRPC (``transport="grpc"``) as Qdrant ``Upserts`` of
+    QDRANT_GRPC_BATCH points on one ``grpcwire.Channel``, the vectors as
+    their float32 bytes. Prints one JSON line: the request and encode
+    times, the points and the wall clock at its first and last request."""
+    if transport == "grpc":
+        return qdrant_grpc_loader(port, path, first, step)
     import http.client
     import io
 
@@ -7341,7 +7698,8 @@ def qdrant_loader(port: int, path: str, first: int, step: int) -> None:
     with open(path + ".json") as f:
         words = json.load(f)
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
-    sent, encode = [], []
+    sent, encode, loaded = [], [], 0
+    t_first = time.time()
     for lo in range(first * QDRANT_BATCH, len(words), step * QDRANT_BATCH):
         t0 = time.perf_counter()
         hi = min(lo + QDRANT_BATCH, len(words))
@@ -7362,8 +7720,46 @@ def qdrant_loader(port: int, path: str, first: int, step: int) -> None:
         assert json.loads(raw)["result"]["upserted"] == hi - lo, raw[:500]
         sent.append(time.perf_counter() - t1)
         encode.append(t1 - t0)
+        loaded += hi - lo
     conn.close()
-    print(json.dumps({"sent": sent, "encode": encode}), flush=True)
+    print(json.dumps({"sent": sent, "encode": encode, "transport": "rest",
+                      "points": loaded, "t_first": t_first,
+                      "t_last": time.time()}), flush=True)
+
+
+def qdrant_grpc_loader(port: int, path: str, first: int, step: int) -> None:
+    """``qdrant_loader`` over the Qdrant gRPC service: each batch of
+    QDRANT_BATCH points in Upserts of QDRANT_GRPC_BATCH."""
+    from nornicdb_tpu_torch.server import grpcwire
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+
+    embs = np.load(path + ".npy", mmap_mode="r")
+    with open(path + ".json") as f:
+        words = json.load(f)
+    sent, encode, points = [], [], 0
+    t_first = time.time()
+    with grpcwire.Channel("127.0.0.1", port) as ch:
+        upsert = ch.unary_unary("/qdrant.Points/Upsert")
+        for lo0 in range(first * QDRANT_BATCH, len(words),
+                         step * QDRANT_BATCH):
+            for lo in range(lo0, min(lo0 + QDRANT_BATCH, len(words)),
+                            QDRANT_GRPC_BATCH):
+                t0 = time.perf_counter()
+                hi = min(lo + QDRANT_GRPC_BATCH, lo0 + QDRANT_BATCH,
+                         len(words))
+                req = qdrant_upsert_request(
+                    "docs", range(lo, hi), embs[lo:hi],
+                    [{"doc": i, "group": i % QDRANT_GROUPS, "word": words[i]}
+                     for i in range(lo, hi)])
+                t1 = time.perf_counter()
+                out = Q._parse(upsert(req, timeout=600))
+                assert Q._parse(out[1][0][1])[2][0][1] == 2, out  # Completed
+                sent.append(time.perf_counter() - t1)
+                encode.append(t1 - t0)
+                points += hi - lo
+    print(json.dumps({"sent": sent, "encode": encode, "transport": "grpc",
+                      "points": points, "t_first": t_first,
+                      "t_last": time.time()}), flush=True)
 
 
 def _same_hits(got: list, want: list, tol: float, what) -> None:
@@ -7438,7 +7834,7 @@ class QdrantChild:
         log(f"[phase18] (b) the child exited 0 {seconds:.1f}s after its "
             f"start; #2 launched {result['launches']['streaming_topk_bf16']}"
             f" times in it ({result['launches_search']} in its unfiltered "
-            f"searches)")
+            f"searches); load points/s {json.dumps(result['load_rates'])}")
         return result
 
     def state(self) -> str:
@@ -7459,11 +7855,12 @@ class QdrantChild:
 def qdrant_child(base: str, seed: int) -> None:
     """Phase 18(b) in a process of its own on the card: the device owner,
     then ``phase_qdrant`` over the points under ``base``; its last line is
-    the result (#2's launches in the phase and in the unfiltered
-    searches). Then it stops the owner and leaves with ``os._exit``: the
-    owner's daemon threads may be inside a CUDA call while the
-    interpreter tears down, which once aborted such a child after its
-    result ("terminate called without an active exception")."""
+    the result (#2's launches in the phase and in its unfiltered
+    searches, each transport's load rate). Then it stops the owner and
+    leaves with ``os._exit``: the owner's daemon threads may be inside a
+    CUDA call while the interpreter tears down, which once aborted such a
+    child after its result ("terminate called without an active
+    exception")."""
     from nornicdb_tpu_torch.ops import kernels as K
 
     start_device_owner()
@@ -7471,16 +7868,142 @@ def qdrant_child(base: str, seed: int) -> None:
     with open(base + ".json") as f:
         words = json.load(f)
     c0 = K.launch_counts()
-    searched = phase_qdrant(K, base, vecs, words, seed)
+    searched, rates = phase_qdrant(K, base, vecs, words, seed)
     print(json.dumps({"launches": _launch_delta(K, c0),
-                      "launches_search": searched}), flush=True)
+                      "launches_search": searched, "load_rates": rates}),
+          flush=True)
     OWNER["manager"].stop()
     sys.stderr.flush()
     os._exit(0)
 
 
+def decay_reference(types, counts, accessed, importance,
+                    now: float) -> np.ndarray:
+    """This script's own float64 copy of the decay score of
+    ``nornicdb_tpu/decay/decay.py`` (``HALF_LIVES`` and
+    ``calculate_score``: recency halves every 7 / 69 / 693 days by memory
+    type, frequency is log1p(accesses) / log(11) capped at 1, importance
+    clamped to [0, 1]; 0.4, 0.3 and 0.3 of them, clamped to [0, 1])."""
+    day = 86400.0
+    hl = np.array([{"episodic": 7.0, "semantic": 69.0,
+                    "procedural": 693.0}[t] for t in types]) * day
+    age = np.maximum(now - np.asarray(accessed, np.float64), 0.0)
+    recency = np.exp(-np.log(2.0) * age / hl)
+    freq = np.minimum(np.log1p(np.asarray(counts, np.float64))
+                      / np.log(11.0), 1.0)
+    imp = np.clip(np.asarray(importance, np.float64), 0.0, 1.0)
+    return np.clip(0.4 * recency + 0.3 * freq + 0.3 * imp, 0.0, 1.0)
+
+
+def decay_vectors(seed: int, n: int = DECAY_NODES, d: int = DIMS
+                  ) -> np.ndarray:
+    """Phase 19's memories: ``n`` seeded unit vectors of width ``d``."""
+    v = np.random.default_rng(seed + 191).standard_normal((n, d),
+                                                         dtype=np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def phase_decay(K, vecs: np.ndarray, seed: int, device: str = "cuda") -> dict:
+    """Phase 19: memory decay at full size on the card. An in-memory
+    ``DB(Config(decay_enabled=True))`` opens with its ticker running; its
+    storage takes ``len(vecs)`` memories (``decay_vectors``: as many as
+    #2's threshold, so a search over them runs #2) with seeded memory types, access counts,
+    last accesses up to 30 days old and importances; DECAY_QUERIES
+    searches through ``db.search.vector_candidates``; the manager's clock
+    moved DECAY_AHEAD_DAYS ahead, ``recalculate_all()``: every score
+    within DECAY_TOL of ``decay_reference`` and the archived count the
+    one that copy predicts (no reference score within DECAY_TOL of the
+    threshold); the same searches give the same ids and scores after
+    decay's ``update_node`` storm; ``CALL nornicdb.decay.info()`` gives
+    the enabled row; ``close()`` stops the ticker. Returns its numbers."""
+    import nornicdb_tpu_torch
+    from nornicdb_tpu_torch.db import Config
+    from nornicdb_tpu_torch.storage import Node
+
+    rng = np.random.default_rng(seed + 190)
+    n = len(vecs)
+    types = rng.choice(["episodic", "semantic", "procedural"], n)
+    counts = np.where(rng.random(n) < 0.3, 0, rng.geometric(0.2, n))
+    importance = np.round(rng.random(n), 6)
+    t0 = time.perf_counter()
+    db = nornicdb_tpu_torch.open_db("", Config(decay_enabled=True),
+                                    device=device)
+    try:
+        mgr = db.decay
+        assert mgr._timer is not None and mgr._timer.is_alive(), (
+            "the decay ticker is not running")
+        now0 = time.time()
+        accessed = now0 - rng.uniform(0.0, 30.0, n) * 86400.0
+        for i in range(n):
+            node = Node(id=f"mem{i}", labels=["Memory"],
+                        memory_type=str(types[i]), embedding=vecs[i],
+                        properties={"content": f"memory {i}",
+                                    "importance": float(importance[i])})
+            node.access_count = int(counts[i])
+            node.last_accessed = float(accessed[i])
+            db.storage.create_node(node)
+        svc = db.search  # built and backfilled on first use
+        svc.vector_candidates(vecs[0], k=1)  # the first upload
+        t_fill = time.perf_counter() - t0
+        rows = rng.choice(n, DECAY_QUERIES, replace=False)
+        qs = (vecs[rows] + 0.01 * rng.standard_normal(
+            (DECAY_QUERIES, vecs.shape[1]))).astype(np.float32)
+        c0 = K.launch_counts()
+        before = [svc.vector_candidates(q, k=SERVE_K) for q in qs]
+        launches = _launch_delta(K, c0)
+        assert launches["streaming_topk_bf16"] > 0, "decay's searches missed #2"
+        assert all(before[j][0][0] == f"mem{rows[j]}"
+                   for j in range(DECAY_QUERIES)), "a query missed its own node"
+        now = now0 + DECAY_AHEAD_DAYS * 86400.0
+        mgr.now = lambda: now
+        t1 = time.perf_counter()
+        scored, archived = mgr.recalculate_all()
+        t_decay = time.perf_counter() - t1
+        ref = decay_reference(types, counts, accessed, importance, now)
+        thr = mgr.config.archive_threshold
+        assert float(np.abs(ref - thr).min()) > DECAY_TOL, "a tie at the bound"
+        got = np.array([db.storage.get_node(f"mem{i}").decay_score
+                        for i in range(n)])
+        err = float(np.abs(got - ref).max())
+        predicted = int((ref < thr).sum())
+        worst = [(f"mem{i}", float(got[i]), float(ref[i]),
+                  vars(db.storage.get_node(f"mem{i}")) | {"embedding": None},
+                  str(types[i]), int(counts[i]), float(accessed[i]),
+                  float(importance[i]))
+                 for i in np.argsort(-np.abs(got - ref))[:3]]
+        assert scored == n and err <= DECAY_TOL, (scored, err, now, worst)
+        assert archived == predicted == len(mgr.archived_nodes()), (
+            archived, predicted)
+        c0 = K.launch_counts()
+        after = [svc.vector_candidates(q, k=SERVE_K) for q in qs]
+        launches_after = _launch_delta(K, c0)
+        assert after == before, "decay's updates disturbed the corpus"
+        assert launches_after["streaming_topk_bf16"] > 0
+        info = db.cypher("CALL nornicdb.decay.info()").rows
+        assert info and info[0][0] is True, info
+    finally:
+        db.close()
+    mgr._timer.join(timeout=5)
+    assert mgr._stopped and not mgr._timer.is_alive(), "the ticker runs on"
+    log(f"[phase19] decay: DB(Config(decay_enabled=True)) of {n} memories x "
+        f"{vecs.shape[1]} on {db.device} (ticker running, interval "
+        f"{mgr.config.interval:.0f}s), filled and indexed in {t_fill:.1f}s; "
+        f"the clock {DECAY_AHEAD_DAYS:.0f} days ahead: recalculate_all() "
+        f"{t_decay:.2f}s, {scored} scored, every score within {err:.3g} of "
+        f"the float64 reference (bound {DECAY_TOL:g}), {archived} archived "
+        f"below {thr} ({predicted} predicted); {DECAY_QUERIES} searches "
+        f"before and after equal in ids and scores, #2 launched "
+        f"{launches['streaming_topk_bf16']} and "
+        f"{launches_after['streaming_topk_bf16']} times; "
+        f"nornicdb.decay.info() {info[0]}; close() stopped the ticker")
+    return {"nodes": n, "scored": scored, "archived": archived,
+            "max_err": err, "recalculate_s": t_decay, "fill_s": t_fill,
+            "launches": launches["streaming_topk_bf16"]
+            + launches_after["streaming_topk_bf16"]}
+
+
 def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
-                 device: str = "cuda") -> int:
+                 device: str = "cuda") -> tuple:
     """Phase 18(b): the Qdrant REST API over a fresh in-memory port DB on
     the card (``open_db("")``, its own ``HttpServer``). A named-vector
     collection of QDRANT_NAMED points (``dense``, 1,024 wide, and
@@ -7488,16 +8011,23 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
     to what was upserted. A collection of the QDRANT_POINTS 1,024-wide
     Cosine points under ``base`` (payload doc, group, the text's last
     word) loaded in batches of QDRANT_BATCH by QDRANT_LOADERS client
-    processes; QDRANT_SEARCHES unfiltered searches from SERVE_CLIENTS
-    clients through #2 (ids equal to the registry's own answer, scores
-    within #2's decode step of it and within one bf16 step of the exact
-    float32 cosine, recall@SERVE_K against that exact scan >= 0.95); QDRANT_FILTERED group-filtered searches (the exact filtered
-    answer, ties within a bf16 step aside); count, scroll through one
-    group, retrieve, delete, the collection GETs; GraphQL's five
-    mutations held to the storage. Returns #2's launches in the
-    unfiltered searches."""
+    processes, QDRANT_GRPC_LOADERS of them through the Qdrant gRPC service
+    (a ``QdrantGrpcServer`` over the same registry), the others through
+    REST; QDRANT_SEARCHES unfiltered searches from SERVE_CLIENTS
+    clients through #2, the odd-numbered over gRPC (ids equal to the
+    registry's own answer, scores within #2's decode step of it and within
+    one bf16 step of the exact float32 cosine, recall@SERVE_K against that
+    exact scan >= 0.95; a gRPC answer equal to REST's for the same request
+    in ids, order and float32 scores); QDRANT_FILTERED group-filtered
+    searches, the odd-numbered over gRPC (the exact filtered answer, ties
+    within a bf16 step aside, and REST's); count, scroll through one
+    group (a gRPC Count and Scroll page equal to REST's), retrieve,
+    delete, the collection GETs; GraphQL's five mutations held to the
+    storage. Returns #2's launches in the unfiltered searches."""
     import nornicdb_tpu_torch
-    from nornicdb_tpu_torch.server import HttpServer
+    from nornicdb_tpu_torch.server import HttpServer, grpcwire
+    from nornicdb_tpu_torch.server import qdrant_grpc as Q
+    from nornicdb_tpu_torch.server.qdrant_grpc import QdrantGrpcServer
 
     rng = np.random.default_rng(seed + 180)
     n = len(vecs)
@@ -7510,8 +8040,12 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
     sheds = {"n": 0, "longest": 0, "mu": threading.Lock()}
     cl = _HttpClient(http.port, sheds)
     procs: list = []
+    qsrv = None
     try:
         registry = db.qdrant_registry()
+        # the Qdrant gRPC services over the registry the REST routes use
+        qsrv = QdrantGrpcServer(registry, host="127.0.0.1", port=0)
+        qsrv.start()
         # -- a named-vector collection, before the large one, so that its
         # snapshot's scan of the points is a scan of its own
         t0 = time.perf_counter()
@@ -7559,8 +8093,10 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
         t0 = time.perf_counter()
         for c in range(QDRANT_LOADERS):
-            call = (f"import chip_smoke as C; C.qdrant_loader({http.port}, "
-                    f"{base!r}, {c}, {QDRANT_LOADERS})")
+            grpc = c >= QDRANT_LOADERS - QDRANT_GRPC_LOADERS
+            call = (f"import chip_smoke as C; C.qdrant_loader("
+                    f"{qsrv.port if grpc else http.port}, {base!r}, {c}, "
+                    f"{QDRANT_LOADERS}, {'grpc' if grpc else 'rest'!r})")
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", call], cwd=here, env=env, text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE))
@@ -7570,18 +8106,36 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
             assert p.returncode == 0, (p.returncode, e[-3000:])
             reports.append(json.loads(o.strip().splitlines()[-1]))
         t_load = time.perf_counter() - t0
-        sent = np.concatenate([r["sent"] for r in reports])
-        enc = np.concatenate([r["encode"] for r in reports])
         corpus = registry._corpora["docs"]
         assert corpus.device == db.device, (corpus.device, db.device)
         assert len(corpus) == n, len(corpus)
-        log(f"[phase18] (b) load: {n} points x {vecs.shape[1]} in "
-            f"{len(sent)} batches of {QDRANT_BATCH} from {QDRANT_LOADERS} "
-            f"processes in {t_load:.2f}s ({n / t_load:.1f} points/s); a "
-            f"batch's request p50 {np.median(sent) * 1e3:.1f}ms p99 "
-            f"{np.percentile(sent, 99) * 1e3:.1f}ms, its encode in the "
-            f"client p50 {np.median(enc) * 1e3:.1f}ms; corpus on "
-            f"{corpus.device}, capacity {corpus.capacity}")
+        by: dict = {}
+        for r in reports:  # each transport's points over its own span
+            b = by.setdefault(r["transport"], {
+                "points": 0, "sent": [], "encode": [], "t0": r["t_first"],
+                "t1": r["t_last"]})
+            b["points"] += r["points"]
+            b["sent"] += r["sent"]
+            b["encode"] += r["encode"]
+            b["t0"], b["t1"] = (min(b["t0"], r["t_first"]),
+                                max(b["t1"], r["t_last"]))
+        assert by["rest"]["points"] == by["grpc"]["points"] == n // 2, {
+            k: v["points"] for k, v in by.items()}
+        rates = {k: v["points"] / (v["t1"] - v["t0"]) for k, v in by.items()}
+        log(f"[phase18] (b) load: {n} points x {vecs.shape[1]} from "
+            f"{QDRANT_LOADERS} processes in {t_load:.2f}s "
+            f"({n / t_load:.1f} points/s); "
+            + "; ".join(
+                f"{k} {v['points']} points in {len(v['sent'])} requests of "
+                f"{QDRANT_BATCH if k == 'rest' else QDRANT_GRPC_BATCH} at "
+                f"{rates[k]:.1f} points/s, a request's p50 "
+                f"{np.median(v['sent']) * 1e3:.1f}ms p99 "
+                f"{np.percentile(v['sent'], 99) * 1e3:.1f}ms, its encode in "
+                f"the client p50 {np.median(v['encode']) * 1e3:.1f}ms"
+                for k, v in sorted(by.items()))
+            + " (REST alone: 1,073.4 points/s, copied from PERF.md, not "
+            f"measured here); corpus on {corpus.device}, capacity "
+            f"{corpus.capacity}")
         code, out, _ = cl.call("POST", "/collections/docs/points/count", {})
         assert code == 200 and out["result"]["count"] == n, out
         # -- unfiltered searches through #2, from SERVE_CLIENTS clients
@@ -7592,24 +8146,41 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
         fq = (vecs[f_rows] + 0.01 * rng.standard_normal(
             (len(f_rows), vecs.shape[1]))).astype(np.float32)
         got: dict = {}
-        lat: dict = {"search": [], "filtered": []}
+        lat: dict = {f"{k} {t}": [] for k in ("search", "filtered")
+                     for t in ("rest", "grpc")}
+
+        def rest_body(kind: str, i: int) -> dict:
+            body = {"vector": (qs if kind == "search" else fq)[i].tolist(),
+                    "limit": SERVE_K}
+            if kind == "filtered":
+                body["filter"] = {"must": [{"key": "group", "match": {
+                    "value": int(i % QDRANT_GROUPS)}}]}
+            return body
 
         def client(c: int, items: list) -> None:
+            # the odd-numbered searches over gRPC, the others over REST
             hc = _HttpClient(http.port, sheds)
+            ch = grpcwire.Channel("127.0.0.1", qsrv.port)
             try:
                 for kind, i in items:
-                    body = {"vector": (qs if kind == "search" else fq)[i]
-                            .tolist(), "limit": SERVE_K}
-                    if kind == "filtered":
-                        body["filter"] = {"must": [{"key": "group", "match": {
-                            "value": int(i % QDRANT_GROUPS)}}]}
-                    code, out, dt = hc.call(
-                        "POST", "/collections/docs/points/search", body)
-                    assert code == 200, (kind, i, code, out)
-                    got[(kind, i)] = out["result"]
+                    t = time.perf_counter()
+                    if i % 2:
+                        got[(kind, i)] = qdrant_hits(ch.unary_unary(
+                            "/qdrant.Points/Search")(qdrant_search_request(
+                                "docs", (qs if kind == "search" else fq)[i],
+                                SERVE_K, None if kind == "search" else
+                                i % QDRANT_GROUPS), timeout=600))
+                        dt = time.perf_counter() - t
+                    else:
+                        code, out, dt = hc.call(
+                            "POST", "/collections/docs/points/search",
+                            rest_body(kind, i))
+                        assert code == 200, (kind, i, code, out)
+                        got[(kind, i)] = out["result"]
                     with sheds["mu"]:
-                        lat[kind].append(dt)
+                        lat[kind + (" grpc" if i % 2 else " rest")].append(dt)
             finally:
+                ch.close()
                 hc.close()
 
         work_s = [("search", i) for i in range(QDRANT_SEARCHES)]
@@ -7629,11 +8200,35 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
         launches_f = _launch_delta(K, c0)
         log(f"[phase18] (b) {QDRANT_SEARCHES} unfiltered searches from "
             f"{SERVE_CLIENTS} clients in {wall_s:.2f}s "
-            f"({QDRANT_SEARCHES / wall_s:.1f}/s), {_pcts(lat['search'])}, "
+            f"({QDRANT_SEARCHES / wall_s:.1f}/s), REST "
+            f"{_pcts(lat['search rest'])}, gRPC {_pcts(lat['search grpc'])}, "
             f"launches {json.dumps(launches_s)}; {QDRANT_FILTERED} "
-            f"group-filtered from 1 client in {wall_f:.2f}s, "
-            f"{_pcts(lat['filtered'])}, "
+            f"group-filtered from 1 client in {wall_f:.2f}s, REST "
+            f"{_pcts(lat['filtered rest'])}, gRPC "
+            f"{_pcts(lat['filtered grpc'])}, "
             f"launches {json.dumps(launches_f)}")
+        # each gRPC answer against REST's for the same request: same ids
+        # in the same order, scores equal at the wire's float32
+        t0 = time.perf_counter()
+        for kind, m in (("search", QDRANT_SEARCHES),
+                        ("filtered", QDRANT_FILTERED)):
+            for i in range(1, m, 2):
+                code, out, _ = cl.call("POST",
+                                       "/collections/docs/points/search",
+                                       rest_body(kind, i))
+                assert code == 200, out
+                g = got[(kind, i)]
+                assert [h["id"] for h in g] == [h["id"] for h in
+                                                out["result"]], (kind, i)
+                assert [h["score"] for h in g] == [
+                    float(np.float32(h["score"])) for h in out["result"]], (
+                    kind, i)
+                assert [h["payload"] for h in g] == [
+                    h["payload"] for h in out["result"]], (kind, i)
+        log(f"[phase18] (b) {QDRANT_SEARCHES // 2} unfiltered and "
+            f"{QDRANT_FILTERED // 2} filtered gRPC answers equal to REST's "
+            f"for the same request (ids in order, float32 scores, "
+            f"payloads); {time.perf_counter() - t0:.2f}s")
         t0 = time.perf_counter()
         tol = _decode_step(corpus)
         # bf16 scores against float32 ones: one bf16 step (2**-8 at 1.0)
@@ -7717,6 +8312,30 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
         assert seen == sorted(members, key=lambda p: (False, str(p))), (
             "scroll order")
         assert len(set(seen)) == len(seen) == want_g
+        # the same count and a first scroll page over gRPC; a page of
+        # QDRANT_GRPC_BATCH points: half the group (2,048 points x 1,024
+        # floats, 8.5 MB) passes the 4 MiB message limit, as with grpcio
+        gflt = Q._ld(2, Q._ld(1, Q._s(1, "group")
+                              + Q._ld(2, Q._vi(2, g))))
+        with grpcwire.Channel("127.0.0.1", qsrv.port) as ch:
+            count = Q._parse(ch.unary_unary("/qdrant.Points/Count")(
+                Q._s(1, "docs") + Q._ld(2, gflt), timeout=600))
+            assert Q._parse(count[1][0][1])[1][0][1] == want_g, count
+            raw = ch.unary_unary("/qdrant.Points/Scroll")(
+                Q._s(1, "docs") + Q._ld(2, gflt)
+                + Q._vi(4, QDRANT_GRPC_BATCH), timeout=600)
+        code, page, _ = cl.call("POST", "/collections/docs/points/scroll",
+                                {"limit": QDRANT_GRPC_BATCH, "filter": flt})
+        assert code == 200, page
+        grpc_page = qdrant_points(raw, 2)
+        assert [p["id"] for p in grpc_page] == [
+            p["id"] for p in page["result"]["points"]], "gRPC scroll"
+        assert Q.dec_point_id(Q._parse(raw)[1][0][1]) == \
+            page["result"]["next_page_offset"], "gRPC scroll offset"
+        for a, b in zip(grpc_page, page["result"]["points"]):
+            assert a["payload"] == b["payload"]
+            assert np.array_equal(np.asarray(a["vector"], np.float32),
+                                  np.asarray(b["vector"], np.float32))
         ids = [int(i) for i in rng.choice(n, 16, replace=False)]
         code, out, _ = cl.call("POST", "/collections/docs/points",
                                {"ids": ids})
@@ -7749,7 +8368,9 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
             "size": vecs.shape[1], "distance": "Cosine"}, out
         log(f"[phase18] (b) count of group {g} {want_g} in "
             f"{dt_count * 1e3:.1f}ms; scroll of it in {pages} pages "
-            f"{dt_scroll:.2f}s, every point once in _point_id order; "
+            f"{dt_scroll:.2f}s, every point once in _point_id order; the "
+            f"gRPC Count and a first Scroll page of {QDRANT_GRPC_BATCH} "
+            f"equal to REST's; "
             f"retrieve of 16: payloads and vectors as sent; delete of "
             f"{len(gone)}: count {n - len(gone)}, 16 searches by their own "
             f"vectors return none of them (launches "
@@ -7791,13 +8412,15 @@ def phase_qdrant(K, base: str, vecs: np.ndarray, words: list, seed: int,
         log(f"[phase18] (b) GraphQL createNode, updateNode, "
             f"createRelationship, deleteRelationship and deleteNode each "
             f"held to the storage; {time.perf_counter() - t0:.2f}s")
-        return launches_s["streaming_topk_bf16"]
+        return launches_s["streaming_topk_bf16"], rates
     finally:
         cl.close()
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        if qsrv is not None:
+            qsrv.stop()
         http.stop()
         db.close()
 
@@ -7921,9 +8544,10 @@ def states(*children) -> str:
 def card_child(work: str, phases: list, seed: int, profile_dir: str) -> None:
     """``CardChild``'s process: the parent's matmul precision, its own
     device owner, then each of ``phases`` ("5", "109" for 10.9's
-    offloads, "12", "16b") in order, as the parent would run it.
+    offloads, "12", "16b", "19") in order, as the parent would run it.
     Its last line is the result: phase 5's kernel entries and launches,
-    the generated tokens and sheds of its engines, its owner's state
+    phase 19's numbers, the generated tokens and sheds of its engines,
+    its owner's state
     (READY throughout, no degrade). Then it stops the owner and leaves
     with ``os._exit`` (see ``qdrant_child``)."""
     import torch
@@ -7946,6 +8570,8 @@ def card_child(work: str, phases: list, seed: int, profile_dir: str) -> None:
             phase_graph(seed)
         elif ph == "16b":
             phase_gds_write(K, seed)
+        elif ph == "19":
+            result["decay"] = phase_decay(K, decay_vectors(seed), seed)
         else:
             raise ValueError(ph)
         gc.collect()
@@ -8196,7 +8822,8 @@ def main() -> int:
     # every record; the card idles), waited for before 10.2
     prof = out_dir if args.profile else ""
     gen5 = CardChild("5-109", ["5", "109"], args.seed, prof).start(served)
-    graphs = CardChild("16b-12", ["16b", "12"], args.seed, prof).start(
+    graphs = CardChild("16b-12-19", ["16b", "12", "19"], args.seed,
+                       prof).start(
         delay=CHILD_DELAY_S)
     try:
         t0 = time.perf_counter()
@@ -8252,7 +8879,7 @@ def main() -> int:
         phase_gds_apoc(K, db, args.seed)
         log(f"[phase16] {time.perf_counter() - t0:.1f}s")
         probe_mark("phase 16")
-        qdrant18 = None
+        qdrant18 = children = decay_cli = None
         try:
             t0 = time.perf_counter()
             phase_rag(K, args.seed, served, hybrid)
@@ -8265,11 +8892,9 @@ def main() -> int:
             log(f"[phase17] (a) {time.perf_counter() - t0:.1f}s")
             t1 = time.perf_counter()
             children = ServeChildren().start()
-            try:
-                phase_serve_cli(K, children)
-                log(f"[phase17] (b) {time.perf_counter() - t1:.1f}s")
-            finally:
-                children.close()
+            atexit.register(children.close)
+            phase_serve_cli(K, children)
+            log(f"[phase17] (b) {time.perf_counter() - t1:.1f}s")
             log(f"[phase17] {time.perf_counter() - t0:.1f}s")
             probe_mark("phase 17")
             # -- phase 18: GraphQL over this DB here, alone, then Qdrant
@@ -8282,6 +8907,9 @@ def main() -> int:
             qdrant18 = QdrantChild(args.seed).start(served)
             atexit.register(qdrant18.close)
             probe_mark("phase 18(a)")
+            # phase 19's decay commands over 17(b)'s data directory, in
+            # the background beside the close
+            decay_cli = children
         finally:
             fired = hybrid["learned"]["fired"]
             t0 = time.perf_counter()
@@ -8292,6 +8920,8 @@ def main() -> int:
             log(f"[phase10] after phase 9: "
                 + cluster_report(fired, hybrid["learned"]["t0"]))
             t0 = time.perf_counter()
+            if decay_cli is not None:
+                decay_cli.start_decay()
             beside = states(qdrant18)
             db.close()
             # phase 9 set the process default the engine was built from
@@ -8305,6 +8935,11 @@ def main() -> int:
                 f"and the generation engine stopped; close-time snapshot "
                 f"{os.path.getsize(snap)} bytes; at its start {beside}, "
                 f"at its end {states(qdrant18)})")
+            if decay_cli is not None:
+                log("[phase19] " + decay_cli.collect_decay(
+                    SERVE_DOCS + SERVE_QDRANT_POINTS))
+            if children is not None:
+                children.close()
     finally:
         served["engine"].stop()
     texts8, rate8 = served["texts"], served["embeddings_per_s"]

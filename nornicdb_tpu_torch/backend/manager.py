@@ -130,25 +130,27 @@ class RealHooks:
     """Actual CUDA operations. Every method may block (that is the point:
     they only ever run on the manager's worker thread).
 
-    ``probe`` runs a tiny kernel on the manager's own stream and waits on
-    that stream's event only, so other threads' queued work (a train step,
-    a search batch) does not count against the probe's latency threshold.
-    It moves no bytes between host and card: a copy queues behind other
-    threads' transfers on the copy engines, which is load, not health."""
+    ``probe`` replays a CUDA graph of a tiny kernel between two timing
+    events on the manager's own stream and waits on that stream's event
+    only, so other threads' queued work (a train step, a search batch)
+    does not count against the probe's latency threshold. It moves no
+    bytes between host and card: a copy queues behind other threads'
+    transfers on the copy engines, which is load, not health."""
 
     def __init__(self, index: int = 0):
         self.index = index
         self.stream = None  # torch.cuda.Stream, made at touch
-        # buffers and timing events, made once at touch: a probe allocates
-        # nothing, so it never waits on the allocator (an emptied cache
-        # would make it call cudaMalloc)
+        # buffers, timing events and the probe's graph, made once at
+        # touch: a probe allocates nothing, so it never waits on the
+        # allocator (an emptied cache would make it call cudaMalloc)
         self._host = self._dev = self._out = self._back = None
-        self._start = self._end = None
-        self.last_event_s = self.last_enqueue_s = 0.0
+        self._start = self._end = self._graph = None
+        self.last_event_s = 0.0
 
     def touch(self) -> dict:
-        """Acquire: CUDA init, the device list, and a tiny host -> device
-        -> host round trip on the manager's stream, its value checked."""
+        """Acquire: CUDA init, the device list, a tiny host -> device ->
+        host round trip on the manager's stream, its value checked, and
+        the probe's graph captured on that stream."""
         import torch
 
         torch.cuda.init()
@@ -160,8 +162,9 @@ class RealHooks:
             with torch.cuda.stream(self.stream):
                 self._dev = torch.empty(8, dtype=torch.float32, device=dev)
                 self._out = torch.empty_like(self._dev)
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._end = torch.cuda.Event(enable_timing=True)
+            # external: captured as event-record nodes of the graph
+            self._start = torch.cuda.Event(enable_timing=True, external=True)
+            self._end = torch.cuda.Event(enable_timing=True, external=True)
         self._host = torch.ones(8, dtype=torch.float32).pin_memory()
         self._back = torch.empty(8, dtype=torch.float32).pin_memory()
         with torch.cuda.stream(self.stream):
@@ -171,34 +174,39 @@ class RealHooks:
         self.stream.synchronize()
         if float(self._back[0]) != 2.0:
             raise RuntimeError("device round trip returned a wrong value")
+        # captured on this stream alone ("thread_local": other threads'
+        # CUDA calls go on), with no device-wide synchronize
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.stream(self.stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._start.record(self.stream)
+                torch.add(self._dev, 1.0, out=self._out)
+                self._end.record(self.stream)
+            finally:
+                graph.capture_end()
+        self._graph = graph
         return {"platform": "cuda", "device_count": count, "name": name,
                 "index": self.index}
 
     def probe(self) -> float:
-        """One tiny kernel on the manager's stream between two timing
-        events; returns the device seconds between them less the host's
-        seconds from the first record's return to the second's. The card
-        reaches the first event at once and then waits for the launch, so
-        a host stall between the records (another thread holding the
-        interpreter lock) would show as device time while the card idles;
-        a stall before the first record is in neither span. Raises if the
-        device is unhealthy (a sticky CUDA error raises here on every
-        probe); a hung device never returns, and the manager's
-        ``probe_timeout`` walks away. ``last_event_s`` and
-        ``last_enqueue_s`` keep the two terms."""
+        """One replay of the probe's graph; returns the device seconds
+        between its two events. One graph launch enqueues both events and
+        the kernel between them, so no host stall (another thread holding
+        the interpreter lock, a garbage collection) can come between them
+        and read as device time. Raises if the device is unhealthy (a
+        sticky CUDA error raises here on every probe); a hung device never
+        returns, and the manager's ``probe_timeout`` walks away.
+        ``last_event_s`` keeps the span."""
         import torch
 
-        if self.stream is None:
+        if self._graph is None:
             raise RuntimeError("probe before touch")
         with torch.cuda.stream(self.stream):
-            self._start.record(self.stream)
-            t0 = time.perf_counter()
-            torch.add(self._dev, 1.0, out=self._out)
-            self._end.record(self.stream)
-            self.last_enqueue_s = time.perf_counter() - t0
+            self._graph.replay()
         self._end.synchronize()
         self.last_event_s = self._start.elapsed_time(self._end) / 1e3
-        return max(self.last_event_s - self.last_enqueue_s, 0.0)
+        return self.last_event_s
 
 
 class FakeHooks:

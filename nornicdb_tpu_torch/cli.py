@@ -2,17 +2,19 @@
 
 The counterpart of ``nornicdb_tpu/cli.py``, one subcommand at a time as the
 slices port what each drives. Ported: ``serve`` (HTTP, with GraphQL and
-the Qdrant REST API, and Bolt over the port's DB), ``init``, ``shell``,
-``import``, ``export``, ``backup``, ``restore``, ``eval`` and ``train``.
-``--device`` is the port's device argument: it defaults to the card
-(CUDA) and names the CPU only when asked (``--device cpu``). Not ported
-yet: ``decay`` (ROADMAP A6c), ``dataset`` and ``kmeans-test-data`` (A8).
+the Qdrant REST API, Bolt over the port's DB, and with
+``NORNICDB_QDRANT_GRPC_ENABLED`` / ``NORNICDB_GRPC_ENABLED`` the Qdrant
+gRPC services and the native gRPC search, on the port's own gRPC
+transport, ``server/grpcwire.py``, so no grpcio is needed), ``init``,
+``shell``, ``import``, ``export``, ``backup``, ``restore``, ``eval``,
+``decay``, ``train`` and ``oauth-provider``. ``--device`` is the port's
+device argument: it defaults to the card (CUDA) and names the CPU only
+when asked (``--device cpu``). Not ported yet: ``dataset`` and
+``kmeans-test-data`` (ROADMAP A8).
 
 ``serve`` refuses what is not ported yet, rather than ignoring it:
-``NORNICDB_QDRANT_GRPC_ENABLED`` and ``NORNICDB_GRPC_ENABLED`` (ROADMAP
-A6b-2) and prefork workers, ``--workers`` or ``workers.http`` /
-``workers.grpc`` above 0 (A6d), exit non-zero with a message naming the
-item.
+prefork workers, ``--workers`` or ``workers.http`` / ``workers.grpc``
+above 0 (A6d), exit non-zero with a message naming the item.
 """
 
 from __future__ import annotations
@@ -41,10 +43,6 @@ def _open_db(args, device):
 
 def _refuse_unported(args, app_cfg) -> None:
     """Exit non-zero on a surface that is not ported yet."""
-    for var in ("NORNICDB_QDRANT_GRPC_ENABLED", "NORNICDB_GRPC_ENABLED"):
-        if os.environ.get(var, "").lower() in _TRUTHY:
-            raise SystemExit(f"{var} is set, but the gRPC servers are not "
-                             "ported yet (ROADMAP A6b-2)")
     n_http = (args.workers if args.workers is not None
               else app_cfg.workers.http)
     if n_http > 0 or app_cfg.workers.grpc > 0:
@@ -69,7 +67,11 @@ def cmd_serve(args) -> int:
     config and telemetry, the device owner, the DB, the embedder (with the
     student gate) behind ``ServingEngine`` and ``CachedEmbedder``, the
     generation engine's warm-up, the ``--auth`` admin user, HTTP and
-    Bolt, and a shutdown on SIGINT / SIGTERM that closes the DB."""
+    Bolt, the Qdrant gRPC services (``NORNICDB_QDRANT_GRPC_ENABLED``, port
+    ``NORNICDB_QDRANT_GRPC_PORT``, 6334) over the DB's one Qdrant registry
+    and the native gRPC search (``NORNICDB_GRPC_ENABLED``, port
+    ``NORNICDB_GRPC_PORT``, 50051), and a shutdown on SIGINT / SIGTERM
+    that stops every server and closes the DB."""
     import nornicdb_tpu_torch.telemetry as telemetry
     from nornicdb_tpu_torch.auth import ROLE_ADMIN, Authenticator
     from nornicdb_tpu_torch.config import load as load_app_config
@@ -206,9 +208,39 @@ def cmd_serve(args) -> int:
         session_executor_factory=db.session_executor,
     )
     bolt_server.start()
+    # Qdrant gRPC on :6334, feature-flagged like the reference
+    # (NORNICDB_QDRANT_GRPC_ENABLED, ref: server.go feature flag)
+    qdrant_server = None
+    if os.environ.get("NORNICDB_QDRANT_GRPC_ENABLED", "").lower() in _TRUTHY:
+        from nornicdb_tpu_torch.server.qdrant_grpc import QdrantGrpcServer
+
+        qdrant_server = QdrantGrpcServer(
+            http_server.qdrant,  # shared registry: REST + gRPC, one index
+            host=args.host,
+            port=int(os.environ.get("NORNICDB_QDRANT_GRPC_PORT", "6334")),
+            authenticator=authenticator,
+            snapshot_dir=os.path.join(args.data_dir, "qdrant-snapshots")
+            if args.data_dir else None,
+        )
+        qdrant_server.start()
+    # native gRPC search on :50051, feature-flagged like the reference's
+    # nornicgrpc service (ref: search_service.go)
+    grpc_server = None
+    if os.environ.get("NORNICDB_GRPC_ENABLED", "").lower() in _TRUTHY:
+        from nornicdb_tpu_torch.server.grpc_search import GrpcSearchServer
+
+        grpc_server = GrpcSearchServer(
+            db, host=args.host,
+            port=int(os.environ.get("NORNICDB_GRPC_PORT", "50051")),
+        )
+        grpc_server.start()
     print(f"NornicDB-TPU serving: bolt://{args.host}:{bolt_server.port} "
-          f"http://{args.host}:{http_server.port} on {device} "
-          f"(data: {args.data_dir or 'memory'})", flush=True)
+          f"http://{args.host}:{http_server.port}"
+          + (f" qdrant-grpc://{args.host}:{qdrant_server.port}"
+             if qdrant_server else "")
+          + (f" grpc://{args.host}:{grpc_server.port}"
+             if grpc_server else "")
+          + f" on {device} (data: {args.data_dir or 'memory'})", flush=True)
 
     stop = []
     signal.signal(signal.SIGINT, lambda *a: stop.append(1))
@@ -218,6 +250,10 @@ def cmd_serve(args) -> int:
             time.sleep(0.2)
     finally:
         print("shutting down...", flush=True)
+        if grpc_server is not None:
+            grpc_server.stop()
+        if qdrant_server is not None:
+            qdrant_server.stop()
         bolt_server.stop()
         http_server.stop()
         db.close()
@@ -360,6 +396,30 @@ def cmd_eval(args) -> int:
         db.close()
 
 
+def cmd_decay(args) -> int:
+    """(ref: nornicdb decay {recalculate,archive,stats})"""
+    db = _open_db(args, _device(args))
+    try:
+        if args.action == "recalculate":
+            scored, archived = db.decay.recalculate_all()
+            print(f"scored {scored} nodes, archived {archived}")
+        elif args.action == "stats":
+            print(json.dumps(vars(db.decay.stats)))
+        elif args.action == "archive":
+            nodes = db.decay.archived_nodes()
+            print(f"{len(nodes)} archived nodes")
+    finally:
+        db.close()
+    return 0
+
+
+def cmd_oauth_provider(args) -> int:
+    """The standalone OAuth 2.0 test provider (ref: cmd/oauth-provider)."""
+    from nornicdb_tpu_torch.server.oauth_provider import main as provider_main
+
+    return provider_main(args.port, args.client_id, args.client_secret)
+
+
 def cmd_train(args) -> int:
     """Train an in-image checkpoint (``models/pretrain.py``) with the JAX
     package's presets, and print its stats as one JSON line."""
@@ -451,6 +511,9 @@ def main(argv=None) -> int:
     s.add_argument("--embed-dims", type=int, default=256)
     s.add_argument("--thresholds", default="", help='JSON e.g. {"mrr": 0.8}')
 
+    s = db_command("decay", cmd_decay, "memory decay operations")
+    s.add_argument("action", choices=["recalculate", "archive", "stats"])
+
     s = sub.add_parser(
         "train",
         help="train in-image model checkpoints (assistant decoder via LM "
@@ -465,6 +528,16 @@ def main(argv=None) -> int:
                    help="torch device to train on (default: cuda; 'cpu' only "
                         "when named)")
     s.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser(
+        "oauth-provider",
+        help="run the standalone OAuth 2.0 test provider "
+             "(ref: cmd/oauth-provider — local OAuth integration testing)",
+    )
+    s.add_argument("--port", type=int, default=8888)
+    s.add_argument("--client-id", default="nornicdb-local-test")
+    s.add_argument("--client-secret", default="local-test-secret-123")
+    s.set_defaults(fn=cmd_oauth_provider)
 
     args = p.parse_args(argv)
     return args.fn(args)

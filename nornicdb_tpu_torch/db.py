@@ -38,12 +38,15 @@ on its device.
 
 ``qdrant_registry`` is the one ``QdrantCollections`` of the DB: each
 collection's corpus sits on the DB's device behind the device owner's
-gate, and the HTTP server's ``/collections*`` routes share it.
+gate, and the HTTP server's ``/collections*`` routes and the Qdrant gRPC
+services share it.
 
-Not ported yet: ``decay`` and ``temporal`` (ROADMAP A6c).
-``Config.decay_enabled`` (default False) is refused until decay is
-ported. The servers (``server/``) and ``python -m nornicdb_tpu_torch
-serve`` drive this facade.
+``decay`` is the DB's ``DecayManager`` (host code, as in JAX); with
+``Config.decay_enabled`` the DB starts its periodic recalculation at
+open and ``close`` stops it. ``temporal`` is a ``TemporalTracker`` made
+at first use; from then on ``touch`` (and so ``recall`` and
+``remember``) records each access in it. The servers (``server/``) and
+``python -m nornicdb_tpu_torch serve`` drive this facade.
 
 Behavioral reference: the upstream NornicDB pkg/nornicdb/db.go (Open :750,
 DB :434, Store/Recall/Remember/Link/Neighbors/Forget :1365-1776).
@@ -102,7 +105,7 @@ class Config:
     embed_chunk_tokens: int = 512
     embed_chunk_overlap: int = 50
     embed_workers: int = 1
-    # decay (ROADMAP A6c: True is refused until decay is ported)
+    # decay
     decay_enabled: bool = False
     decay_interval: float = 3600.0
     archive_threshold: float = 0.05
@@ -131,9 +134,6 @@ class DB:
         # resolved before anything is opened: no card, no data directory
         self.device = resolve_device(device)
         self.config = config or Config()
-        if self.config.decay_enabled:
-            raise ValueError("memory decay is not ported yet (ROADMAP A6c); "
-                             "open with Config(decay_enabled=False)")
         self.data_dir = data_dir
         self._base_storage: Engine = open_storage(
             data_dir,
@@ -170,6 +170,11 @@ class DB:
         self._graphrag = None
         self._vectorspaces = None
         self._qdrant = None
+        self._decay = None
+        self._decay_started = False
+        self._temporal = None
+        if self.config.decay_enabled:
+            _ = self.decay  # starts the periodic recalculation ticker
 
     @staticmethod
     def _migrate_unprefixed(base: Engine, namespace: str) -> None:
@@ -541,6 +546,40 @@ class DB:
         return self._graphrag
 
     @property
+    def decay(self):
+        """The DecayManager over the default database, with the config's
+        ``archive_threshold`` and ``decay_interval``; its ticker runs when
+        ``decay_enabled`` (ref: decay.Start decay.go:643)."""
+        with self._lock:
+            if self._decay is None:
+                from nornicdb_tpu_torch.decay.decay import (
+                    DecayConfig,
+                    DecayManager,
+                )
+
+                self._decay = DecayManager(
+                    self.storage,
+                    config=DecayConfig(
+                        archive_threshold=self.config.archive_threshold,
+                        interval=self.config.decay_interval,
+                    ),
+                )
+            if self.config.decay_enabled and not self._decay_started:
+                self._decay.start()
+                self._decay_started = True
+            return self._decay
+
+    @property
+    def temporal(self):
+        """The TemporalTracker that ``touch`` feeds once it exists."""
+        with self._lock:
+            if self._temporal is None:
+                from nornicdb_tpu_torch.temporal.tracker import TemporalTracker
+
+                self._temporal = TemporalTracker()
+            return self._temporal
+
+    @property
     def inference(self):
         """The auto-TLP InferenceEngine over the default database, its
         similarity lookup the search service's vector leg."""
@@ -631,6 +670,8 @@ class DB:
         node = self.storage.get_node(node_id)
         node.access_count += 1
         node.last_accessed = time.time()
+        if self._temporal is not None:
+            self._temporal.record_access(node_id)
         return self.storage.update_node(node)
 
     def link(
@@ -813,6 +854,8 @@ class DB:
             # queued embed requests fail fast with ClosedError instead of
             # stranding callers
             engine.stop()
+        if self._decay is not None:
+            self._decay.stop()
         if self._search is not None:
             # the write-behind uploader and the batcher's dispatcher
             self._search.shutdown()

@@ -1,11 +1,13 @@
 """Protocol servers of the port (``nornicdb_tpu/server``): Bolt (Neo4j
 drivers) and HTTP (the Neo4j transaction API, search, auth, admin,
 metrics, MCP, the console, GraphQL in ``graphql`` and the Qdrant REST
-API in ``qdrant``), and the PackStream codec.
+API in ``qdrant``), the PackStream codec, the Qdrant gRPC services
+(``qdrant_grpc``) and the native gRPC search (``grpc_search``) on the
+port's own unary gRPC over HTTP/2 (``grpcwire``, in place of grpcio), and
+the OAuth 2.0 test provider (``oauth_provider``).
 
-Not ported yet: the Qdrant gRPC services and native gRPC search (ROADMAP
-A6b-2), the device broker, the shared-memory read plane and the prefork
-workers (A6d). ``broker``, ``shm`` and ``grpc_search`` hold only the
+Not ported yet: the device broker, the shared-memory read plane and the
+prefork workers (ROADMAP A6d). ``broker`` and ``shm`` hold only the
 metric families those modules declare, so ``/metrics`` renders the JAX
 package's catalog.
 """

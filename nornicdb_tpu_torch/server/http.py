@@ -16,8 +16,8 @@ The port's copy of ``nornicdb_tpu/server/http.py``. Where it differs:
 - ``/graphql`` and ``/collections*`` (Qdrant REST) run on the DB's device:
   a GraphQL ``search`` / ``similar`` field and a collection search that
   meet a card that is not serving answer that 503 too, never a GraphQL
-  error with a 200 and never a host answer. The Qdrant gRPC and native
-  gRPC search services are not ported yet (ROADMAP A6b-2).
+  error with a 200 and never a host answer. The Qdrant gRPC services
+  (``qdrant_grpc.py``) share the ``/collections*`` registry.
 - ``/admin/tpu/status`` reports ``torch.cuda`` and the device owner, and
   never initialises CUDA itself.
 - A single process has no worker fleet (ROADMAP A6d): ``/metrics`` is the

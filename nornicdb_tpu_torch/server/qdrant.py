@@ -8,8 +8,8 @@ named-vector support; points indexed into the same search service
 (server.go:207).
 
 The Qdrant REST shapes are mounted on the HTTP server under
-/collections/* (this file). The Qdrant gRPC services are not ported yet
-(ROADMAP A6b-2).
+/collections/* (this file); the Qdrant gRPC services
+(``qdrant_grpc.py``) wrap the same registry.
 
 Where it differs from the JAX package: every corpus the registry builds
 is a ``DeviceCorpus`` on the registry's ``device`` (``None`` means CUDA;

@@ -9,6 +9,14 @@ short interval (~50ms in the reference); reads consult the overlay first so
 the engine is read-your-writes consistent; counts combine overlay + base
 (the reference grew dedicated regression tests for that:
 async_engine_count_flush_race_test.go, async_count_bug_test.go).
+
+Where it differs from the JAX package: a flush pops the overlay and
+applies it to the base outside the overlay's lock, and in JAX a read in
+that window finds neither the overlay entry nor the base's new value, so
+it returns the base's old version of an updated node or edge (a create's
+window is covered by a retry). Here the popped entries stay readable as
+the flush's in-flight set until the base holds them, so every read,
+update and create check sees the newest write.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ class AsyncEngine(Engine):
         self._edges: dict[str, object] = {}
         self._node_is_create: set[str] = set()
         self._edge_is_create: set[str] = set()
+        # what the running flush popped and has not yet applied to the base
+        self._inflight_nodes: dict[str, object] = {}
+        self._inflight_edges: dict[str, object] = {}
         self._flush_lock = threading.Lock()
         self._closed = False
         # trace hand-off across the flush hop: the FIRST writer into an
@@ -109,8 +120,8 @@ class AsyncEngine(Engine):
             node_creates = set(self._node_is_create)
             edges = list(self._edges.items())
             edge_creates = set(self._edge_is_create)
-            self._nodes.clear()
-            self._edges.clear()
+            self._inflight_nodes, self._nodes = self._nodes, {}
+            self._inflight_edges, self._edges = self._edges, {}
             self._node_is_create.clear()
             self._edge_is_create.clear()
             ctx, self._flush_ctx = self._flush_ctx, None
@@ -124,10 +135,14 @@ class AsyncEngine(Engine):
         # the batch leader's trace (first writer into this overlay window)
         # adopts the flush — a background drain still shows up in the
         # request trace that caused it
-        with _tracer.attach(ctx):
-            with _tracer.span("storage.flush", {"ops": n_ops}):
-                self._apply_ops(nodes, node_creates, edges, edge_creates)
-                self.base.flush()
+        try:
+            with _tracer.attach(ctx):
+                with _tracer.span("storage.flush", {"ops": n_ops}):
+                    self._apply_ops(nodes, node_creates, edges, edge_creates)
+                    self.base.flush()
+        finally:
+            with self._lock:
+                self._inflight_nodes, self._inflight_edges = {}, {}
         _FLUSH_HIST.observe(time.perf_counter() - t0)
         _FLUSH_OPS.inc(n_ops)
 
@@ -175,9 +190,18 @@ class AsyncEngine(Engine):
             self._flush_ctx = _tracer.capture()
 
     # -- nodes -------------------------------------------------------------
+    def _node_locked(self, node_id: str):
+        """The overlay's or the in-flight flush's entry, or None."""
+        val = self._nodes.get(node_id)
+        return self._inflight_nodes.get(node_id) if val is None else val
+
+    def _edge_locked(self, edge_id: str):
+        val = self._edges.get(edge_id)
+        return self._inflight_edges.get(edge_id) if val is None else val
+
     def create_node(self, node: Node) -> Node:
         with self._lock:
-            existing = self._nodes.get(node.id)
+            existing = self._node_locked(node.id)
             if existing is not None and existing is not _TOMBSTONE:
                 raise AlreadyExistsError(f"node {node.id} already exists")
             if existing is None:
@@ -195,23 +219,16 @@ class AsyncEngine(Engine):
 
     def get_node(self, node_id: str) -> Node:
         with self._lock:
-            val = self._nodes.get(node_id)
+            val = self._node_locked(node_id)
             if val is _TOMBSTONE:
                 raise NotFoundError(f"node {node_id} not found")
             if val is not None:
                 return val.copy()  # type: ignore[union-attr]
-        try:
-            return self.base.get_node(node_id)
-        except NotFoundError:
-            # a background flush may have popped the entry from the overlay
-            # but not yet applied it to the base; retry once the in-flight
-            # flush (if any) has drained
-            with self._flush_lock:
-                return self.base.get_node(node_id)
+        return self.base.get_node(node_id)
 
     def update_node(self, node: Node) -> Node:
         with self._lock:
-            val = self._nodes.get(node.id)
+            val = self._node_locked(node.id)
             if val is _TOMBSTONE:
                 raise NotFoundError(f"node {node.id} not found")
             if val is None:
@@ -252,7 +269,7 @@ class AsyncEngine(Engine):
         self.get_node(edge.start_node)
         self.get_node(edge.end_node)
         with self._lock:
-            existing = self._edges.get(edge.id)
+            existing = self._edge_locked(edge.id)
             if existing is not None and existing is not _TOMBSTONE:
                 raise AlreadyExistsError(f"edge {edge.id} already exists")
             if existing is _TOMBSTONE:
@@ -269,7 +286,7 @@ class AsyncEngine(Engine):
 
     def get_edge(self, edge_id: str) -> Edge:
         with self._lock:
-            val = self._edges.get(edge_id)
+            val = self._edge_locked(edge_id)
             if val is _TOMBSTONE:
                 raise NotFoundError(f"edge {edge_id} not found")
             if val is not None:
@@ -278,7 +295,7 @@ class AsyncEngine(Engine):
 
     def update_edge(self, edge: Edge) -> Edge:
         with self._lock:
-            val = self._edges.get(edge.id)
+            val = self._edge_locked(edge.id)
             if val is _TOMBSTONE:
                 raise NotFoundError(f"edge {edge.id} not found")
             if val is None:
@@ -290,20 +307,8 @@ class AsyncEngine(Engine):
         return stored.copy()
 
     def delete_edge(self, edge_id: str) -> None:
-        try:
-            self._delete_edge_once(edge_id)
-        except NotFoundError:
-            # a background flush may have popped the create from the overlay
-            # but not yet applied it to the base (same window get_node
-            # handles); drain the in-flight flush OUTSIDE self._lock —
-            # flush takes _flush_lock then _lock — and retry once
-            with self._flush_lock:
-                pass
-            self._delete_edge_once(edge_id)
-
-    def _delete_edge_once(self, edge_id: str) -> None:
         with self._lock:
-            val = self._edges.get(edge_id)
+            val = self._edge_locked(edge_id)
             if val is _TOMBSTONE:
                 raise NotFoundError(f"edge {edge_id} not found")
             entity = val.copy() if val is not None else self.base.get_edge(edge_id)

@@ -1,7 +1,10 @@
 """Import boundary and device policy of the PyTorch port (nornicdb_tpu_torch).
 
 The port imports torch and never jax or anything of the JAX package, and
-it never runs on the CPU unless the caller asks for it.
+it never runs on the CPU unless the caller asks for it. Neither the port
+nor ``chip_smoke.py`` imports ``grpc`` or ``google.protobuf``: the card's
+machine has neither, and the gRPC servers run on the port's own
+``server/grpcwire.py``.
 """
 
 import json
@@ -29,7 +32,9 @@ from nornicdb_tpu_torch.storage import MemoryEngine
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the device owner, the Cypher engine, GDS, APOC and the Kalman filters
-# (ROADMAP A4, A5a, A5b), the servers, auth and retention (A6a)
+# (ROADMAP A4, A5a, A5b), the servers, auth and retention (A6a), the gRPC
+# servers and their transport, OAuth (A6b-2), decay, temporal and the
+# audit log (A6c)
 NEW_MODULES = (
     "nornicdb_tpu_torch.backend",
     "nornicdb_tpu_torch.backend.manager",
@@ -76,7 +81,21 @@ NEW_MODULES = (
     "nornicdb_tpu_torch.auth",
     "nornicdb_tpu_torch.auth.auth",
     "nornicdb_tpu_torch.retention",
+    "nornicdb_tpu_torch.server.grpcwire",
+    "nornicdb_tpu_torch.server.qdrant_grpc",
+    "nornicdb_tpu_torch.server.oauth_provider",
+    "nornicdb_tpu_torch.decay",
+    "nornicdb_tpu_torch.decay.decay",
+    "nornicdb_tpu_torch.temporal",
+    "nornicdb_tpu_torch.temporal.tracker",
+    "nornicdb_tpu_torch.temporal.patterns",
+    "nornicdb_tpu_torch.temporal.evolution",
+    "nornicdb_tpu_torch.temporal.query_load",
+    "nornicdb_tpu_torch.temporal.decay_integration",
+    "nornicdb_tpu_torch.audit",
 )
+# what the card's machine does not have
+CARD_ABSENT = ("grpc", "google")
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
@@ -109,6 +128,36 @@ class TestImportBoundary:
         # nornicdb_tpu_torch itself starts with "nornicdb_tpu": match the dot
         assert not [m for m in mods
                     if m == "nornicdb_tpu" or m.startswith("nornicdb_tpu.")]
+
+    def test_no_grpcio_and_no_protobuf_at_import(self):
+        mods = _import_everything()["modules"]
+        assert not [m for m in mods if m == "grpc" or m.startswith("grpc.")
+                    or m.startswith("google.protobuf")]
+
+    def test_no_module_imports_grpcio_or_protobuf(self):
+        """A static scan of every import statement of every port module
+        and of ``chip_smoke.py``, function bodies included."""
+        import ast
+
+        files = [os.path.join(ROOT, "chip_smoke.py")]
+        for base, _, names in os.walk(os.path.join(ROOT,
+                                                   "nornicdb_tpu_torch")):
+            files += [os.path.join(base, n) for n in names
+                      if n.endswith(".py")]
+        assert len(files) > 100
+        for path in files:
+            tree = ast.parse(open(path).read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                else:
+                    continue
+                for name in names:
+                    top = name.split(".")[0]
+                    assert top not in CARD_ABSENT + (
+                        "jax", "jaxlib", "nornicdb_tpu"), (path, name)
 
     def test_every_module_imported(self):
         imported = set(_import_everything()["imported"])

@@ -1283,68 +1283,151 @@ def test_real_probe_runs_on_its_own_stream(card):
     assert 0.0 <= device_s < 0.1, device_s
 
 
-def test_real_probe_leaves_out_a_host_stall_between_its_events(
-        card, monkeypatch):
-    """A host stall between the probe's two events (another thread holding
-    the interpreter lock while the probe launches) leaves the card idle:
-    the events see it, the probe reports the device's own time."""
+def _hold_the_interpreter_lock(seconds: float) -> None:
+    """Sleep in libc through ``ctypes.PyDLL``, which keeps the interpreter
+    lock for the call: every other Python thread stalls meanwhile."""
+    import ctypes
+
+    ctypes.PyDLL(None).usleep(int(seconds * 1e6))
+
+
+def test_real_probe_leaves_out_a_host_stall_between_its_events(card):
+    """The probe's two events and its kernel reach the card in one graph
+    launch, so a host stall (another thread holding the interpreter lock
+    0.3 s at a time, as a garbage collection does) while the probe runs
+    reads as no device time."""
+    import threading
+
     from nornicdb_tpu_torch.backend import RealHooks
 
     hooks = RealHooks()
     hooks.touch()
-    real_add = torch.add
+    started, stop = threading.Event(), threading.Event()
 
-    def stalled_add(*a, **k):
-        t = time.perf_counter()
-        while time.perf_counter() - t < 0.3:
-            pass
-        return real_add(*a, **k)
+    def hog():
+        started.set()
+        while not stop.is_set():
+            _hold_the_interpreter_lock(0.3)
+            time.sleep(0.001)
 
-    monkeypatch.setattr(torch, "add", stalled_add)
-    device_s = hooks.probe()
-    monkeypatch.setattr(torch, "add", real_add)
-    assert hooks.last_event_s >= 0.3, hooks.last_event_s
-    assert hooks.last_enqueue_s >= 0.3, hooks.last_enqueue_s
-    assert 0.0 <= device_s < 0.05, device_s
+    thread = threading.Thread(target=hog, daemon=True)
+    thread.start()
+    started.wait()
+    walls, device = [], []
+    try:
+        t_end = time.perf_counter() + 1.5
+        while time.perf_counter() < t_end or len(walls) < 8:
+            t0 = time.perf_counter()
+            device.append(hooks.probe())
+            walls.append(time.perf_counter() - t0)
+    finally:
+        stop.set()
+        thread.join()
+    assert max(walls) >= 0.2, walls  # the stalls reached the probes
+    assert all(0.0 <= d < 0.05 for d in device), device
+    assert hooks.last_event_s == device[-1]
     assert 0.0 <= hooks.probe() < 0.05
+
+
+def _stalled_on_return(fn, seconds: float):
+    """``fn`` wrapped so that, once its C call is done and before it
+    returns, a second thread takes the interpreter lock and holds it
+    ``seconds``: the return waits for it, as it does when another thread
+    takes the lock that ``Event.record`` or a graph launch lets go of."""
+    import threading
+
+    def wrapped(*a, **k):
+        out = fn(*a, **k)
+        go, holding = threading.Event(), threading.Event()
+
+        def hog():
+            go.wait()
+            holding.set()
+            _hold_the_interpreter_lock(seconds)
+
+        thread = threading.Thread(target=hog, daemon=True)
+        thread.start()
+        go.set()
+        holding.wait()  # lets go of the lock; back only after the hold
+        thread.join()
+        return out
+
+    return wrapped
+
+
+def _probe_less_host_span(hooks, stall_s: float) -> tuple[float, float]:
+    """The probe as it was before the graph: the tiny kernel between two
+    timing events recorded one by one on the owner's stream, less the
+    host's seconds from the first record's return to the second's; a
+    thread holds the interpreter lock ``stall_s`` as the first record
+    returns. Returns (the probe's latency, its wall seconds)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    record_start = _stalled_on_return(start.record, stall_s)
+    t_wall = time.perf_counter()
+    with torch.cuda.stream(hooks.stream):
+        record_start(hooks.stream)
+        t0 = time.perf_counter()
+        torch.add(hooks._dev, 1.0, out=hooks._out)
+        end.record(hooks.stream)
+        enqueue_s = time.perf_counter() - t0
+    end.synchronize()
+    latency = max(start.elapsed_time(end) / 1e3 - enqueue_s, 0.0)
+    return latency, time.perf_counter() - t_wall
+
+
+def test_probe_reads_a_stall_at_the_start_return_as_device_time_only_without_the_graph(
+        card):
+    """A thread that takes the interpreter lock as the start event's
+    record returns holds the probe with that event already on the card.
+    Recorded one by one, the probe reads the stall as device time (the
+    host's span it takes off starts after the return); the graph probe,
+    stalled as its launch returns, reads the tiny kernel's time only."""
+    from nornicdb_tpu_torch.backend import RealHooks
+
+    hooks = RealHooks()
+    hooks.touch()
+    stall_s = 0.3
+    old, old_wall = _probe_less_host_span(hooks, stall_s)
+    assert old_wall >= 0.25, old_wall  # the stall reached the probe
+    assert old >= 0.25, old  # and read as device time
+    graph = hooks._graph
+
+    class StalledGraph:
+        replay = staticmethod(_stalled_on_return(graph.replay, stall_s))
+
+    hooks._graph = StalledGraph()
+    t0 = time.perf_counter()
+    new = hooks.probe()
+    new_wall = time.perf_counter() - t0
+    hooks._graph = graph
+    print(f"held {stall_s}s: recorded one by one {old:.6f}s "
+          f"(wall {old_wall:.6f}s), graph {new:.6f}s (wall {new_wall:.6f}s)")
+    assert new_wall >= 0.25, new_wall
+    assert 0.0 <= new < 0.05, new
 
 
 def test_real_probe_keeps_device_time_behind_a_stall_before_its_start(
         card, monkeypatch):
-    """A host stall BEFORE the probe's first event is in neither span: it
-    takes nothing off a device delay between the events (a ~0.2 s spin on
-    the probe's stream), which the probe reports."""
+    """A host stall before the probe takes nothing off a device delay
+    between its events (a ~0.2 s spin captured into the probe's graph),
+    which the probe reports."""
     from nornicdb_tpu_torch.backend import RealHooks
 
-    hooks = RealHooks()
-    hooks.touch()
     real_add = torch.add
-
-    class StalledStart:
-        def __init__(self, event):
-            self.event = event
-
-        def record(self, stream):
-            t = time.perf_counter()
-            while time.perf_counter() - t < 0.3:
-                pass
-            self.event.record(stream)
-
-        def elapsed_time(self, end):
-            return self.event.elapsed_time(end)
 
     def delayed_add(*a, **k):
         torch.cuda._sleep(400_000_000)  # ~0.2 s on the current stream
         return real_add(*a, **k)
 
-    hooks._start = StalledStart(hooks._start)
     monkeypatch.setattr(torch, "add", delayed_add)
-    device_s = hooks.probe()
+    hooks = RealHooks()
+    hooks.touch()
     monkeypatch.setattr(torch, "add", real_add)
-    assert hooks.last_enqueue_s < 0.1, hooks.last_enqueue_s
-    assert hooks.last_event_s >= 0.1, hooks.last_event_s
-    assert device_s >= 0.1, (device_s, hooks.last_event_s,
-                             hooks.last_enqueue_s)
+    _hold_the_interpreter_lock(0.3)
+    device_s = hooks.probe()
+    assert device_s >= 0.1, device_s
+    assert hooks.last_event_s == device_s
 
 
 # -- GDS and APOC through Cypher on the card -----------------------------------

@@ -7,8 +7,9 @@ package built from the probe's fixture. ``uuid.uuid4`` and ``time.time``
 are seeded counters and ``random`` is seeded for each package's pass, so
 both packages mint the same ids, read the same clock and draw the same
 random numbers: entities compare by id, labels (or type) and properties. Queries that read the clock (``timestamp()``,
-``datetime()`` and kin) or the decay manager (ROADMAP A6) compare their
-outcome, columns and row count only. Queries that call APOC, GDS or
+``datetime()`` and kin) compare their outcome, columns and row count
+only; ``nornicdb.decay.info()`` reads both packages' decay managers and
+compares in full. Queries that call APOC, GDS or
 the Kalman functions run in both packages and compare like every other
 query, and so do the procedure and function listings; PageRank's float32
 ranks agree within rtol 1e-5 (``index_add_`` against XLA's
@@ -52,7 +53,7 @@ CHUNKS = [(i, min(i + CHUNK, len(QUERIES)))
 _CLOCK = re.compile(
     r"timestamp\s*\(|datetime|date\s*\(|time\s*\(|duration\.|"
     r"localtime|localdatetime|now\s*\(|\.realtime|\.statement|"
-    r"\.transaction|dbms\.|db\.stats|db\.info|apoc\.date|decay",
+    r"\.transaction|dbms\.|db\.stats|db\.info|apoc\.date",
     re.IGNORECASE)
 
 

@@ -666,9 +666,19 @@ class TestDevicePolicy:
             db.close()
 
     def test_decay_refused_until_ported(self):
-        with pytest.raises(ValueError, match="A6"):
-            nornicdb_tpu_torch.open_db("", PConfig(decay_enabled=True),
-                                       device="cpu")
+        """Decay is no longer refused: the DB opens with the manager over
+        its storage and its ticker running, and ``close`` stops the
+        ticker. (The name dates from when the port refused decay, before
+        ROADMAP A6c; a failure here means decay failed to open or stop.)"""
+        db = nornicdb_tpu_torch.open_db("", PConfig(decay_enabled=True),
+                                        device="cpu")
+        try:
+            assert db.decay.storage is db.storage
+            assert db.decay._timer is not None and db.decay._timer.is_alive()
+        finally:
+            db.close()
+        db.decay._timer.join(timeout=5)
+        assert db.decay._stopped and not db.decay._timer.is_alive()
 
     def test_bad_checkpoint_falls_back_to_template(self, tmp_path,
                                                    monkeypatch):

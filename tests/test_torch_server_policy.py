@@ -16,8 +16,12 @@ nornicdb_tpu_torch serve``, on the CPU.
   ``Retry-After``, as in JAX.
 - ``/admin/tpu/status`` never initialises CUDA: with
   ``torch.cuda.is_initialized`` False it makes no device query.
-- ``serve`` refuses the flags of what is not ported (ROADMAP A6b-2, A6d),
-  refuses to start without a card unless ``--device cpu`` is named, gates
+- ``serve`` refuses the flags of what is not ported (prefork workers,
+  ROADMAP A6d), boots the native gRPC search and the Qdrant gRPC services
+  with ``NORNICDB_GRPC_ENABLED`` / ``NORNICDB_QDRANT_GRPC_ENABLED`` (on the
+  port's own transport, no grpcio; the Qdrant services share the REST
+  registry), refuses to start without a card unless ``--device cpu`` is
+  named, gates
   ``--embedder student`` on its eval MRR, and with ``--auth`` refuses
   unauthenticated requests on HTTP and Bolt, then exits 0 on SIGTERM
   after closing the DB.
@@ -347,8 +351,6 @@ def _serve_env(**extra):
 
 
 @pytest.mark.parametrize("args,env,needle", [
-    (["--device", "cpu"], {"NORNICDB_GRPC_ENABLED": "1"}, "A6b"),
-    (["--device", "cpu"], {"NORNICDB_QDRANT_GRPC_ENABLED": "true"}, "A6b"),
     (["--device", "cpu", "--workers", "2"], {}, "A6d"),
     (["--device", "cpu"], {"NORNICDB_WORKERS_HTTP": "2"}, "A6d"),
     (["--device", "cpu"], {"NORNICDB_WORKERS_GRPC": "1"}, "A6d"),
@@ -371,6 +373,82 @@ def test_serve_refuses_unported_surfaces(tmp_path, monkeypatch, args, env,
                   "0", *args])
     assert e.value.code != 0 and f"ROADMAP {needle}" in str(e.value.code)
     assert not (tmp_path / "d").exists()
+
+
+@pytest.mark.parametrize("env,schemes", [
+    ({"NORNICDB_GRPC_ENABLED": "1"}, ("grpc",)),
+    ({"NORNICDB_GRPC_ENABLED": "yes", "NORNICDB_QDRANT_GRPC_ENABLED": "true"},
+     ("qdrant-grpc", "grpc")),
+])
+def test_serve_boots_the_grpc_servers(tmp_path, env, schemes):
+    from nornicdb_tpu_torch.server import grpcwire
+    from nornicdb_tpu_torch.server.grpc_search import search_over_grpc
+    from nornicdb_tpu_torch.server.qdrant_grpc import (
+        _ld, _packed_f32, _parse, _s, _vi, dec_point_id, enc_point_id,
+        enc_vectors)
+
+    data = tmp_path / "d"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nornicdb_tpu_torch", "serve", "--device",
+         "cpu", "--embedder", "hash", "--embed-dims", str(DIMS),
+         "--host", "127.0.0.1", "--data-dir", str(data),
+         "--http-port", "0", "--bolt-port", "0"],
+        cwd=str(tmp_path), env=_serve_env(
+            NORNICDB_GRPC_PORT="0", NORNICDB_QDRANT_GRPC_PORT="0", **env),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "NornicDB-TPU serving" in line, (line, proc.stderr.read()
+                                                if proc.poll() else "")
+        ports = {}
+        for word in line.split():
+            scheme, _, rest = word.partition("://127.0.0.1:")
+            if rest:
+                ports[scheme] = int(rest)
+        assert tuple(k for k in ports if "grpc" in k) == schemes, line
+        http_port = ports["http"]
+        code, _, out = _request(http_port, "POST", "/db/neo4j/tx/commit", {
+            "statements": [{"statement": "CREATE (:Doc {content: "
+                            "'grpc served doc'})"}]})
+        assert code == 200 and not out["errors"], out
+        deadline = time.monotonic() + 30
+        while True:
+            hits = search_over_grpc("127.0.0.1", ports["grpc"],
+                                    query="grpc served doc")["hits"]
+            if hits or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        assert hits and hits[0]["content"] == "grpc served doc"
+        if "qdrant-grpc" in ports:
+            with grpcwire.Channel("127.0.0.1", ports["qdrant-grpc"]) as ch:
+                cfg = _ld(1, _vi(1, 2) + _vi(2, 1))
+                ch.unary_unary("/qdrant.Collections/Create")(
+                    _s(1, "c") + _ld(10, cfg), timeout=10)
+                ch.unary_unary("/qdrant.Points/Upsert")(
+                    _s(1, "c") + _ld(3, _ld(1, enc_point_id(7))
+                                     + _ld(4, enc_vectors([1.0, 0.0]))),
+                    timeout=10)
+                # the REST routes share the registry, both ways
+                code, _, out = _request(http_port, "PUT",
+                                        "/collections/c/points", {
+                                            "points": [{"id": 8, "vector":
+                                                        [0.0, 1.0]}]})
+                assert code == 200, out
+                f = _parse(ch.unary_unary("/qdrant.Points/Search")(
+                    _s(1, "c") + _packed_f32(2, [0.1, 1.0]) + _vi(4, 2),
+                    timeout=10))
+                ids = [dec_point_id(_parse(raw)[1][0][1]) for _, raw in f[1]]
+                assert ids == [8, 7]
+            code, _, out = _request(http_port, "POST",
+                                    "/collections/c/points/count", {})
+            assert code == 200 and out["result"] == {"count": 2}
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+        assert "shutting down" in proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_serve_refuses_to_start_without_a_card(tmp_path, monkeypatch):

@@ -4,10 +4,10 @@ protocol directly — same approach as the reference's javascript_compat_test),
 HTTP tx API + search + MCP, auth.
 
 The port's copy of ``tests/test_servers.py``: the JAX cases with only their
-imports and the device argument (``device="cpu"``) changed. Left out,
-because what it drives is not ported yet (ROADMAP A6b-2):
-``TestGrpcSearch`` (4 cases: the native gRPC search service).
-``TestHttpEmbedders`` is in ``tests/test_torch_cli_embed.py``.
+imports and the device argument (``device="cpu"``) changed.
+``TestGrpcSearch`` (the native gRPC search service) is in
+``tests/test_torch_grpc_search.py``, ``TestHttpEmbedders`` in
+``tests/test_torch_cli_embed.py``.
 ``TestGraphqlAndQdrantRoutes`` holds ``/graphql`` and ``/collections*`` to
 the JAX server's answers.
 """

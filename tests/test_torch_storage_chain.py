@@ -295,6 +295,124 @@ class TestAsyncEngine:
         eng.close()
 
 
+class _HeldBase(MemoryEngine):
+    """A base whose writes wait on ``release`` once ``hold`` is set: a
+    flush's apply window, held open for as long as a test reads."""
+
+    def __init__(self):
+        super().__init__()
+        self.hold = threading.Event()
+        self.entered = threading.Event()
+        self.release = threading.Event()
+
+    def _wait(self):
+        if self.hold.is_set():
+            self.entered.set()
+            assert self.release.wait(10), "never released"
+
+    def create_node(self, node):
+        self._wait()
+        return super().create_node(node)
+
+    def update_node(self, node):
+        self._wait()
+        return super().update_node(node)
+
+    def create_edge(self, edge):
+        self._wait()
+        return super().create_edge(edge)
+
+    def update_edge(self, edge):
+        self._wait()
+        return super().update_edge(edge)
+
+
+class TestAsyncFlushWindow:
+    """Reads while a flush applies what it popped from the overlay: the
+    port keeps those writes readable until the base holds them (in JAX a
+    read in the window returns the base's older version; ROADMAP §C)."""
+
+    def _held(self):
+        base = _HeldBase()
+        eng = AsyncEngine(base, flush_interval=60)  # no background flush
+        return base, eng
+
+    def _flush_in_background(self, base, eng):
+        base.hold.set()
+        t = threading.Thread(target=eng.flush)
+        t.start()
+        assert base.entered.wait(10)
+        return t
+
+    def test_an_update_in_flight_is_read_back(self):
+        base, eng = self._held()
+        eng.create_node(Node(id="a", properties={"v": 1}))
+        eng.flush()
+        node = eng.get_node("a")
+        node.properties["v"] = 2
+        node.decay_score = 0.25
+        eng.update_node(node)
+        t = self._flush_in_background(base, eng)
+        try:
+            got = eng.get_node("a")  # the flush holds the update
+            assert got.properties["v"] == 2 and got.decay_score == 0.25
+            assert base.get_node("a").properties["v"] == 1  # not applied
+        finally:
+            base.release.set()
+            t.join()
+        assert base.get_node("a").properties["v"] == 2
+        eng.close()
+
+    def test_a_create_in_flight_is_found_updated_and_not_created_again(self):
+        base, eng = self._held()
+        eng.create_node(Node(id="a", properties={"v": 1}))
+        eng.create_node(Node(id="b"))
+        t = self._flush_in_background(base, eng)
+        try:
+            assert eng.get_node("a").properties["v"] == 1
+            with pytest.raises(AlreadyExistsError):
+                eng.create_node(Node(id="a"))
+            node = eng.get_node("a")
+            node.properties["v"] = 3
+            eng.update_node(node)  # lands after the create it follows
+        finally:
+            base.release.set()
+            t.join()
+        base.hold.clear()
+        eng.flush()
+        assert base.get_node("a").properties["v"] == 3
+        assert base.node_count() == 2
+        eng.close()
+
+    def test_an_edge_in_flight_is_read_updated_and_deleted(self):
+        base, eng = self._held()
+        eng.create_node(Node(id="a"))
+        eng.create_node(Node(id="b"))
+        eng.flush()
+        eng.create_edge(Edge(id="e", start_node="a", end_node="b",
+                             properties={"w": 1}))
+        t = self._flush_in_background(base, eng)
+        try:
+            assert eng.get_edge("e").properties["w"] == 1
+            with pytest.raises(AlreadyExistsError):
+                eng.create_edge(Edge(id="e", start_node="a", end_node="b"))
+            edge = eng.get_edge("e")
+            edge.properties["w"] = 2
+            eng.update_edge(edge)
+            assert eng.get_edge("e").properties["w"] == 2
+        finally:
+            base.release.set()
+            t.join()
+        base.hold.clear()
+        eng.flush()
+        assert base.get_edge("e").properties["w"] == 2
+        eng.delete_edge("e")
+        eng.flush()
+        with pytest.raises(NotFoundError):
+            base.get_edge("e")
+        eng.close()
+
+
 # ---------------------------------------------------------------- namespaced
 class TestNamespacedEngine:
     def test_isolation_between_namespaces(self):

@@ -576,6 +576,7 @@ def test_engine_families_match_jax():
     import nornicdb_tpu.search.batcher  # noqa: F401
     import nornicdb_tpu.search.service  # noqa: F401
     import nornicdb_tpu.server.bolt  # noqa: F401
+    import nornicdb_tpu.server.grpc_search  # noqa: F401
     import nornicdb_tpu.server.http  # noqa: F401
     import nornicdb_tpu.serving.stats  # noqa: F401
     import nornicdb_tpu.telemetry.costmodel  # noqa: F401
